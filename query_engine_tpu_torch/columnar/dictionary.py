@@ -1,0 +1,117 @@
+"""Order-preserving string dictionaries.
+
+The reference engine stores strings as Arrow Utf8 arrays and sorts/compares
+them with Arrow kernels (reference query-executor/src/operators.rs string
+paths). Variable-width data cannot live in device tensors, so every
+dictionary-typed column (Utf8, Json, ...) is encoded at ingest as int32 codes
+into a host-side **sorted** dictionary. Because the dictionary is sorted,
+code order == lexicographic order, and ORDER BY / comparisons / GROUP BY /
+joins on strings run on-device as plain int32 ops (SURVEY.md §7 hard-part #3).
+
+Merging two dictionaries (concat across batches, join across tables,
+cross-host exchange) produces the sorted union plus O(1)-gatherable remap
+planes for both sides.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+
+
+class Dictionary:
+    """An immutable sorted dictionary of Python strings."""
+
+    __slots__ = ("values", "_index")
+
+    def __init__(self, values: np.ndarray):
+        # values must be sorted & unique; callers use from_values/from_sorted.
+        self.values = values
+        self._index: Optional[dict] = None
+
+    @staticmethod
+    def from_values(values: Sequence[str]) -> Tuple["Dictionary", np.ndarray]:
+        """Build a sorted dictionary from raw values; returns (dict, codes).
+
+        None entries get code 0 (callers carry validity separately).
+        """
+        arr = np.asarray(
+            ["" if v is None else v for v in values], dtype=object
+        )
+        uniq, codes = np.unique(arr, return_inverse=True)
+        return Dictionary(uniq), codes.astype(np.int32)
+
+    @staticmethod
+    def from_sorted(values: np.ndarray) -> "Dictionary":
+        return Dictionary(values)
+
+    @staticmethod
+    def empty() -> "Dictionary":
+        return Dictionary(np.asarray([], dtype=object))
+
+    def __len__(self) -> int:
+        return len(self.values)
+
+    def __getitem__(self, code: int) -> str:
+        return self.values[code]
+
+    def index(self) -> dict:
+        if self._index is None:
+            self._index = {v: i for i, v in enumerate(self.values)}
+        return self._index
+
+    def code_of(self, value: str) -> int:
+        """Code for value, or -1 if absent."""
+        return self.index().get(value, -1)
+
+    def lower_bound(self, value: str) -> int:
+        """First code whose value >= `value` (for range predicates)."""
+        return int(np.searchsorted(self.values, value, side="left"))
+
+    def decode(self, codes: np.ndarray) -> np.ndarray:
+        if len(self.values) == 0:
+            out = np.empty(len(codes), dtype=object)
+            out.fill("")
+            return out
+        return self.values[np.clip(codes, 0, len(self.values) - 1)]
+
+    def merge(self, other: "Dictionary") -> Tuple["Dictionary", np.ndarray, np.ndarray]:
+        """Sorted union; returns (merged, remap_self, remap_other).
+
+        remap_X[old_code] -> new_code; gather these on-device to re-encode.
+        """
+        if self is other or (
+            len(self) == len(other) and np.array_equal(self.values, other.values)
+        ):
+            ident = np.arange(len(self), dtype=np.int32)
+            return self, ident, ident
+        union = np.union1d(self.values, other.values)
+        remap_self = np.searchsorted(union, self.values).astype(np.int32)
+        remap_other = np.searchsorted(union, other.values).astype(np.int32)
+        return Dictionary(union), remap_self, remap_other
+
+    def map_values(self, fn) -> Tuple["Dictionary", np.ndarray]:
+        """Apply a scalar string fn to every dictionary value (UPPER/LOWER/...).
+
+        The result dictionary must stay sorted, so we re-sort and return a
+        remap plane old_code -> new_code for the device gather.
+        """
+        mapped = np.asarray([fn(v) for v in self.values], dtype=object)
+        uniq, inverse = np.unique(mapped, return_inverse=True)
+        return Dictionary(uniq), inverse.astype(np.int32)
+
+
+def merge_many(dicts: List[Dictionary]) -> Tuple[Dictionary, List[np.ndarray]]:
+    """Sorted union of many dictionaries + a remap plane per input."""
+    if not dicts:
+        return Dictionary.empty(), []
+    if all(d is dicts[0] for d in dicts):
+        ident = np.arange(len(dicts[0]), dtype=np.int32)
+        return dicts[0], [ident] * len(dicts)
+    union = dicts[0].values
+    for d in dicts[1:]:
+        union = np.union1d(union, d.values)
+    merged = Dictionary(union)
+    remaps = [np.searchsorted(union, d.values).astype(np.int32) for d in dicts]
+    return merged, remaps

@@ -1,0 +1,95 @@
+"""Build and load the port's CUDA kernels.
+
+The sources in `query_engine_tpu_torch/csrc/*.cu` have a plain C interface.
+At first use, `load_library()` compiles them with nvcc for Hopper
+(`sm_90a`) into one shared library under `query_engine_tpu_torch/_build/`,
+named by a hash of the sources, and loads it with ctypes. A build that
+exists is reused. When nvcc is missing or fails, the call raises with the
+compiler's output; nothing falls back to another implementation.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from dataclasses import dataclass
+from pathlib import Path
+from typing import Optional
+
+_PKG = Path(__file__).resolve().parent.parent
+SRC_DIR = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+
+@dataclass
+class Built:
+    lib: ctypes.CDLL
+    path: Path
+    seconds: float  # nvcc wall time; 0.0 when an existing build was loaded
+    log: str        # nvcc's output (ptxas register and shared-memory use)
+
+
+_built: Optional[Built] = None
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    if CUDA_HOME and (Path(CUDA_HOME) / "bin" / "nvcc").exists():
+        return str(Path(CUDA_HOME) / "bin" / "nvcc")
+    raise RuntimeError(
+        "nvcc not found (neither on PATH nor under CUDA_HOME): the CUDA "
+        "kernels of query_engine_tpu_torch cannot be built"
+    )
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    f = lib.qe_group_sum_count_i64
+    f.argtypes = [p, p, p, i64, i32, i32, p, p, p]
+    f.restype = i32
+
+
+def load_library() -> Built:
+    """Build (if needed) and load the kernel library; cached per process."""
+    global _built
+    if _built is not None:
+        return _built
+    sources = sorted(SRC_DIR.glob("*.cu"))
+    h = hashlib.sha256()
+    for src in sources:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    out = BUILD_DIR / f"libqe_kernels_{h.hexdigest()[:16]}.so"
+    seconds, log = 0.0, ""
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        seconds = time.perf_counter() - t0
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed with exit code {proc.returncode}:\n"
+                f"{' '.join(cmd)}\n{log}"
+            )
+        os.replace(tmp, out)  # atomic: concurrent builds race harmlessly
+    lib = ctypes.CDLL(str(out))
+    _bind(lib)
+    _built = Built(lib, out, seconds, log)
+    return _built

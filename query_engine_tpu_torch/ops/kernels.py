@@ -1,0 +1,636 @@
+"""Vectorized operator kernels over fixed-capacity torch planes.
+
+The plain-torch counterparts of the `query_engine_tpu.ops.kernels`
+functions that the eager main path calls, with the same names and
+contracts: every function takes planes at a fixed capacity plus a live-row
+count (or a boolean selection mask) and returns planes, so the host reads a
+scalar only where an output size depends on the data (count-then-emit).
+
+Differences from the JAX package, all of representation, none of result:
+  * index planes (compaction indices, group ids, join emit indices,
+    permutations) are int64, torch's index dtype;
+  * a multi-operand stable sort is a chain of stable `torch.sort` calls
+    from the last key to the first (`_lexsort`);
+  * scatters that drop out-of-range targets write into a spill slot at the
+    end of an output one element longer, which is then sliced off;
+  * int64 segment sums are one `index_add_` (exact and order-independent);
+    float segment sums on a CUDA tensor go through the fixed-point path of
+    ops/group_agg.py with an int64 accumulator, so they give the same bits
+    on every run (a float64 `index_add_` on CUDA uses atomics whose order
+    changes the result).
+
+Nulls: SQL three-valued logic. Group keys: NULLs group together. Join keys:
+NULLs never match (each null row gets a unique negative rank).
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from query_engine_tpu_torch.ops import group_agg
+
+_I32_MIN = int(np.iinfo(np.int32).min)
+_I32_MAX = int(np.iinfo(np.int32).max)
+_I64_MIN = int(np.iinfo(np.int64).min)
+_I64_MAX = int(np.iinfo(np.int64).max)
+
+# ---------------------------------------------------------------------------
+# small utilities
+# ---------------------------------------------------------------------------
+
+
+def live_mask(capacity: int, num_rows, device="cpu") -> torch.Tensor:
+    """Boolean live-row plane. `num_rows` is either a row count (int or 0-d
+    tensor) or an explicit boolean selection mask, returned as it is."""
+    if isinstance(num_rows, torch.Tensor) and num_rows.dim() == 1 \
+            and num_rows.dtype == torch.bool:
+        return num_rows
+    if isinstance(num_rows, torch.Tensor):
+        device = num_rows.device
+    return torch.arange(capacity, device=device) < num_rows
+
+
+def _scatter_drop(size: int, index: torch.Tensor, src, fill, dtype,
+                  reduce: Optional[str] = None) -> torch.Tensor:
+    """out[index[i]] = src[i] (or reduced with `reduce`) into a `size`-long
+    plane initialised to `fill`; targets outside [0, size) are dropped."""
+    out = torch.full((size + 1,), fill, dtype=dtype, device=index.device)
+    tgt = torch.where((index >= 0) & (index < size), index,
+                      torch.full_like(index, size))
+    if not isinstance(src, torch.Tensor):
+        src = torch.full(index.shape, src, dtype=dtype, device=index.device)
+    src = src.to(dtype)
+    if reduce is None:
+        out.scatter_(0, tgt, src)
+    else:
+        out.scatter_reduce_(0, tgt, src, reduce=reduce, include_self=True)
+    return out[:size]
+
+
+def _segment_sum(values: torch.Tensor, segment_ids: torch.Tensor,
+                 num_segments: int) -> torch.Tensor:
+    """jax.ops.segment_sum: ids outside [0, num_segments) are dropped."""
+    ok = (segment_ids >= 0) & (segment_ids < num_segments)
+    out = torch.zeros(num_segments, dtype=values.dtype, device=values.device)
+    return out.index_add_(
+        0, torch.where(ok, segment_ids, torch.zeros_like(segment_ids)),
+        torch.where(ok, values, torch.zeros_like(values)),
+    )
+
+
+def _lexsort(operands: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Stable lexicographic sort permutation, operands[0] the major key
+    (lax.sort(operands + [iota], num_keys=len(operands), is_stable=True))."""
+    n = operands[0].shape[0]
+    perm = torch.arange(n, device=operands[0].device)
+    for key in reversed(list(operands)):
+        order = torch.sort(key[perm], stable=True).indices
+        perm = perm[order]
+    return perm
+
+
+def _f32_orderable_bits(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> int32 whose signed order matches float order (sign-flip
+    trick; the reference uses the same idea for its IndexKey,
+    query-index/src/types.rs:101-110)."""
+    bits = x.to(torch.float32).view(torch.int32)
+    return torch.where(bits < 0, _I32_MIN - bits, bits)
+
+
+def orderable_i64(data: torch.Tensor) -> torch.Tensor:
+    """Normalize a key column to a sortable plane preserving order and
+    equality: 32-bit-or-smaller lanes map to int32, int64 stays int64,
+    float64 stays float64 (torch sorts it natively)."""
+    if data.dtype == torch.float64:
+        return data
+    if data.is_floating_point():
+        return _f32_orderable_bits(data)
+    if data.dtype == torch.int64:
+        return data
+    return data.to(torch.int32)
+
+
+def from_orderable(y: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Inverse of orderable_i64 for value recovery (min/max results)."""
+    if dtype == torch.float64:
+        return y
+    if dtype == torch.float32:
+        bits = torch.where(y < 0, _I32_MIN - y, y).to(torch.int32)
+        return bits.view(torch.float32)
+    return y
+
+
+def normalize_key(data: torch.Tensor, validity: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(orderable key, null mask). Null data slots are zeroed so equal nulls
+    compare equal; callers add the null plane as a separate key."""
+    key = orderable_i64(data)
+    null = ~validity
+    return torch.where(null, torch.zeros_like(key), key), null
+
+
+def _u32_image(key: torch.Tensor) -> torch.Tensor:
+    """int32 orderable image -> its unsigned 32-bit position as int64."""
+    return key.to(torch.int64) - _I32_MIN
+
+
+# ---------------------------------------------------------------------------
+# sort
+# ---------------------------------------------------------------------------
+
+
+def _sort_key_operands(
+    key_datas: Sequence[torch.Tensor],
+    key_valids: Sequence[torch.Tensor],
+    ascs: Sequence[bool],
+    nulls_firsts: Sequence[bool],
+    pad: torch.Tensor,
+) -> List[torch.Tensor]:
+    """Sort operands for a multi-key sort with pad rows last. Per key: one
+    packed int64 operand when the orderable image is 32-bit, else (class,
+    key) pairs; the pad flag rides the first key's class plane (pad class 2
+    dominates null classes {0, 1})."""
+    operands: List[torch.Tensor] = []
+    for i, (data, valid, asc, nf) in enumerate(
+        zip(key_datas, key_valids, ascs, nulls_firsts)
+    ):
+        key, null = normalize_key(data, valid)
+        cls = torch.where(null, 0 if nf else 1, 1 if nf else 0)
+        if i == 0:
+            cls = torch.where(pad, 2, cls)
+        if key.dtype == torch.int32:
+            # unsigned 32-bit image; desc = reflect within the low word
+            u = _u32_image(key)
+            if not asc:
+                u = (2**32 - 1) - u
+            operands.append((cls.to(torch.int64) << 32) | u)
+        else:
+            if not asc:
+                # orderable int64 images of live data never hit INT64_MIN
+                key = -key
+            operands.append(cls)
+            operands.append(key)
+    if not operands:  # no keys: pad plane alone orders live-first
+        operands.append(pad.to(torch.int32))
+    return operands
+
+
+def sort_permutation(
+    key_datas: Sequence[torch.Tensor],
+    key_valids: Sequence[torch.Tensor],
+    ascs: Sequence[bool],
+    nulls_firsts: Sequence[bool],
+    num_rows,
+) -> torch.Tensor:
+    """Stable multi-key sort permutation: perm[out_pos] = in_row. Live rows
+    come first in the requested order; pad rows sink to the end. Ties keep
+    input order (Arrow lexsort_to_indices as used by the reference's
+    SortedMerge, query-distributed/src/operators.rs:180-193)."""
+    capacity = key_datas[0].shape[0]
+    pad = ~live_mask(capacity, num_rows, key_datas[0].device)
+    operands = _sort_key_operands(key_datas, key_valids, ascs,
+                                  nulls_firsts, pad)
+    return _lexsort(operands)
+
+
+# ---------------------------------------------------------------------------
+# filter / compaction
+# ---------------------------------------------------------------------------
+
+
+def filter_count(mask: torch.Tensor, num_rows) -> torch.Tensor:
+    m = mask & live_mask(mask.shape[0], num_rows, mask.device)
+    return m.sum(dtype=torch.int64)
+
+
+def compaction_indices(mask: torch.Tensor, num_rows, out_capacity: int
+                       ) -> torch.Tensor:
+    """Indices of mask-true live rows, compacted to the front of an
+    out_capacity-long index plane (cumsum + scatter: no host sync, unlike
+    `nonzero`). Slots past the count hold 0."""
+    capacity = mask.shape[0]
+    m = mask & live_mask(capacity, num_rows, mask.device)
+    pos = torch.cumsum(m.to(torch.int64), 0) - 1
+    rows = torch.arange(capacity, device=mask.device)
+    return _scatter_drop(out_capacity, torch.where(m, pos, -1), rows, 0,
+                         torch.int64)
+
+
+def gather_columns(
+    datas: Sequence[torch.Tensor],
+    valids: Sequence[torch.Tensor],
+    indices: torch.Tensor,
+    row_valid: Optional[torch.Tensor] = None,
+):
+    """Gather rows by index across columns; optional row_valid plane ANDs
+    into every column's validity (outer-join null padding)."""
+    out_d, out_v = [], []
+    for d, v in zip(datas, valids):
+        out_d.append(d[indices])
+        vv = v[indices]
+        if row_valid is not None:
+            vv = vv & row_valid
+        out_v.append(vv)
+    return out_d, out_v
+
+
+# ---------------------------------------------------------------------------
+# grouping
+# ---------------------------------------------------------------------------
+
+
+def _segment_ids_from_sorted(
+    sorted_keys: Sequence[torch.Tensor], pad_sorted: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Boundary flags + segment ids over rows already in sorted order.
+    Pad rows all fall into one trailing segment."""
+    capacity = pad_sorted.shape[0]
+    idx = torch.arange(capacity, device=pad_sorted.device)
+    change = idx == 0
+    for k in sorted_keys:
+        change = change | ((idx > 0) & (k != torch.roll(k, 1)))
+    change = change | (pad_sorted & ~torch.roll(pad_sorted, 1))
+    seg = torch.cumsum(change.to(torch.int64), 0) - 1
+    return change, seg
+
+
+def group_ids(
+    key_datas: Sequence[torch.Tensor],
+    key_valids: Sequence[torch.Tensor],
+    num_rows,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Dense group ids for GROUP BY keys (NULLs group together), by a joint
+    sort. Returns (group id per row [capacity], num_groups 0-d tensor,
+    representative row per group [capacity]). Ids are dense in sorted key
+    order."""
+    capacity = key_datas[0].shape[0]
+    device = key_datas[0].device
+    pad = ~live_mask(capacity, num_rows, device)
+    operands: List[torch.Tensor] = []
+    for i, (data, valid) in enumerate(zip(key_datas, key_valids)):
+        key, null = normalize_key(data, valid)
+        cls = null.to(torch.int32)
+        if i == 0:
+            cls = torch.where(pad, 2, cls)
+        if key.dtype == torch.int32:
+            operands.append((cls.to(torch.int64) << 32) | _u32_image(key))
+        else:
+            operands.append(cls)
+            operands.append(key)
+    sperm = _lexsort(operands)
+    sorted_keys = [op[sperm] for op in operands]
+    first = sorted_keys[0]
+    sorted_pad = (first >> 32) == 2 if first.dtype == torch.int64 \
+        else first == 2
+    change, seg = _segment_ids_from_sorted(sorted_keys, sorted_pad)
+    num_groups = (change & ~sorted_pad).sum(dtype=torch.int64)
+    gid = torch.zeros(capacity, dtype=torch.int64, device=device)
+    gid[sperm] = seg
+    # representative row (first in sorted order) for each group
+    rep = _scatter_drop(capacity, torch.where(change & ~sorted_pad, seg, -1),
+                        sperm, 0, torch.int64)
+    return gid, num_groups, rep
+
+
+def group_ids_direct(
+    key: torch.Tensor,
+    valid: torch.Tensor,
+    num_rows,
+    key_min: int,
+    num_buckets: int,
+):
+    """Sort-free grouping for a single integer key with a bounded range:
+    bucket = key - key_min, then densify over observed buckets. Same
+    contract and group order as group_ids: ids dense in key order, NULLs
+    one trailing group."""
+    capacity = key.shape[0]
+    device = key.device
+    lm = live_mask(capacity, num_rows, device)
+    nb = num_buckets + 1  # + null bucket
+    bucket = torch.where(
+        lm & valid,
+        (key.to(torch.int64) - key_min).clamp(0, num_buckets - 1),
+        torch.where(lm, num_buckets, nb),  # nulls -> last; pad -> dropped
+    )
+    counts = _segment_sum(lm.to(torch.int64), bucket.clamp(0, nb - 1), nb)
+    observed = counts > 0
+    dense = torch.cumsum(observed.to(torch.int64), 0) - 1  # bucket -> id
+    num_groups = observed.sum(dtype=torch.int64)
+    gid = dense[bucket.clamp(0, nb - 1)]
+    gid = torch.where(lm, gid, 0)
+    # representative row per dense group: min row index per bucket
+    rows = torch.arange(capacity, device=device)
+    rep_by_bucket = _scatter_drop(nb, torch.where(lm, bucket, nb), rows,
+                                  capacity, torch.int64, reduce="amin")
+    rep = _scatter_drop(capacity, torch.where(observed, dense, -1),
+                        rep_by_bucket.clamp(max=capacity - 1), 0, torch.int64)
+    return gid, num_groups, rep
+
+
+def key_range(key: torch.Tensor, valid: torch.Tensor, num_rows):
+    """(min, max, any_valid) of the live valid key values, as 0-d tensors
+    (for the direct grouping path; the caller reads them on the host)."""
+    lm = live_mask(key.shape[0], num_rows, key.device) & valid
+    big = _I32_MAX if key.dtype == torch.int32 else _I64_MAX
+    kmin = torch.where(lm, key, torch.full_like(key, big)).min()
+    kmax = torch.where(lm, key, torch.full_like(key, -big - 1)).max()
+    return kmin, kmax, lm.any()
+
+
+# ---------------------------------------------------------------------------
+# aggregation
+# ---------------------------------------------------------------------------
+
+
+def _segment_sum_float(data: torch.Tensor, ok: torch.Tensor,
+                       gid: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """Float segment sum. On the CPU: a float64 index_add, which is what the
+    JAX package computes there. On CUDA: dynamic-scale fixed point summed
+    in int64 (group_agg's prep and finish with the plain accumulator), so
+    the bits do not depend on atomic order."""
+    x = data.to(torch.float64)
+    if x.device.type == "cpu":
+        return _segment_sum(torch.where(ok, x, 0.0), gid, num_segments)
+    s, _ = group_agg.fixed_point_multi(
+        [(x, ok)], gid, num_segments, group_agg.accumulate_plain
+    )[0]
+    return s
+
+
+def segment_aggregate(
+    func: str,
+    data: Optional[torch.Tensor],
+    validity: Optional[torch.Tensor],
+    gid: torch.Tensor,
+    num_rows,
+    num_segments: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One aggregate over segments. Returns (values[num_segments],
+    valid[num_segments]).
+
+    func: count_star | count | sum | avg | min | max
+    Semantics parity (reference operators.rs:745-848): COUNT ignores nulls
+    (COUNT(*) counts rows), SUM/AVG/MIN/MAX ignore nulls and are NULL for
+    empty/all-null groups; SUM(int) accumulates in int64 (wrapping), AVG in
+    float64.
+    """
+    capacity = gid.shape[0]
+    device = gid.device
+    lm = live_mask(capacity, num_rows, device)
+    ones = torch.ones(num_segments, dtype=torch.bool, device=device)
+    if func == "count_star":
+        return _segment_sum(lm.to(torch.int64), gid, num_segments), ones
+    if data is None or validity is None:
+        raise ValueError(f"aggregate {func} needs a data and validity plane")
+    ok = lm & validity
+    cnt = _segment_sum(ok.to(torch.int64), gid, num_segments)
+    if func == "count":
+        return cnt, ones
+    has = cnt > 0
+    if func == "sum" or func == "avg":
+        if data.is_floating_point():
+            s = _segment_sum_float(data, ok, gid, num_segments)
+        else:
+            s = _segment_sum(torch.where(ok, data.to(torch.int64), 0), gid,
+                             num_segments)
+        if func == "avg":
+            return s.to(torch.float64) / cnt.clamp(min=1).to(torch.float64), has
+        return s, has
+    if func == "min" or func == "max":
+        out = _segment_extreme(data, ok, gid, num_segments, func == "min")
+        if data.is_floating_point():
+            out = out.to(torch.float64)
+        return out, has
+    raise ValueError(f"unknown aggregate {func}")
+
+
+def _segment_extreme(data: torch.Tensor, ok: torch.Tensor, gid: torch.Tensor,
+                     num_segments: int, is_min: bool) -> torch.Tensor:
+    """Exact segment min/max through the orderable image (one scatter
+    reduce; min/max do not depend on order). Results for empty groups are
+    the fill value; callers mask by the count plane."""
+    y = orderable_i64(data)
+    if y.dtype == torch.float64:
+        fill = float("inf") if is_min else float("-inf")
+    elif y.dtype == torch.int32:
+        fill = _I32_MAX if is_min else _I32_MIN
+    else:
+        fill = _I64_MAX if is_min else _I64_MIN
+    src = torch.where(ok, y, torch.full_like(y, fill))
+    g = _scatter_drop(num_segments, gid, src, fill, y.dtype,
+                      reduce="amin" if is_min else "amax")
+    out = from_orderable(g, data.dtype)
+    if not data.is_floating_point():
+        out = out.to(torch.int64)
+    return out
+
+
+def global_aggregate(
+    func: str,
+    data: Optional[torch.Tensor],
+    validity: Optional[torch.Tensor],
+    num_rows,
+    out_len: int = 128,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Ungrouped aggregate as a plain reduction. Returns [out_len] planes
+    with the result in slot 0 (the layout the executor slices)."""
+    ref = data if data is not None else validity
+    if ref is None:
+        raise ValueError("global_aggregate needs data or validity")
+    capacity, device = ref.shape[0], ref.device
+    lm = live_mask(capacity, num_rows, device)
+    ok = lm if (validity is None or data is None) else (lm & validity)
+    cnt = ok.sum(dtype=torch.int64)
+    if func in ("count_star", "count"):
+        out = torch.zeros(out_len, dtype=torch.int64, device=device)
+        out[0] = cnt
+        return out, torch.ones(out_len, dtype=torch.bool, device=device)
+    has = cnt > 0
+    if func in ("sum", "avg"):
+        if func == "avg" or data.is_floating_point():
+            tot = torch.where(ok, data.to(torch.float64), 0.0).sum()
+        else:
+            tot = torch.where(ok, data.to(torch.int64), 0).sum()
+        if func == "avg":
+            tot = tot / cnt.clamp(min=1).to(torch.float64)
+    elif func in ("min", "max"):
+        if data.is_floating_point():
+            fill = float("inf") if func == "min" else float("-inf")
+            x = torch.where(ok, data.to(torch.float64), fill)
+        else:
+            fill = _I64_MAX if func == "min" else _I64_MIN
+            x = torch.where(ok, data.to(torch.int64), fill)
+        tot = x.min() if func == "min" else x.max()
+    else:
+        raise ValueError(f"unknown aggregate {func}")
+    out = torch.zeros(out_len, dtype=tot.dtype, device=device)
+    out[0] = tot
+    valid = torch.zeros(out_len, dtype=torch.bool, device=device)
+    valid[0] = has
+    return out, valid
+
+
+# ---------------------------------------------------------------------------
+# joins (sort-merge, exact; two-pass count-then-emit)
+# ---------------------------------------------------------------------------
+
+
+def join_ranks(
+    left_keys: Sequence[Tuple[torch.Tensor, torch.Tensor]],
+    right_keys: Sequence[Tuple[torch.Tensor, torch.Tensor]],
+    n_left,
+    n_right,
+    null_equal: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Joint dense ranks: rank equality <=> key-tuple equality.
+
+    By default rows with any NULL key get unique negative ranks so NULL never
+    matches NULL (SQL equi-join). With null_equal=True, NULLs compare equal.
+    left_keys/right_keys: per-key (data, validity); capacities may differ.
+    Returns (left_ranks[cap_l], right_ranks[cap_r]) int64.
+    """
+    out = _join_ranks_full(left_keys, right_keys, n_left, n_right,
+                           null_equal)
+    return out[0], out[1]
+
+
+def _join_ranks_full(left_keys, right_keys, n_left, n_right,
+                     null_equal: bool = False):
+    """Also returns (sorted perm, sorted null-or-pad flag, change flags) of
+    the joint sort."""
+    device = left_keys[0][0].device
+    cap_l = left_keys[0][0].shape[0]
+    cap_r = right_keys[0][0].shape[0]
+    cap = cap_l + cap_r
+    any_null = torch.zeros(cap, dtype=torch.bool, device=device)
+    for (_, lv), (_, rv) in zip(left_keys, right_keys):
+        any_null = any_null | ~torch.cat([lv, rv])
+    perm = torch.arange(cap, device=device)
+    pad = torch.cat([~live_mask(cap_l, n_left, device),
+                     ~live_mask(cap_r, n_right, device)])
+    datas: List[torch.Tensor] = []
+    valids: List[torch.Tensor] = []
+    for (ld, lv), (rd, rv) in zip(left_keys, right_keys):
+        a, b = orderable_i64(ld), orderable_i64(rd)
+        t = torch.promote_types(a.dtype, b.dtype)  # as jnp.concatenate
+        datas.append(torch.cat([a.to(t), b.to(t)]))
+        valids.append(torch.cat([lv, rv]))
+    # sort order: live non-null rows first (grouped by key), then nulls,
+    # then pad — so rank-r rows are contiguous from the front
+    lead = pad.to(torch.int32) * 2
+    if not null_equal:
+        lead = lead + any_null.to(torch.int32)
+    lead_thr = 1  # sorted rows with first class >= lead_thr are null/pad
+    operands: List[torch.Tensor] = []
+    for i, (d, v) in enumerate(zip(datas, valids)):
+        dz = torch.where(v, d, torch.zeros_like(d))
+        if i == 0:
+            cls = lead
+            if null_equal:
+                cls = lead * 2 + (~v).to(torch.int32)
+                lead_thr = 4  # null-in-key0 rows keep real ranks here
+        elif null_equal:
+            cls = (~v).to(torch.int32)
+        else:
+            cls = None
+        if d.dtype == torch.int32:
+            u = _u32_image(dz)
+            if cls is not None:
+                u = (cls.to(torch.int64) << 32) | u
+            operands.append(u)
+        else:
+            if cls is not None:
+                operands.append(cls)
+            operands.append(dz)
+    sperm = _lexsort(operands)
+    sorted_ops = [op[sperm] for op in operands]
+    first = sorted_ops[0]
+    first_cls = first >> 32 if datas[0].dtype == torch.int32 else first
+    sorted_lead = (first_cls >= lead_thr).to(torch.int32)
+    change, seg = _segment_ids_from_sorted(sorted_ops, sorted_lead > 0)
+    ranks = torch.zeros(cap, dtype=torch.int64, device=device)
+    ranks[sperm] = seg
+    if not null_equal:
+        # null keys never match: unique negative rank per row
+        ranks = torch.where(any_null, -(perm + 2), ranks)
+    return ranks[:cap_l], ranks[cap_l:], sperm, sorted_lead, change
+
+
+def join_counts(
+    left_ranks: torch.Tensor,
+    right_ranks: torch.Tensor,
+    n_left,
+    n_right,
+):
+    """Pass 1: per-left-row match counts over the dense rank space.
+
+    Returns (total_matches, counts[cap_l], offsets[cap_l] exclusive-cumsum,
+    rank_start[n_ranks], right_by_rank[cap_r], left_matched, right_matched).
+    rank_start[r] is the start of rank r's rows inside right_by_rank, which
+    lists live non-null right row indices grouped by rank.
+    """
+    device = left_ranks.device
+    cap_l = left_ranks.shape[0]
+    cap_r = right_ranks.shape[0]
+    n_ranks = cap_l + cap_r
+    l_ok = live_mask(cap_l, n_left, device) & (left_ranks >= 0)
+    r_ok = live_mask(cap_r, n_right, device) & (right_ranks >= 0)
+    lr_c = torch.where(l_ok, left_ranks, n_ranks - 1)
+    rr_c = torch.where(r_ok, right_ranks, n_ranks - 1)
+    cnt_r = _segment_sum(r_ok.to(torch.int64), rr_c, n_ranks)
+    cnt_l = _segment_sum(l_ok.to(torch.int64), lr_c, n_ranks)
+    # the n_ranks-1 dummy slot may mix pad/null counts; mask at use
+    counts = torch.where(l_ok, cnt_r[lr_c], 0)
+    offsets = torch.cumsum(counts, 0) - counts
+    total = counts.sum()
+    left_matched = counts > 0
+    right_matched = r_ok & (cnt_l[rr_c] > 0)
+    rank_start = torch.cumsum(cnt_r, 0) - cnt_r  # exclusive cumsum per rank
+    # live non-null rows of rank r form a contiguous run of the stable
+    # rank sort starting at rank_start[r]
+    right_by_rank = torch.sort(rr_c, stable=True).indices
+    return (
+        total, counts, offsets, rank_start, right_by_rank,
+        left_matched, right_matched,
+    )
+
+
+def join_emit_inner(
+    counts: torch.Tensor,
+    rank_start: torch.Tensor,
+    right_by_rank: torch.Tensor,
+    left_ranks: torch.Tensor,
+    total,
+    out_capacity: int,
+):
+    """Pass 2: emit (left_idx, right_idx) pairs, compacted, left-major.
+
+    out_capacity >= total (the host chose it after pass 1). The owning left
+    row of each output slot comes from a scatter of row ids at each row's
+    output offset followed by a running max — no searchsorted.
+    """
+    device = counts.device
+    cap_l = counts.shape[0]
+    starts = torch.cumsum(counts, 0) - counts
+    rows = torch.arange(cap_l, device=device)
+    mark = _scatter_drop(out_capacity, torch.where(counts > 0, starts, -1),
+                         rows, 0, torch.int64, reduce="amax")
+    owner = torch.cummax(mark, 0).values
+    t = torch.arange(out_capacity, device=device)
+    j = t - starts[owner]
+    lrank = left_ranks[owner].clamp(0, rank_start.shape[0] - 1)
+    rpos = rank_start[lrank] + j
+    ri = right_by_rank[rpos.clamp(0, right_by_rank.shape[0] - 1)]
+    valid = t < total
+    return torch.where(valid, owner, 0), torch.where(valid, ri, 0), valid
+
+
+def unmatched_indices(matched: torch.Tensor, num_rows, out_capacity: int):
+    """Rows with no match (for outer joins): compacted indices + count."""
+    um = ~matched & live_mask(matched.shape[0], num_rows, matched.device)
+    count = um.sum(dtype=torch.int64)
+    idx = compaction_indices(um, num_rows, out_capacity)
+    return idx, count
