@@ -12,20 +12,43 @@ Phase 1  holds the grouped SUM/COUNT kernel against its plain PyTorch
          (wrap-around) and float64 with +inf, -inf and NaN. Integers must
          match exactly, floats within the tolerance below; two kernel runs
          must give identical bits. Times both versions at 2^23 rows.
-Phase 2  runs the engine's main path through `Session(device="cuda").sql`
-         at 2^23 - 17 fact rows and 1024 dimension rows, checks that it
-         launched the kernel, and compares the 10 rows exactly with an
-         independent numpy oracle. Prints ms per query, rows/s, the
+Phase 2  runs the engine's eager path (the compiled pipeline off for this
+         Session) through `Session(device="cuda").sql` at 2^23 - 17 fact
+         rows and 1024 dimension rows (Query A, the bench query), checks
+         that it launched the kernel, and compares the 10 rows exactly with
+         an independent numpy oracle. Prints ms per query, rows/s, the
          number of host syncs per query, and one profiled query's device
          time by operator (torch.profiler).
+Phase 3  holds the small-table gather kernel against its plain version at
+         2^23 rows, tables of 1024 and 4096 rows and 1 and 3 words, indices
+         of -1 and out of range included: bit-exact. Times both versions.
+Phase 4  runs Query A through the compiled pipeline (the default): the
+         first query runs the program and captures it into a CUDA graph,
+         later ones replay it. Rows equal the oracle exactly, one host read
+         per warm query, and the group_agg kernel appears among the CUDA
+         kernels of one profiled replayed query. Then the fact table is
+         registered anew from seed 8 at the same capacity: the rows must be
+         the new oracle's.
+Phase 5  runs Query B (the dimension gains a float64 column `rate`, so the
+         join gathers through the packed lookup route) in two Sessions,
+         QE_MXU_GATHER unset and then set: rows equal its oracle exactly in
+         both, and with the gate set the small gather kernel appears among
+         the CUDA kernels of a profiled replayed query.
 
-The line before the last is one JSON object with the kernel's launches,
-error and times; the last line is {"ok": true, "device": {...}}. Any failed
+Each path runs with the kernels' launch counts set to 0 just before it and
+read just after; a kernel of the path that was not launched fails the run.
+A replayed CUDA graph runs no Python, so on the compiled paths the counts
+move when the program first runs and when it is captured, and the
+profiler's kernel names show what a replay ran.
+
+The line before the last is one JSON object with the kernels' launches,
+errors and times; the last line is {"ok": true, "device": {...}}. Any failed
 check exits non-zero without those lines, and so does a machine without
 CUDA or a directory without the package.
 """
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -39,6 +62,9 @@ N_DIM = 1024
 QUERY = ("SELECT f.dept, COUNT(*) AS c, SUM(f.salary + d.bonus) AS s "
          "FROM f JOIN d ON f.dept = d.dept_id "
          "WHERE f.age > 25 GROUP BY f.dept ORDER BY s DESC LIMIT 10")
+QUERY_B = ("SELECT f.dept, COUNT(*) AS c, SUM(f.salary * d.rate) AS s "
+           "FROM f JOIN d ON f.dept = d.dept_id "
+           "WHERE f.age > 25 GROUP BY f.dept ORDER BY s DESC LIMIT 10")
 # Fixed point against float64 summation: the kernel sums round(x * 2^k)
 # exactly and rescales, an error of at most ~n * max|x| * 2^-40 against the
 # plain float64 index_add's own round-off — the bound of the JAX package's
@@ -191,14 +217,15 @@ def phase1():
     return max_err, times
 
 
-def make_tables(dev):
-    """The bench's fact and dimension tables from one seed."""
+def make_tables(dev, seed=SEED):
+    """The bench's fact and dimension tables from one seed; Query B's
+    dimension adds `rate` = integers(128, 384) / 256, drawn after."""
     from query_engine_tpu_torch.columnar.batch import padded_capacity
     from query_engine_tpu_torch.columnar.convert import from_numpy_batch
     from query_engine_tpu_torch.core.schema import Field
     from query_engine_tpu_torch.core.types import DataType
 
-    rng = np.random.default_rng(SEED)
+    rng = np.random.default_rng(seed)
     n, cap = N_FACT, padded_capacity(N_FACT)
     cols = {
         "age": rng.integers(18, 65, n),
@@ -206,11 +233,12 @@ def make_tables(dev):
         "dept": rng.integers(0, N_DIM, n),
     }
     bonus = rng.integers(0, 1000, N_DIM)
+    rate = rng.integers(128, 384, N_DIM) / 256
     valid = np.arange(cap) < n
-    i64 = DataType.int64()
+    i64, f64 = DataType.int64(), DataType.float64()
 
     def planes(arr):
-        data = np.zeros(cap, dtype=np.int64)
+        data = np.zeros(cap, dtype=arr.dtype)
         data[:n] = arr
         return data, valid, None
 
@@ -220,79 +248,324 @@ def make_tables(dev):
     dvalid = np.arange(dcap) < N_DIM
 
     def dplanes(arr):
-        data = np.zeros(dcap, dtype=np.int64)
+        data = np.zeros(dcap, dtype=arr.dtype)
         data[:N_DIM] = arr
         return data, dvalid, None
 
-    dim = from_numpy_batch(
-        [Field("dept_id", i64), Field("bonus", i64)],
-        [dplanes(np.arange(N_DIM)), dplanes(bonus)], N_DIM, dev)
-    return cols, bonus, fact, dim
+    dfields = [Field("dept_id", i64), Field("bonus", i64)]
+    dcols = [dplanes(np.arange(N_DIM)), dplanes(bonus)]
+    dim = from_numpy_batch(dfields, dcols, N_DIM, dev)
+    dim_rate = from_numpy_batch(dfields + [Field("rate", f64)],
+                                dcols + [dplanes(rate)], N_DIM, dev)
+    return cols, bonus, rate, fact, dim, dim_rate
 
 
-def oracle(cols, bonus):
-    """numpy: mask, join by dept (dept_id = arange, so a lookup), bincount
-    per dept, then a stable sort on -s over the groups in dept order."""
+def oracle(cols, per_dept, combine):
+    """numpy: mask, join by dept (dept_id = arange, so a lookup), sum per
+    dept, then a stable sort on -s over the groups in dept order. Query B's
+    products are multiples of 2^-8 below 2^53, so its float64 sums are
+    exact in any order."""
     m = cols["age"] > 25
     dept = cols["dept"][m]
-    val = cols["salary"][m] + bonus[dept]
+    val = combine(cols["salary"][m], per_dept[dept])
     c = np.bincount(dept, minlength=N_DIM)
-    s = np.zeros(N_DIM, dtype=np.int64)
+    s = np.zeros(N_DIM, dtype=val.dtype)
     np.add.at(s, dept, val)
     groups = np.nonzero(c)[0]
     order = groups[np.argsort(-s[groups], kind="stable")][:10]
-    return [(int(g), int(c[g]), int(s[g])) for g in order]
+    return [(int(g), int(c[g]), s[g].item()) for g in order]
 
 
-def phase2():
+def oracle_a(cols, bonus):
+    return oracle(cols, bonus, np.add)
+
+
+def oracle_b(cols, rate):
+    return oracle(cols, rate, np.multiply)
+
+
+def reset_counts():
+    from query_engine_tpu_torch.ops import group_agg, small_gather
+
+    group_agg.launches = 0
+    small_gather.launches = 0
+
+
+def read_counts():
+    from query_engine_tpu_torch.ops import group_agg, small_gather
+
+    return {"group_agg": group_agg.launches,
+            "small_gather": small_gather.launches}
+
+
+def profile_query(sess, query, tag):
+    """One query under torch.profiler: prints the top of its table by CUDA
+    time and returns the names of the CUDA kernels it ran."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        sess.sql(query).to_pylist()
+        torch.cuda.synchronize()
+    print(f"{tag}: profiled query, top operators by CUDA time:")
+    print(prof.key_averages().table(sort_by="cuda_time_total",
+                                    row_limit=25))
+    events = prof.events()
+    names = {e.name for e in events
+             if e.device_type == torch.autograd.DeviceType.CUDA}
+    return names | {k.name for e in events for k in getattr(e, "kernels", ())}
+
+
+def profile_program(sess, tag):
+    """Device time of the session's captured program by operator: its body
+    run once eagerly (the same kernels a replay runs) under torch.profiler,
+    where each operator's own kernels sit under its pipeline:<operator>
+    range."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    pipe = sess.executor.pipeline
+    (entry,) = [e for e in pipe._cache.values() if e.graph is not None]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        pipe._body(entry, entry.planes, entry.n_bufs, entry.dyn_bufs)
+        torch.cuda.synchronize()
+
+    # a range appears twice: as a CPU event, whose device time is the sum
+    # of the kernels launched inside it, and as a GPU annotation spanning
+    # it on the device's timeline (gaps included); kernels are the rest
+    events = prof.key_averages()
+    cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
+    total = sum(e.self_device_time_total for e in events
+                if e.device_type == cuda and not e.key.startswith("pipeline:"))
+    check(total > 0, f"{tag}: the profiler saw no device time")
+    ops = sorted(((e.key, e.device_time_total) for e in events
+                  if e.device_type == cpu and e.key.startswith("pipeline:")),
+                 key=lambda kv: -kv[1])
+    print(f"{tag}: program body run eagerly: {total / 1e3:.3f} ms of kernel "
+          "time; by operator (kernels launched inside its range):")
+    for name, us in ops + [("other (leaf masks, result count)",
+                            total - sum(us for _, us in ops))]:
+        print(f"  {name:<34} {us / 1e3:8.3f} ms  {100 * us / total:5.1f} %")
+    for e in events:  # launched through ctypes, outside any aten op
+        if e.device_type == cuda and any(
+                k in e.key for k in ("sum_count_", "gather_words")):
+            print(f"  of which hand kernel {e.key[:40]}: "
+                  f"{e.self_device_time_total / 1e3:.3f} ms")
+    return total / 1e3
+
+
+def kernel_names(names, *parts):
+    return sorted(nm for nm in names if any(p in nm for p in parts))
+
+
+def timed_runs(sess, query, tag, want):
+    """Median of 5 warm runs (host clock, result on the host) and the host
+    syncs per query; every run's rows must equal `want`."""
+    walls = []
+    syncs0 = sess.executor.host_syncs
+    for _ in range(5):
+        t0 = time.perf_counter()
+        rows = sess.sql(query).to_pylist()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        check(rows == want, f"{tag}: a warm run's rows differ")
+    syncs = (sess.executor.host_syncs - syncs0) / 5
+    ms = statistics.median(walls)
+    print(f"{tag}: {ms:.3f} ms/query median of 5 warm runs (host clock, "
+          f"result on the host), {N_FACT / ms * 1e3:,.0f} fact rows/s, "
+          f"{syncs:g} host syncs/query")
+    return ms, syncs
+
+
+def phase2(tables):
     import torch
 
     from query_engine_tpu_torch.engine.session import Session
-    from query_engine_tpu_torch.ops import group_agg
 
-    dev = torch.device("cuda")
-    cols, bonus, fact, dim = make_tables(dev)
+    cols, bonus, _, fact, dim, _ = tables
     sess = Session(device="cuda")
+    sess.executor._compiled = False  # the eager path
     sess.register_table("f", fact)
     sess.register_table("d", dim)
     sess.sql(QUERY).to_pylist()  # warm-up
     torch.cuda.synchronize()
 
-    group_agg.launches = 0
+    reset_counts()
     syncs0 = sess.executor.host_syncs
     out = sess.sql(QUERY)
     torch.cuda.synchronize()
-    launches = group_agg.launches
+    launches = read_counts()
     syncs = sess.executor.host_syncs - syncs0
-    check(launches > 0, "the main path did not launch the group_agg kernel")
+    check(launches["group_agg"] > 0,
+          "the eager path did not launch the group_agg kernel")
     for f, col in zip(out.schema, out.columns):
         check(col.data.is_cuda and col.validity.is_cuda,
               f"result column {f.name} is not a CUDA tensor")
     rows = out.to_pylist()
-    want = oracle(cols, bonus)
-    check(rows == want, f"main path rows differ from the oracle:\n{rows}\n"
+    want = oracle_a(cols, bonus)
+    check(rows == want, f"eager path rows differ from the oracle:\n{rows}\n"
                         f"{want}")
     print(f"phase 2: {QUERY}")
-    print(f"phase 2: {len(rows)} rows == numpy oracle; first {rows[0]}")
+    print(f"phase 2: eager Query A: {len(rows)} rows == numpy oracle; first "
+          f"{rows[0]}; {syncs} host syncs, launches {launches}")
+    ms, _ = timed_runs(sess, QUERY, "phase 2: eager Query A", want)
+    profile_query(sess, QUERY, "phase 2: eager Query A")
+    return ms
 
-    walls = []
-    for _ in range(5):
-        t0 = time.perf_counter()
-        sess.sql(QUERY).to_pylist()
-        walls.append((time.perf_counter() - t0) * 1e3)
-    ms = statistics.median(walls)
-    print(f"phase 2: {ms:.3f} ms/query median of 5 warm runs "
-          f"(host clock, result on the host), {N_FACT / ms * 1e3:,.0f} "
-          f"fact rows/s, {syncs} host syncs/query, kernel launches/query "
-          f"{launches}")
-    from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        sess.sql(QUERY).to_pylist()
-    print(prof.key_averages().table(sort_by="cuda_time_total",
-                                    row_limit=25))
-    return launches
+def phase3():
+    import torch
+
+    from query_engine_tpu_torch.ops import small_gather
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED)
+    n = 1 << 23
+    max_err = 0
+    times = {}
+    for T in (1024, 4096):
+        for W in (1, 3):
+            table = torch.from_numpy(rng.integers(
+                -(2**31), 2**31, (T, W)).astype(np.int32)).to(dev)
+            idx_np = rng.integers(0, T, n).astype(np.int32)
+            idx_np[rng.random(n) < 0.05] = -1  # unmatched rows
+            idx_np[rng.random(n) < 0.01] = T  # just past the table
+            idx_np[:2] = [2**31 - 1, -(2**31)]
+            idx = torch.from_numpy(idx_np).to(dev)
+            got = small_gather.gather_words(idx, table)
+            want = small_gather.gather_words_plain(idx, table)
+            torch.cuda.synchronize()
+            check(got.is_cuda and got.shape == (n, W),
+                  f"small gather T={T} W={W}: bad result")
+            err = int((got.to(torch.int64) - want.to(torch.int64)).abs()
+                      .max())
+            max_err = max(max_err, err)
+            check(torch.equal(got, want),
+                  f"small gather T={T} W={W}: kernel != plain")
+            k_ms = cuda_ms(lambda: small_gather.gather_words(idx, table))
+            p_ms = cuda_ms(lambda: small_gather.gather_words_plain(idx,
+                                                                   table))
+            times[(T, W)] = (k_ms, p_ms)
+            nbytes = n * 4 + n * W * 4 + T * W * 4
+            print(f"phase 3: small gather n={n} T={T} W={W}: kernel == plain "
+                  f"bit for bit; kernel {k_ms:.4f} ms "
+                  f"({nbytes / k_ms / 1e6:.1f} GB/s of {nbytes} bytes), "
+                  f"plain {p_ms:.4f} ms (mean of 20 after 3 warm-up, CUDA "
+                  "events)")
+    return max_err, times
+
+
+def phase4(tables, eager_ms):
+    import torch
+
+    from query_engine_tpu_torch.engine.session import Session
+
+    cols, bonus, _, fact, dim, _ = tables
+    sess = Session(device="cuda")
+    check(sess.executor._compiled, "QE_COMPILED is off in this environment")
+    sess.register_table("f", fact)
+    sess.register_table("d", dim)
+    want = oracle_a(cols, bonus)
+    reset_counts()
+    t0 = time.perf_counter()
+    rows = sess.sql(QUERY).to_pylist()  # runs the program, then captures it
+    first_ms = (time.perf_counter() - t0) * 1e3
+    check(rows == want, f"compiled Query A rows differ from the oracle:\n"
+                        f"{rows}\n{want}")
+    rows = sess.sql(QUERY).to_pylist()  # the first replay
+    torch.cuda.synchronize()
+    launches = read_counts()
+    check(rows == want, "compiled Query A: a replay's rows differ")
+    check(launches["group_agg"] > 0,
+          "the compiled path did not launch the group_agg kernel")
+    st = dict(sess.executor.pipeline.stats)
+    check(st["compiles"] >= 1 and st["hits"] >= 1 and st["replays"] >= 1
+          and st["joins_inlined"] >= 1,
+          f"compiled Query A did not compile and replay: {st}")
+    print(f"phase 4: compiled Query A: rows == numpy oracle; first query "
+          f"(run + capture) {first_ms:.1f} ms; launches {launches}; {st}")
+    ms, syncs = timed_runs(sess, QUERY, "phase 4: compiled Query A", want)
+    check(syncs == 1, f"compiled Query A: {syncs} host syncs per warm query")
+    names = profile_query(sess, QUERY, "phase 4: compiled Query A (replay)")
+    profile_program(sess, "phase 4: compiled Query A")
+    found = kernel_names(names, "sum_count_shared", "sum_count_global")
+    check(found, "the group_agg kernel is not among a replayed query's CUDA "
+                 f"kernels: {sorted(names)}")
+    print(f"phase 4: the replayed query ran {found}")
+    print(f"phase 4: Query A eager {eager_ms:.3f} ms vs compiled {ms:.3f} "
+          f"ms per query ({eager_ms / ms:.2f}x)")
+
+    # the fact table anew at the same capacity: the graph must read it
+    cols8, _, _, fact8, _, _ = make_tables(torch.device("cuda"), seed=8)
+    captures = sess.executor.pipeline.stats["captures"]
+    sess.register_table("f", fact8)
+    want8 = oracle_a(cols8, bonus)
+    check(want8 != want, "seed 8 gives the same rows as seed 7")
+    rows = sess.sql(QUERY).to_pylist()
+    check(rows == want8, f"after re-registering f: rows differ from the "
+                         f"new oracle:\n{rows}\n{want8}")
+    st = sess.executor.pipeline.stats
+    check(st["captures"] == captures + 1,
+          f"re-registering f did not capture anew: {st}")
+    check(sess.sql(QUERY).to_pylist() == want8,
+          "a replay after re-registering f differs")
+    print("phase 4: f registered anew from seed 8: rows == the new oracle "
+          "(captured again over the new planes, then replayed)")
+    return launches["group_agg"], found
+
+
+def phase5(tables):
+    import torch
+
+    from query_engine_tpu_torch.engine.session import Session
+
+    cols, _, rate, fact, _, dim_rate = tables
+    want = oracle_b(cols, rate)
+    out = {}
+    for gate in ("unset", "set"):
+        if gate == "set":
+            os.environ["QE_MXU_GATHER"] = "1"
+        else:
+            os.environ.pop("QE_MXU_GATHER", None)
+        sess = Session(device="cuda")  # reads the gate
+        sess.register_table("f", fact)
+        sess.register_table("d", dim_rate)
+        reset_counts()
+        rows = sess.sql(QUERY_B).to_pylist()
+        rows2 = sess.sql(QUERY_B).to_pylist()
+        torch.cuda.synchronize()
+        launches = read_counts()
+        check(rows == want and rows2 == want,
+              f"Query B (QE_MXU_GATHER {gate}) rows differ from the oracle:"
+              f"\n{rows}\n{want}")
+        check(launches["group_agg"] > 0,
+              f"Query B ({gate}) did not launch the group_agg kernel")
+        check((launches["small_gather"] > 0) == (gate == "set"),
+              f"Query B ({gate}): small gather launches {launches}")
+        st = dict(sess.executor.pipeline.stats)
+        check(st["replays"] >= 1 and st["joins_inlined"] >= 1,
+              f"Query B ({gate}) did not compile and replay: {st}")
+        print(f"phase 5: Query B, QE_MXU_GATHER {gate}: rows == numpy "
+              f"oracle (exact floats); first {rows[0]}; launches "
+              f"{launches}; {st}")
+        ms, syncs = timed_runs(sess, QUERY_B, f"phase 5: Query B ({gate})",
+                               want)
+        check(syncs == 1, f"Query B ({gate}): {syncs} host syncs per query")
+        names = profile_query(sess, QUERY_B,
+                              f"phase 5: Query B ({gate}, replay)")
+        profile_program(sess, f"phase 5: Query B ({gate})")
+        found = kernel_names(names, "gather_words")
+        check(bool(found) == (gate == "set"),
+              f"Query B ({gate}): gather kernels in the replay: {found}")
+        check(kernel_names(names, "sum_count_"),
+              f"Query B ({gate}): no group_agg kernel in the replay")
+        out[gate] = (ms, launches, found)
+    os.environ.pop("QE_MXU_GATHER", None)
+    print(f"phase 5: Query B gate unset {out['unset'][0]:.3f} ms vs set "
+          f"{out['set'][0]:.3f} ms per query")
+    return out
 
 
 def main():
@@ -311,20 +584,36 @@ def main():
     try:
         phase0()
         max_err, times = phase1()
-        launches = phase2()
+        tables = make_tables(torch.device("cuda"))
+        eager_ms = phase2(tables)
+        g_err, g_times = phase3()
+        agg_launches, agg_names = phase4(tables, eager_ms)
+        b = phase5(tables)
     except CheckFailed as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
     k_ms, p_ms = times["main path shape"]
+    gk_ms, gp_ms = g_times[(1024, 1)]  # Query B's shape: 1024 rows, 1 word
     print(json.dumps({"kernels": [{
         "name": "group_sum_count_i64",
         "route": "cuda",
         "source": "query_engine_tpu_torch/csrc/group_agg.cu",
         "replaces": "query_engine_tpu/ops/pallas/group_agg.py:74",
-        "launches": launches,
+        "launches": agg_launches,
         "max_abs_err": max_err,
         "ms": k_ms,
         "plain_ms": p_ms,
+        "in_replay": agg_names,
+    }, {
+        "name": "small_gather_u32",
+        "route": "cuda",
+        "source": "query_engine_tpu_torch/csrc/small_gather.cu",
+        "replaces": "query_engine_tpu/ops/pallas/small_gather.py:40",
+        "launches": b["set"][1]["small_gather"],
+        "max_abs_err": g_err,
+        "ms": gk_ms,
+        "plain_ms": gp_ms,
+        "in_replay": b["set"][2],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

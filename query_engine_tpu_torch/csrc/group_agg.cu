@@ -33,6 +33,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "launch_config.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -95,42 +97,37 @@ __global__ void __launch_bounds__(kThreads) sum_count_global(
 }  // namespace
 
 // Returns a cudaError_t: 0 when every attribute query and the launch
-// succeeded. Launches on `stream` and does not synchronise.
+// succeeded. Launches on `stream` and does not synchronise. The attribute
+// queries are cached (launch_config.cuh), so a launch inside a CUDA graph
+// capture, after a first eager launch, makes none.
 extern "C" int qe_group_sum_count_i64(const int32_t* gid, const int64_t* vals,
                                       const uint8_t* ok, int64_t n, int C,
                                       int G, int64_t* sums, int64_t* counts,
                                       cudaStream_t stream) {
+  static qe::LaunchCache<decltype(&sum_count_shared)> shared_cache;
   if (n <= 0 || C <= 0 || G <= 0) return (int)cudaSuccess;
-  int dev = 0, sms = 0, smem_optin = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(
-        &smem_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  int dev = 0;
+  qe::DeviceLimits lim;
+  cudaError_t err = qe::device_limits(&dev, &lim);
   if (err != cudaSuccess) return (int)err;
 
   const int64_t row_blocks = (n + kThreads - 1) / kThreads;
   auto* s = reinterpret_cast<unsigned long long*>(sums);
   auto* c = reinterpret_cast<unsigned long long*>(counts);
   const size_t table_bytes = (size_t)C * G * 2 * sizeof(unsigned long long);
-  if (table_bytes <= (size_t)smem_optin) {
-    err = cudaFuncSetAttribute(sum_count_shared,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)table_bytes);
+  if (table_bytes <= (size_t)lim.smem_optin) {
     int per_sm = 0;
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, sum_count_shared, kThreads, table_bytes);
+    err = shared_cache.blocks_per_sm(sum_count_shared, dev, lim, kThreads,
+                                     table_bytes, &per_sm);
     if (err != cudaSuccess) return (int)err;
     // enough blocks to fill the card, few enough that each one's table
     // zero-fill and flush stay small next to its rows
-    const int64_t full = (int64_t)(per_sm > 0 ? per_sm : 1) * sms;
+    const int64_t full = (int64_t)per_sm * lim.sms;
     const int grid = (int)(row_blocks < full ? row_blocks : full);
     sum_count_shared<<<grid, kThreads, table_bytes, stream>>>(
         gid, vals, ok, n, C, G, s, c);
   } else {
-    const int64_t full = (int64_t)sms * 8;
+    const int64_t full = (int64_t)lim.sms * 8;
     const int grid = (int)(row_blocks < full ? row_blocks : full);
     sum_count_global<<<grid, kThreads, 0, stream>>>(gid, vals, ok, n, C, G,
                                                     s, c);

@@ -1,9 +1,13 @@
-"""Physical plan executor: the eager main path.
+"""Physical plan executor.
 
-The counterpart of `query_engine_tpu.engine.executor.QueryExecutor`'s eager
-walk, for these nodes: scan, projection, filter, INNER equi-join, grouped
-and global aggregate, sort and limit. Any other node raises
-NotImplementedError.
+The counterpart of `query_engine_tpu.engine.executor.QueryExecutor`, for
+these nodes: scan, projection, filter, INNER equi-join, grouped and global
+aggregate, sort and limit. Any other node raises NotImplementedError.
+
+As in the JAX package, every node first goes to the compiled pipeline
+(engine/pipeline.py, on unless QE_COMPILED=0), which runs the largest
+segment it supports as one static program; what it declines runs in the
+eager walk below, which is also the pipeline's semantics oracle.
 
 Parity surface: reference crates/query-executor/src/executor.rs:12-541 —
 recursive plan walk materializing results per node.
@@ -11,7 +15,8 @@ recursive plan walk materializing results per node.
 Execution model: host-driven walk over fixed-capacity torch planes on the
 executor's device. The host reads a scalar only where the next operator's
 output capacity depends on the data (filter and join counts, the number of
-groups, the group key range); `host_syncs` counts those reads.
+groups, the group key range); `host_syncs` counts those reads, and the
+compiled pipeline's (a result's row count, table statistics).
 
 The grouped SUM/COUNT/AVG aggregate runs in the hand-written CUDA kernel of
 ops/group_agg.py when the group ids are dense and bounded (the JAX
@@ -31,6 +36,9 @@ from query_engine_tpu_torch.columnar.batch import (
     Column, ColumnBatch, padded_capacity,
 )
 from query_engine_tpu_torch.engine.expr_eval import Evaluator, Val, unify_dicts
+from query_engine_tpu_torch.engine.pipeline import (
+    CompiledPipeline, compiled_enabled,
+)
 from query_engine_tpu_torch.ops import group_agg
 from query_engine_tpu_torch.ops import kernels as K
 from query_engine_tpu_torch.plan import logical as lp
@@ -96,17 +104,24 @@ class QueryExecutor:
     # dense-gid bound up to which SUM/COUNT/AVG go to the group_agg kernel
     # (the JAX package's crossover; above it both packages take the
     # segment path)
-    _KERNEL_AGG_MAX_GROUPS = 32768
+    _MXU_AGG_MAX_GROUPS = 32768
 
     def __init__(self, device="cpu", udfs=None):
         self.device = torch.device(device)
         self.udfs = udfs
         self.evaluator = Evaluator(self.device, udfs=udfs)
         self.host_syncs = 0  # scalar/plane reads from the device, cumulative
+        self.pipeline = CompiledPipeline(self)
+        self._compiled = compiled_enabled()
 
     def _host_int(self, t: torch.Tensor) -> int:
         self.host_syncs += 1
         return int(t.item())
+
+    def _host_list(self, t: torch.Tensor):
+        """One counted read of a whole tensor (t.tolist())."""
+        self.host_syncs += 1
+        return t.tolist()
 
     # ---- entry ---------------------------------------------------------
     def execute(self, plan: pp.PhysicalPlan) -> ColumnBatch:
@@ -116,13 +131,26 @@ class QueryExecutor:
             return self._execute_node(plan)
         name = type(plan).__name__
         name = (name[1:] if name.startswith("P") else name).lower() or "node"
+        if self._compiled:
+            with GLOBAL_PROFILER.op("compiled_pipeline") as rec:
+                out = self.pipeline.try_execute(plan)
+                if out is not None:
+                    rec.rows = out.num_rows
+                    rec.bytes = _batch_nbytes(out)
+                    return out
+                rec.rows = rec.bytes = 0  # fell through: charge the node
         with GLOBAL_PROFILER.op(name) as rec:
-            out = self._execute_node(plan)
+            out = self._execute_node(plan, _skip_compiled=True)
             rec.rows = out.num_rows
             rec.bytes = _batch_nbytes(out)
         return out
 
-    def _execute_node(self, plan: pp.PhysicalPlan) -> ColumnBatch:
+    def _execute_node(self, plan: pp.PhysicalPlan,
+                      _skip_compiled: bool = False) -> ColumnBatch:
+        if self._compiled and not _skip_compiled:
+            out = self.pipeline.try_execute(plan)
+            if out is not None:
+                return out
         if isinstance(plan, pp.PScan):
             return self._exec_scan(plan)
         if isinstance(plan, pp.PProjection):
@@ -272,8 +300,7 @@ class QueryExecutor:
         ]
         # SUM/COUNT/AVG over dense bounded groups: one group_agg call for
         # all of them (the kernel on CUDA, its plain version on the CPU)
-        use_kernel = (kernel_bound is not None
-                      and kernel_bound <= self._KERNEL_AGG_MAX_GROUPS)
+        use_kernel = self._mxu_agg_enabled(kernel_bound)
         items, item_of = [], {}
         slots = []  # per aggregate: its item in `items`, or None
         for agg, av in zip(plan.agg_exprs, args):
@@ -379,6 +406,12 @@ class QueryExecutor:
             [v.data for v in gvals], [v.validity for v in gvals], num_rows
         )
         return g, ng, rep, None
+
+    def _mxu_agg_enabled(self, bound) -> bool:
+        """The group_agg route (the JAX name kept): a static dense-gid bound
+        of at most _MXU_AGG_MAX_GROUPS. Any device: the wrapper runs the
+        kernel on CUDA and its plain version on the CPU."""
+        return bound is not None and bound <= self._MXU_AGG_MAX_GROUPS
 
     # ---- sort / limit --------------------------------------------------
     def _sort_val_keys(

@@ -85,6 +85,13 @@ def unify_dicts(a: Val, b: Val) -> Tuple[Val, Val]:
     return a2, b2
 
 
+# the type of a program input literal, by the dtype of its tensor
+_DYN_TYPES = {
+    torch.bool: DataType.boolean,
+    torch.int64: DataType.int64,
+    torch.float64: DataType.float64,
+}
+
 _ARITH = {lp.BinOp.ADD, lp.BinOp.SUB, lp.BinOp.MUL, lp.BinOp.DIV}
 _CMP = {
     lp.BinOp.EQ: torch.eq,
@@ -122,6 +129,10 @@ class Evaluator:
     def __init__(self, device="cpu", udfs=None):
         self.device = torch.device(device)
         self.udfs = udfs
+        # while the compiled pipeline runs a program body: id(Literal) ->
+        # 0-d tensor holding its value, so one program serves every value
+        # of the literal (engine/pipeline.py)
+        self._dyn_literals = None
 
     # ---- public --------------------------------------------------------
     def eval(self, e: lp.LogicalExpr, batch: ColumnBatch) -> Val:
@@ -130,6 +141,12 @@ class Evaluator:
             col = batch.columns[e.index]
             return Val(col.data, col.validity, e.dtype, col.dictionary)
         if isinstance(e, lp.Literal):
+            if self._dyn_literals is not None:
+                dv = self._dyn_literals.get(id(e))
+                if dv is not None:
+                    return Val(dv.expand(cap), torch.ones(
+                        cap, dtype=torch.bool, device=dv.device),
+                        _DYN_TYPES[dv.dtype]())
             return _bcast(e.value.value, e.value.dtype, cap, self.device)
         if isinstance(e, lp.AliasExpr):
             return self.eval(e.expr, batch)

@@ -3,7 +3,8 @@
 The sources in `query_engine_tpu_torch/csrc/*.cu` have a plain C interface.
 At first use, `load_library()` compiles them with nvcc for Hopper
 (`sm_90a`) into one shared library under `query_engine_tpu_torch/_build/`,
-named by a hash of the sources, and loads it with ctypes. A build that
+named by a hash of the sources and the headers beside them (`*.cuh`), and
+loads it with ctypes. A build that
 exists is reused. When nvcc is missing or fails, the call raises with the
 compiler's output; nothing falls back to another implementation.
 """
@@ -60,6 +61,9 @@ def _bind(lib: ctypes.CDLL) -> None:
     f = lib.qe_group_sum_count_i64
     f.argtypes = [p, p, p, i64, i32, i32, p, p, p]
     f.restype = i32
+    f = lib.qe_small_gather_u32
+    f.argtypes = [p, p, i64, i32, i32, p, p]
+    f.restype = i32
 
 
 def load_library() -> Built:
@@ -69,7 +73,7 @@ def load_library() -> Built:
         return _built
     sources = sorted(SRC_DIR.glob("*.cu"))
     h = hashlib.sha256()
-    for src in sources:
+    for src in sorted([*sources, *SRC_DIR.glob("*.cuh")]):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())

@@ -1,8 +1,8 @@
 """Vectorized operator kernels over fixed-capacity torch planes.
 
 The plain-torch counterparts of the `query_engine_tpu.ops.kernels`
-functions that the eager main path calls, with the same names and
-contracts: every function takes planes at a fixed capacity plus a live-row
+functions that the eager main path and the compiled pipeline call, with the
+same names and contracts: every function takes planes at a fixed capacity plus a live-row
 count (or a boolean selection mask) and returns planes, so the host reads a
 scalar only where an output size depends on the data (count-then-emit).
 
@@ -13,6 +13,9 @@ Differences from the JAX package, all of representation, none of result:
     from the last key to the first (`_lexsort`);
   * scatters that drop out-of-range targets write into a spill slot at the
     end of an output one element longer, which is then sliced off;
+  * packed 32-bit words (gather_columns_packed, fk_gather_by_rank) are
+    int64 planes holding values in [0, 2^32); the small-table gather takes
+    them as int32 bit patterns (ops/small_gather.py);
   * int64 segment sums are one `index_add_` (exact and order-independent);
     float segment sums on a CUDA tensor go through the fixed-point path of
     ops/group_agg.py with an int64 accumulator, so they give the same bits
@@ -30,7 +33,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from query_engine_tpu_torch.ops import group_agg
+from query_engine_tpu_torch.ops import group_agg, small_gather
 
 _I32_MIN = int(np.iinfo(np.int32).min)
 _I32_MAX = int(np.iinfo(np.int32).max)
@@ -178,19 +181,60 @@ def _sort_key_operands(
     return operands
 
 
+def _composite_key(key_datas, key_valids, ranges, pad, ascs=None,
+                   nulls_firsts=None):
+    """ONE int64 sort operand for keys that ALL have static (lo, range)
+    covers, when the fields (+1 null bit each, +1 pad bit) fit 63 bits:
+    (composite plane, its bit count), or None. Per key, most significant
+    first: the null bit, then the clipped code (bit-flipped for DESC); a
+    null bit of 1 sorts the null above live values (flipped for NULLS
+    FIRST). Without ascs/nulls_firsts: ascending, nulls last (grouping)."""
+    if ranges is None or len(ranges) != len(key_datas) or not all(
+        r is not None and len(r) == 2 for r in ranges
+    ):
+        return None
+    widths = [max(int(r[1] - 1).bit_length(), 1) for r in ranges]
+    total_bits = sum(w + 1 for w in widths) + 1
+    if total_bits > 63:
+        return None
+    n = len(key_datas)
+    ascs = ascs or [True] * n
+    nulls_firsts = nulls_firsts or [False] * n
+    comp = torch.zeros(pad.shape[0], dtype=torch.int64, device=pad.device)
+    for data, valid, asc, nf, (lo, _r), w in zip(
+        key_datas, key_valids, ascs, nulls_firsts, ranges, widths
+    ):
+        code = (data.to(torch.int64) - lo).clamp(0, (1 << w) - 1)
+        if not asc:
+            code = ((1 << w) - 1) - code
+        null_bit = valid.to(torch.int64) if nf else (~valid).to(torch.int64)
+        comp = ((comp << (w + 1)) | (null_bit << w)
+                | torch.where(valid, code, 0))
+    return comp | (pad.to(torch.int64) << (total_bits - 1)), total_bits
+
+
 def sort_permutation(
     key_datas: Sequence[torch.Tensor],
     key_valids: Sequence[torch.Tensor],
     ascs: Sequence[bool],
     nulls_firsts: Sequence[bool],
     num_rows,
+    ranges: Optional[Sequence[Optional[Tuple[int, int]]]] = None,
 ) -> torch.Tensor:
     """Stable multi-key sort permutation: perm[out_pos] = in_row. Live rows
     come first in the requested order; pad rows sink to the end. Ties keep
     input order (Arrow lexsort_to_indices as used by the reference's
-    SortedMerge, query-distributed/src/operators.rs:180-193)."""
+    SortedMerge, query-distributed/src/operators.rs:180-193).
+
+    ranges: optional per-key (lo, range) static covers; when every key is
+    covered and the fields fit 63 bits, all keys compose into ONE int64
+    operand and the sort is one stable torch.sort."""
     capacity = key_datas[0].shape[0]
     pad = ~live_mask(capacity, num_rows, key_datas[0].device)
+    comp = _composite_key(key_datas, key_valids, ranges, pad, list(ascs),
+                          list(nulls_firsts))
+    if comp is not None:
+        return torch.sort(comp[0], stable=True).indices
     operands = _sort_key_operands(key_datas, key_valids, ascs,
                                   nulls_firsts, pad)
     return _lexsort(operands)
@@ -237,6 +281,197 @@ def gather_columns(
     return out_d, out_v
 
 
+def _word_layout(slots, direct=()):
+    """First-fit-decreasing of columns into 32-bit words. slots: (column,
+    data bits); every slot carries one more bit for validity; `direct`
+    columns add valid-only 1-bit slots. Returns (words: columns per word,
+    layout: column -> (word, bit offset, data bits))."""
+    items = sorted(
+        [(bits + 1, i, bits) for i, bits in slots]
+        + [(1, i, 0) for i in direct],
+        reverse=True,
+    )
+    words: List[list] = []
+    used: List[int] = []
+    layout = {}
+    for size, i, bits in items:
+        for w in range(len(words)):
+            if used[w] + size <= 32:
+                layout[i] = (w, used[w], bits)
+                words[w].append(i)
+                used[w] += size
+                break
+        else:
+            layout[i] = (len(words), 0, bits)
+            words.append([i])
+            used.append(size)
+    return words, layout
+
+
+def _pack_slot(data, bounds) -> Optional[int]:
+    """Data bits of a packable column (bool, or an integer column whose
+    static (lo, range) cover fits 30 bits), else None."""
+    if data.dtype == torch.bool:
+        return 1
+    if (
+        bounds is not None and len(bounds) == 2
+        and not data.is_floating_point()
+        and max(int(bounds[1]) - 1, 1).bit_length() <= 30
+    ):
+        return max(int(bounds[1] - 1).bit_length(), 1)
+    return None
+
+
+def _lo(data, bounds) -> int:
+    if data.dtype == torch.bool or bounds is None or len(bounds) != 2:
+        return 0
+    return int(bounds[0])
+
+
+def _pack_words(words, layout, datas, valids, bounds, length, device):
+    """The packed int64 word planes (values in [0, 2^32))."""
+    planes = []
+    for members in words:
+        plane = torch.zeros(length, dtype=torch.int64, device=device)
+        for i in members:
+            _, off, bits = layout[i]
+            if bits:
+                img = (datas[i].to(torch.int64) - _lo(datas[i], bounds[i])) \
+                    & ((1 << bits) - 1)
+                plane = plane | (img << off)
+            plane = plane | (valids[i].to(torch.int64) << (off + bits))
+        planes.append(plane)
+    return planes
+
+
+def _unpack(gw, off, bits, data, bounds):
+    """Column data from its slot of a gathered word plane."""
+    if data.dtype == torch.bool:
+        return ((gw >> off) & 1) != 0
+    return (((gw >> off) & ((1 << bits) - 1)) + _lo(data, bounds)).to(
+        data.dtype)
+
+
+def gather_columns_packed(
+    datas: Sequence[torch.Tensor],
+    valids: Sequence[torch.Tensor],
+    bounds: Sequence[Optional[Tuple[int, int]]],
+    indices: torch.Tensor,
+    row_valid: Optional[torch.Tensor] = None,
+    mxu_small: bool = False,
+):
+    """gather_columns with bit-packing: columns whose static bounds (table
+    stats / dictionary sizes) fit 30 bits pack (data - lo) plus their
+    validity bit into shared 32-bit words, and every other column
+    contributes its validity bit too, so K columns need fewer than 2K
+    gathers.
+
+    bounds[i]: None, or a static (lo, range) cover of column i's live
+    values. Pad/garbage rows may lie outside the cover — their packed image
+    wraps, which is fine because only rows with a true validity bit are
+    ever read downstream.
+
+    mxu_small (the JAX name kept): when the source has at most
+    small_gather.MAX_TABLE rows, the words are gathered by the small-table
+    gather (ops/small_gather.py: the CUDA kernel on the card). Indices must
+    be in range, as for the plain gather.
+    """
+    n_cols = len(datas)
+    slots, direct = [], []
+    for i, (d, b) in enumerate(zip(datas, bounds)):
+        bits = _pack_slot(d, b)
+        if bits is None:
+            direct.append(i)
+        else:
+            slots.append((i, bits))
+    if not slots and n_cols <= 1:
+        return gather_columns(datas, valids, indices, row_valid)
+
+    words, layout = _word_layout(slots, direct)
+    src_len = datas[0].shape[0]
+    raw_planes = _pack_words(words, layout, datas, valids, bounds, src_len,
+                             indices.device)
+    if mxu_small and raw_planes and src_len <= small_gather.MAX_TABLE:
+        table = small_gather.to_bits(torch.stack(raw_planes, dim=1))
+        got = small_gather.from_bits(
+            small_gather.gather_words(indices.to(torch.int32), table))
+        planes = [got[:, w] for w in range(len(raw_planes))]
+    else:
+        planes = [p[indices] for p in raw_planes]
+
+    out_d, out_v = [], []
+    for i in range(n_cols):
+        w, off, bits = layout[i]
+        gw = planes[w]
+        vv = ((gw >> (off + bits)) & 1) != 0
+        if row_valid is not None:
+            vv = vv & row_valid
+        if bits:
+            d = _unpack(gw, off, bits, datas[i], bounds[i])
+        else:
+            d = datas[i][indices]
+        out_d.append(d)
+        out_v.append(vv)
+    return out_d, out_v
+
+
+def fk_gather_by_rank(
+    datas: Sequence[torch.Tensor],
+    valids: Sequence[torch.Tensor],
+    bounds: Sequence[Optional[Tuple[int, int]]],
+    rr: torch.Tensor,
+    r_live: torch.Tensor,
+    lr: torch.Tensor,
+    l_live: torch.Tensor,
+    n_ranks: int,
+):
+    """FK join emit fused to ONE probe-length gather per packed word: the
+    build side's packed words scatter to RANK space (build-side cost), so
+    each probe row gathers its rank's word directly. An 'occupied' bit rides
+    along, so `matched` comes from the same gathered word.
+
+    Requires every right column to pack (30-bit bounded ints / bools);
+    returns (out_datas, out_valids, matched), or None for the caller to use
+    fk_join_right_lookup + gather_columns_packed.
+    """
+    n_cols = len(datas)
+    src_len = r_live.shape[0]
+    slots = []
+    for i, (d, b) in enumerate(zip(datas, bounds)):
+        bits = _pack_slot(d, b)
+        if bits is None:
+            return None
+        slots.append((i, bits))
+    slots.append((n_cols, 1))  # occupied marker (bool, always valid)
+    words, layout = _word_layout(slots)
+
+    dev = rr.device
+    all_d = list(datas) + [torch.ones(src_len, dtype=torch.bool, device=dev)]
+    all_v = list(valids) + [r_live]
+    all_b = list(bounds) + [None]
+    r_ok = r_live & (rr >= 0)
+    tgt = torch.where(r_ok, rr, n_ranks)
+    l_ok = l_live & (lr >= 0)
+    src = lr.clamp(0, n_ranks - 1)
+
+    planes = []
+    for plane in _pack_words(words, layout, all_d, all_v, all_b, src_len,
+                             dev):
+        by_rank = _scatter_drop(n_ranks, tgt, plane, 0, torch.int64)
+        planes.append(by_rank[src])
+
+    w, off, bits = layout[n_cols]
+    matched = l_ok & (((planes[w] >> (off + bits)) & 1) != 0)
+
+    out_d, out_v = [], []
+    for i in range(n_cols):
+        w, off, bits = layout[i]
+        gw = planes[w]
+        out_d.append(_unpack(gw, off, bits, all_d[i], all_b[i]))
+        out_v.append((((gw >> (off + bits)) & 1) != 0) & matched)
+    return out_d, out_v, matched
+
+
 # ---------------------------------------------------------------------------
 # grouping
 # ---------------------------------------------------------------------------
@@ -261,14 +496,31 @@ def group_ids(
     key_datas: Sequence[torch.Tensor],
     key_valids: Sequence[torch.Tensor],
     num_rows,
+    ranges: Optional[Sequence[Optional[Tuple[int, int]]]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Dense group ids for GROUP BY keys (NULLs group together), by a joint
     sort. Returns (group id per row [capacity], num_groups 0-d tensor,
     representative row per group [capacity]). Ids are dense in sorted key
-    order."""
+    order.
+
+    ranges: optional per-key static (lo, range) covers; when every key is
+    covered and the fields fit 63 bits, the keys compose into ONE int64
+    sort operand."""
     capacity = key_datas[0].shape[0]
     device = key_datas[0].device
     pad = ~live_mask(capacity, num_rows, device)
+    comp = _composite_key(key_datas, key_valids, ranges, pad)
+    if comp is not None:
+        comp, total_bits = comp
+        sorted_comp, sperm = torch.sort(comp, stable=True)
+        sorted_pad = (sorted_comp >> (total_bits - 1)) == 1
+        change, seg = _segment_ids_from_sorted([sorted_comp], sorted_pad)
+        first = change & ~sorted_pad
+        gid = torch.zeros(capacity, dtype=torch.int64, device=device)
+        gid[sperm] = seg
+        rep = _scatter_drop(capacity, torch.where(first, seg, -1), sperm, 0,
+                            torch.int64)
+        return gid, first.sum(dtype=torch.int64), rep
     operands: List[torch.Tensor] = []
     for i, (data, valid) in enumerate(zip(key_datas, key_valids)):
         key, null = normalize_key(data, valid)
@@ -628,9 +880,57 @@ def join_emit_inner(
     return torch.where(valid, owner, 0), torch.where(valid, ri, 0), valid
 
 
+def fk_join_right_lookup(
+    left_ranks: torch.Tensor,
+    right_ranks: torch.Tensor,
+    n_left,
+    n_right,
+    n_ranks: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """FK fast path for joins whose build (right) side is UNIQUE per key:
+    each probe row has at most one match, so the emit is a direct rank ->
+    right-row lookup (output rows sit at their left-row positions; callers
+    carry a selection mask). Returns (right_row per left row, 0 where
+    unmatched; matched mask)."""
+    device = left_ranks.device
+    cap_l = left_ranks.shape[0]
+    cap_r = right_ranks.shape[0]
+    if n_ranks is None:
+        n_ranks = cap_l + cap_r
+    r_ok = live_mask(cap_r, n_right, device) & (right_ranks >= 0)
+    rows_r = torch.arange(cap_r, device=device)
+    table = _scatter_drop(n_ranks, torch.where(r_ok, right_ranks, n_ranks),
+                          rows_r, -1, torch.int64)
+    l_ok = live_mask(cap_l, n_left, device) & (left_ranks >= 0)
+    ri = torch.where(l_ok, table[left_ranks.clamp(0, n_ranks - 1)], -1)
+    matched = ri >= 0
+    return torch.where(matched, ri, 0), matched
+
+
 def unmatched_indices(matched: torch.Tensor, num_rows, out_capacity: int):
     """Rows with no match (for outer joins): compacted indices + count."""
     um = ~matched & live_mask(matched.shape[0], num_rows, matched.device)
     count = um.sum(dtype=torch.int64)
     idx = compaction_indices(um, num_rows, out_capacity)
     return idx, count
+
+
+# ---------------------------------------------------------------------------
+# segment positions over sorted rows
+# ---------------------------------------------------------------------------
+
+
+def _seg_start_pos(seg_change: torch.Tensor) -> torch.Tensor:
+    """Index of the first row of each row's segment."""
+    idx = torch.arange(seg_change.shape[0], device=seg_change.device)
+    return torch.cummax(torch.where(seg_change, idx, 0), 0).values
+
+
+def _seg_end_pos(seg_change: torch.Tensor) -> torch.Tensor:
+    """Index of the last row of each row's segment."""
+    capacity = seg_change.shape[0]
+    idx = torch.arange(capacity, device=seg_change.device)
+    nxt = torch.roll(seg_change, -1)
+    nxt[capacity - 1] = True
+    ends = torch.where(nxt, idx, capacity - 1)
+    return torch.flip(torch.cummin(torch.flip(ends, (0,)), 0).values, (0,))

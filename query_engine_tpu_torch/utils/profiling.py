@@ -4,10 +4,15 @@ Parity surface: the reference logs with the `tracing` crate and ad-hoc
 Instant::now timing (repl.rs:303,347, worker.rs:96-108). The profiler keeps
 structured per-operator self time, rows and bytes for EXPLAIN ANALYZE.
 
+The executor records a plan segment that the compiled pipeline ran as one
+op, `compiled_pipeline`, so EXPLAIN ANALYZE shows the segment and the
+nodes that ran eagerly beside it.
+
 Host wall clock: CUDA launches are asynchronous, so a node is charged the
 host time until something it runs waits for the device (a `.item()` or a
-device-to-host copy). Device time per kernel comes from `torch.profiler`
-or CUDA events, not from here.
+device-to-host copy; for a compiled segment, the read of its row count).
+Device time per kernel comes from `torch.profiler` or CUDA events, not
+from here.
 """
 
 from __future__ import annotations

@@ -15,13 +15,19 @@ import torch
 
 from query_engine_tpu_torch.columnar.batch import ColumnBatch
 from query_engine_tpu_torch.engine.session import Session
-from query_engine_tpu_torch.ops import group_agg
+from query_engine_tpu_torch.ops import group_agg, small_gather
 from query_engine_tpu_torch.ops import kernels as K
 
 pytestmark = pytest.mark.cuda
 
 BENCH_QUERY = (
     "SELECT f.dept, COUNT(*) AS c, SUM(f.salary + d.bonus) AS s "
+    "FROM f JOIN d ON f.dept = d.dept_id "
+    "WHERE f.age > 25 GROUP BY f.dept ORDER BY s DESC LIMIT 10"
+)
+# the small-table gather's query: a float dimension column
+QUERY_B = (
+    "SELECT f.dept, COUNT(*) AS c, SUM(f.salary * d.rate) AS s "
     "FROM f JOIN d ON f.dept = d.dept_id "
     "WHERE f.age > 25 GROUP BY f.dept ORDER BY s DESC LIMIT 10"
 )
@@ -107,3 +113,107 @@ def test_bench_query_on_card_matches_cpu(cuda_device):
     assert group_agg.launches > before
     assert all(c.data.is_cuda and c.validity.is_cuda for c in out.columns)
     assert out.to_pylist() == cpu.sql(BENCH_QUERY).to_pylist()
+
+
+@pytest.mark.parametrize("n,T,W", [(1 << 16, 1024, 1), (1 << 16, 4096, 3),
+                                   (1000, 1, 1), (5000, 300, 20),
+                                   (777, 4096, 17)])
+def test_small_gather_kernel_matches_plain(cuda_device, n, T, W):
+    """Bit-exact against the plain version, out-of-range indices included;
+    (4096, 17) exceeds a block's shared memory: the device-memory path."""
+    rng = np.random.default_rng(n + T + W)
+    table = rng.integers(-(2**31), 2**31, (T, W)).astype(np.int32)
+    idx = rng.integers(-1, T + 1, n).astype(np.int32)
+    idx[:4] = [-(2**31), 2**31 - 1, T, -1]
+    ti = torch.from_numpy(idx).to(cuda_device)
+    tt = torch.from_numpy(table).to(cuda_device)
+    before = small_gather.launches
+    got = small_gather.gather_words(ti, tt)
+    torch.cuda.synchronize()
+    assert small_gather.launches == before + 1
+    assert got.is_cuda and got.dtype == torch.int32 and got.shape == (n, W)
+    assert torch.equal(got, small_gather.gather_words_plain(ti, tt))
+
+
+def _bench_sessions(device, n, seed, mxu_gather, monkeypatch):
+    rng = np.random.default_rng(seed)
+    f = {"age": rng.integers(18, 65, n),
+         "salary": rng.integers(50_000, 150_000, n),
+         "dept": rng.integers(0, 1024, n)}
+    d = {"dept_id": np.arange(1024), "bonus": rng.integers(0, 1000, 1024),
+         "rate": rng.integers(128, 384, 1024) / 256}
+    monkeypatch.setenv("QE_MXU_GATHER", mxu_gather)
+    cpu, gpu = Session("cpu"), Session(device)
+    for s in (cpu, gpu):
+        s.register_table("f", ColumnBatch.from_pydict(f))
+        s.register_table("d", ColumnBatch.from_pydict(d))
+    return cpu, gpu
+
+
+@pytest.mark.parametrize("mxu_gather", ["0", "1"])
+@pytest.mark.parametrize("query", [BENCH_QUERY, QUERY_B])
+def test_compiled_queries_on_card_match_cpu(cuda_device, monkeypatch,
+                                            mxu_gather, query):
+    """Queries A and B through the captured program: the first run compiles
+    and captures, the second replays; both equal the CPU port's rows."""
+    cpu, gpu = _bench_sessions(cuda_device, 30_000, 3, mxu_gather,
+                               monkeypatch)
+    want = cpu.sql(query).to_pylist()
+    gathers = small_gather.launches
+    assert gpu.sql(query).to_pylist() == want
+    st = gpu.executor.pipeline.stats
+    assert st["compiles"] == 1 and st["captures"] == 1, st
+    syncs = gpu.executor.host_syncs
+    assert gpu.sql(query).to_pylist() == want
+    assert st["replays"] == 1 and gpu.executor.host_syncs == syncs + 1, st
+    # Query A's dimension is Query B's here, so both take the lookup route
+    assert (small_gather.launches > gathers) == (mxu_gather == "1")
+
+
+def test_replay_after_reregistering_a_table(cuda_device):
+    """A table registered anew at the same capacity: the graph is captured
+    over the new planes, and the rows are the new table's."""
+    s = Session(cuda_device)
+    q = "SELECT x, y FROM t WHERE y >= 20 ORDER BY x DESC"
+    s.register_table("t", {"x": [1, 2, 3], "y": [10, 20, 30]})
+    assert s.sql(q).to_pylist() == [(3, 30), (2, 20)]
+    assert s.sql(q).to_pylist() == [(3, 30), (2, 20)]  # a replay
+    s.register_table("t", {"x": [1, 2, 3, 4], "y": [10, 20, 30, 40]})
+    assert s.sql(q).to_pylist() == [(4, 40), (3, 30), (2, 20)]
+    st = s.executor.pipeline.stats
+    assert st["compiles"] == 1 and st["captures"] == 2, st
+    assert st["replays"] == 2, st
+
+
+def test_one_captured_program_for_many_literal_values(cuda_device):
+    """A literal is a program input: each replay reads the value written
+    into its buffer, and a non-dense result is compacted after the replay."""
+    s = Session(cuda_device)
+    s.register_table("t", {"x": list(range(10)), "y": [3 * i for i in
+                                                       range(10)]})
+    for v, want in ((20, [9, 8, 7]), (10, [9, 8, 7, 6, 5, 4]), (26, [9])):
+        got = s.sql(f"SELECT x FROM t WHERE y > {v} ORDER BY x DESC")
+        assert got.to_pylist() == [(x,) for x in want]
+        assert s.sql(f"SELECT x, y FROM t WHERE y > {v}").to_pylist() == [
+            (x, 3 * x) for x in sorted(want)]
+    st = s.executor.pipeline.stats
+    assert st["compiles"] == 2 and st["captures"] == 2, st
+    assert st["replays"] == 4, st
+
+
+def test_string_nodes_run_eagerly_on_card(cuda_device):
+    """String comparisons and string join keys remap dictionary codes
+    through host tables, which a graph cannot capture: those nodes run in
+    the eager executor on the card, the rest of the query compiled."""
+    f = {"k": ["a", "b", "c", "a", None], "v": [1, 2, 3, 4, 5]}
+    d = {"k": ["a", "b", "c"], "w": [10, 20, 30]}
+    cpu, gpu = Session("cpu"), Session(cuda_device)
+    for s in (cpu, gpu):
+        s.register_table("f", f)
+        s.register_table("d", d)
+    for q in ("SELECT v FROM f WHERE k > 'a' ORDER BY v DESC",
+              "SELECT f.v, d.w FROM f JOIN d ON f.k = d.k ORDER BY f.v"):
+        want = cpu.sql(q).to_pylist()
+        assert gpu.sql(q).to_pylist() == want
+        assert gpu.sql(q).to_pylist() == want
+    assert gpu.executor.pipeline.stats["compiles"] >= 1

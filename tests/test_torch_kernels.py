@@ -188,6 +188,42 @@ def test_group_ids(kinds):
     _eq(got[2][:ng], ref[2][:ng])
 
 
+@pytest.mark.parametrize("ascs,nfs", [
+    ([True, True], [False, False]),
+    ([False, True], [True, False]),
+    ([False, False], [False, True]),
+])
+@pytest.mark.parametrize("num_rows", [N, "mask"])
+def test_composite_key_sort_and_group_ids(ascs, nfs, num_rows):
+    """Keys with static (lo, range) covers compose into one int64 operand
+    (the compiled pipeline's `ranges`); the covers include values outside
+    the live data, as table-stat covers do."""
+    rng = np.random.default_rng(8)
+    cols = [_col(rng, "i64"), _col(rng, "i32")]
+    cols = [((d % 7).astype(d.dtype), v) for d, v in cols]
+    ranges = [(-8, 16), (-8, 128)]
+    if num_rows == "mask":
+        num_rows = rng.random(CAP) < 0.6
+    tn = _t(num_rows) if isinstance(num_rows, np.ndarray) else num_rows
+    jn = _j(num_rows) if isinstance(num_rows, np.ndarray) else num_rows
+    td, tv = [_t(d) for d, _ in cols], [_t(v) for _, v in cols]
+    jd, jv = [_j(d) for d, _ in cols], [_j(v) for _, v in cols]
+    _eq(TK.sort_permutation(td, tv, ascs, nfs, tn, ranges=ranges),
+        JK.sort_permutation(jd, jv, ascs, nfs, jn, ranges=ranges))
+    # the live rows in the order of the operand-per-key sort (pad rows
+    # sink to the end in an unspecified order)
+    live = np.asarray(JK.live_mask(CAP, jn))
+    n_live = int(live.sum())
+    _eq(TK.sort_permutation(td, tv, ascs, nfs, tn, ranges=ranges)[:n_live],
+        TK.sort_permutation(td, tv, ascs, nfs, tn)[:n_live])
+    got = TK.group_ids(td, tv, tn, ranges=ranges)
+    ref = JK.group_ids(jd, jv, jn, ranges=ranges)
+    ng = int(ref[1])
+    _eq(got[0][_t(live)], np.asarray(ref[0])[live])  # pad ids unspecified
+    _eq(got[1], ref[1])
+    _eq(got[2][:ng], ref[2][:ng])
+
+
 @pytest.mark.parametrize("func", ["count_star", "count", "sum", "avg",
                                   "min", "max"])
 @pytest.mark.parametrize("kind", ["i64", "i32", "f64", "f32"])
