@@ -35,6 +35,19 @@ Phase 5  runs Query B (the dimension gains a float64 column `rate`, so the
          both, and with the gate set the small gather kernel appears among
          the CUDA kernels of a profiled replayed query.
 
+Phase 6  drives the aggregate probes' entry points (`probes.probe_agg_variants
+         .run_variant` v1, v2, v4, v5 and `probes.probe_int8_mxu
+         .grouped_sum_count_s8`), which run the four one-hot tensor-core
+         kernels, at 2^24 rows and 1024 groups on three data sets: the
+         probe's (seed 3), all groups and lanes over the whole int64 range,
+         and a sparse wrap-around case (1 % of rows in 7 groups, values near
+         +-2^63). Sums and counts must equal the numpy oracle and
+         v0_production (the group_agg kernel), with the same bits on a second
+         run; each kernel's [G, L] chunk totals must equal its plain
+         version's bit for bit. On the probe's data it times each kernel,
+         its plain version, its entry point and v0 (CUDA events) and prints
+         rows/s, the tensor-core TFLOP/s and the input GB/s.
+
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after; a kernel of the path that was not launched fails the run.
 A replayed CUDA graph runs no Python, so on the compiled paths the counts
@@ -285,17 +298,20 @@ def oracle_b(cols, rate):
 
 
 def reset_counts():
-    from query_engine_tpu_torch.ops import group_agg, small_gather
+    from query_engine_tpu_torch.ops import agg_variants, group_agg, small_gather
 
     group_agg.launches = 0
     small_gather.launches = 0
+    for v in agg_variants.launches:
+        agg_variants.launches[v] = 0
 
 
 def read_counts():
-    from query_engine_tpu_torch.ops import group_agg, small_gather
+    from query_engine_tpu_torch.ops import agg_variants, group_agg, small_gather
 
     return {"group_agg": group_agg.launches,
-            "small_gather": small_gather.launches}
+            "small_gather": small_gather.launches,
+            **{f"onehot_{v}": k for v, k in agg_variants.launches.items()}}
 
 
 def profile_query(sess, query, tag):
@@ -568,6 +584,126 @@ def phase5(tables):
     return out
 
 
+N_PROBE = 1 << 24
+ONEHOT_KERNELS = {  # variant -> (name, source, the TPU kernel it replaces)
+    "v1": ("onehot_bytes_v1", "query_engine_tpu_torch/csrc/agg_onehot_bytes.cu",
+           "benchmarks/probe_agg_variants.py:39"),
+    "v2": ("onehot_bytes_v2", "query_engine_tpu_torch/csrc/agg_onehot_bytes.cu",
+           "benchmarks/probe_agg_variants.py:78"),
+    "v4": ("onehot_factorized_v4",
+           "query_engine_tpu_torch/csrc/agg_onehot_factorized.cu",
+           "benchmarks/probe_agg_variants.py:117"),
+    "v5": ("onehot_factorized_v5",
+           "query_engine_tpu_torch/csrc/agg_onehot_factorized.cu",
+           "benchmarks/probe_agg_variants.py:207"),
+    "s8": ("onehot_s8", "query_engine_tpu_torch/csrc/agg_onehot_s8.cu",
+           "benchmarks/probe_int8_mxu.py:36"),
+}
+
+
+def agg_datasets(n):
+    """numpy (values, ok, gid) per data set of phase 6."""
+    from query_engine_tpu_torch.probes.probe_agg_variants import probe_data
+
+    out = {"probe data": tuple(t.numpy() for t in probe_data(n, "cpu"))}
+    rng = np.random.default_rng(SEED)
+    values = rng.integers(-(2**63), 2**63 - 1, n, dtype=np.int64,
+                          endpoint=True)
+    values[:2] = [-(2**63), 2**63 - 1]
+    ok = rng.random(n) < 0.97
+    gid = rng.integers(0, 1024, n).astype(np.int32)
+    gid[rng.random(n) < 0.02] = -1
+    gid[rng.random(n) < 0.001] = 1024  # just past the groups
+    out["all groups and lanes"] = (values, ok, gid)
+    sparse = np.full(n, -1, np.int32)
+    few = rng.random(n) < 0.01
+    sparse[few] = rng.choice([0, 1, 127, 128, 511, 1000, 1023], few.sum())
+    near = np.where(rng.random(n) < 0.5, 2**63 - 1 - values % 1000,
+                    -(2**63) + values % 1000)
+    out["sparse wrap-around"] = (near, ok, sparse)
+    return out
+
+
+def phase6():
+    import torch
+
+    from query_engine_tpu_torch.ops import agg_variants as AV
+    from query_engine_tpu_torch.ops import group_agg
+    from query_engine_tpu_torch.probes import probe_agg_variants as PV
+    from query_engine_tpu_torch.probes.probe_int8_mxu import \
+        grouped_sum_count_s8
+
+    dev = torch.device("cuda")
+    G = PV.G
+    n = N_PROBE
+    entries = {v: (lambda v_, o, g, v=v: PV.run_variant(v_, o, g, v))
+               for v in ("v1", "v2", "v4", "v5")}
+    entries["s8"] = lambda v_, o, g: grouped_sum_count_s8(v_, o, g, G)
+    main_launches, max_err, times = None, 0, {}
+    for name, arrays in agg_datasets(n).items():
+        ref_s, ref_c = PV.reference(*arrays)
+        values, ok, gid = (torch.from_numpy(a).to(dev) for a in arrays)
+        v0_s, v0_c = group_agg.grouped_sum_count(values, ok, gid, G)
+        check(np.array_equal(v0_s.cpu().numpy(), ref_s)
+              and np.array_equal(v0_c.cpu().numpy(), ref_c),
+              f"phase 6 {name}: v0_production differs from the oracle")
+        torch.cuda.synchronize()
+        reset_counts()
+        outs = {v: f(values, ok, gid) for v, f in entries.items()}
+        torch.cuda.synchronize()
+        launches = read_counts()
+        if main_launches is None:
+            main_launches = launches
+        for v, (s, c) in outs.items():
+            check(launches[f"onehot_{v}"] > 0,
+                  f"phase 6 {name}: {v} did not launch its kernel")
+            check(s.is_cuda and np.array_equal(s.cpu().numpy(), ref_s)
+                  and np.array_equal(c.cpu().numpy(), ref_c),
+                  f"phase 6 {name}: {v} sums or counts differ from the "
+                  "oracle")
+            check(torch.equal(s, v0_s) and torch.equal(c, v0_c),
+                  f"phase 6 {name}: {v} differs from v0_production")
+            s2, c2 = entries[v](values, ok, gid)
+            check(torch.equal(s, s2) and torch.equal(c, c2),
+                  f"phase 6 {name}: {v}: two runs differ")
+        vlo, vhi, gid_m = AV.prepare(values, ok, gid)
+        for v in entries:
+            kt = AV.chunk_totals_kernel(v, vlo, vhi, gid_m, G)
+            kt2 = AV.chunk_totals_kernel(v, vlo, vhi, gid_m, G)
+            pt = AV.chunk_totals_plain(v, vlo, vhi, gid_m, G)
+            max_err = max(max_err, int((kt - pt).abs().max()))
+            check(torch.equal(kt, pt),
+                  f"phase 6 {name}: {v} chunk totals != plain")
+            check(torch.equal(kt, kt2),
+                  f"phase 6 {name}: {v} chunk totals differ between runs")
+        print(f"phase 6: {name}: n={n} G={G}: v1 v2 v4 v5 s8 == numpy "
+              "oracle == v0_production, chunk totals == plain bit for bit, "
+              f"repeat runs bit-identical; launches {launches}")
+        if name != "probe data":
+            continue
+        v0_ms = cuda_ms(lambda: group_agg.grouped_sum_count(values, ok, gid,
+                                                            G))
+        u = torch.where(ok, values, 0)[None]
+        v0_acc_ms = cuda_ms(lambda: group_agg.accumulate_kernel(
+            gid_m, u, ok[None], G))
+        print(f"phase 6: v0_production {v0_ms:.4f} ms, its accumulate "
+              f"kernel alone {v0_acc_ms:.4f} ms")
+        for v, f in entries.items():
+            k_ms = cuda_ms(lambda: AV.chunk_totals_kernel(v, vlo, vhi, gid_m,
+                                                          G))
+            p_ms = cuda_ms(lambda: AV.chunk_totals_plain(v, vlo, vhi, gid_m,
+                                                         G), iters=5)
+            e_ms = cuda_ms(lambda: f(values, ok, gid))
+            r = PV.kernel_rates(v, n, k_ms)
+            times[v] = (k_ms, p_ms, e_ms, v0_ms, v0_acc_ms)
+            print(f"phase 6: {v}: kernel {k_ms:.4f} ms ({r['rows_per_sec']:.4g}"
+                  f" rows/s, {r['tc_tflops']:.2f} TFLOP/s on the tensor cores,"
+                  f" {r['gb_per_sec']:.1f} GB/s of input), plain {p_ms:.4f} "
+                  f"ms, entry point {e_ms:.4f} ms, v0 {v0_ms:.4f} ms "
+                  "(CUDA events)")
+    return main_launches, max_err, times
+
+
 def main():
     import torch
 
@@ -589,6 +725,7 @@ def main():
         g_err, g_times = phase3()
         agg_launches, agg_names = phase4(tables, eager_ms)
         b = phase5(tables)
+        p6_launches, p6_err, p6_times = phase6()
     except CheckFailed as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -614,7 +751,18 @@ def main():
         "ms": gk_ms,
         "plain_ms": gp_ms,
         "in_replay": b["set"][2],
-    }]}))
+    }] + [{
+        "name": name,
+        "route": "cuda",
+        "source": source,
+        "replaces": replaces,
+        "launches": p6_launches[f"onehot_{v}"],
+        "max_abs_err": p6_err,
+        "ms": p6_times[v][0],
+        "plain_ms": p6_times[v][1],
+        "entry_ms": p6_times[v][2],
+        "v0_ms": p6_times[v][3],
+    } for v, (name, source, replaces) in ONEHOT_KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -11,8 +11,11 @@ Layer map:
   sql/        lexer, AST, recursive-descent parser (copied)
   plan/       logical plan, planner, optimizer, physical plan (copied)
   ops/        kernels.py (plain torch), group_agg.py (the hand-written CUDA
-              grouped SUM/COUNT kernel in csrc/group_agg.cu), _build.py
+              grouped SUM/COUNT kernel in csrc/group_agg.cu),
+              small_gather.py, agg_variants.py (the one-hot tensor-core
+              aggregate kernels), _build.py
   engine/     expression evaluator, eager executor, Session
+  probes/     the aggregate probes, counterparts of benchmarks/probe_*.py
   storage/    in-memory, CSV and Parquet sources (copied; pyarrow is
               imported only when a CSV or Parquet table is registered)
   index/      B-Tree and Hash indexes + manager (copied)

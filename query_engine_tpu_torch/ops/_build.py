@@ -2,10 +2,10 @@
 
 The sources in `query_engine_tpu_torch/csrc/*.cu` have a plain C interface.
 At first use, `load_library()` compiles them with nvcc for Hopper
-(`sm_90a`) into one shared library under `query_engine_tpu_torch/_build/`,
-named by a hash of the sources and the headers beside them (`*.cuh`), and
-loads it with ctypes. A build that
-exists is reused. When nvcc is missing or fails, the call raises with the
+(`sm_90a`), one nvcc process per source, all started together, and links
+the objects into one shared library under `query_engine_tpu_torch/_build/`,
+named by a hash of the sources and the headers beside them (`*.cuh`); it
+loads the library with ctypes. A build that exists is reused. When nvcc is missing or fails, the call raises with the
 compiler's output; nothing falls back to another implementation.
 """
 
@@ -27,7 +27,7 @@ BUILD_DIR = _PKG / "_build"
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 
@@ -64,6 +64,15 @@ def _bind(lib: ctypes.CDLL) -> None:
     f = lib.qe_small_gather_u32
     f.argtypes = [p, p, i64, i32, i32, p, p]
     f.restype = i32
+    f = lib.qe_onehot_bytes
+    f.argtypes = [p, p, p, p, i64, p, p]
+    f.restype = i32
+    f = lib.qe_onehot_factorized
+    f.argtypes = [p, p, p, i64, i32, p, p]
+    f.restype = i32
+    f = lib.qe_onehot_s8
+    f.argtypes = [p, p, p, i64, i32, p, p]
+    f.restype = i32
 
 
 def load_library() -> Built:
@@ -82,16 +91,31 @@ def load_library() -> Built:
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+        nvcc = _nvcc()
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        objs = [tmp.with_name(f"{tmp.stem}.{src.stem}.o") for src in sources]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+                for src, o in zip(sources, objs)]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for c in cmds]
+        logs = [p.communicate()[0] for p in procs]
+        cmds.append([nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+                     *map(str, objs)])
+        if all(p.returncode == 0 for p in procs):
+            link = subprocess.run(cmds[-1], capture_output=True, text=True)
+            procs.append(link)
+            logs.append(link.stdout + link.stderr)
+        for o in objs:
+            o.unlink(missing_ok=True)
         seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed with exit code {proc.returncode}:\n"
-                f"{' '.join(cmd)}\n{log}"
-            )
+        log = "".join(logs)
+        for cmd, p, out_log in zip(cmds, procs, logs):
+            if p.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed with exit code {p.returncode}:\n"
+                    f"{' '.join(cmd)}\n{out_log}"
+                )
         os.replace(tmp, out)  # atomic: concurrent builds race harmlessly
     lib = ctypes.CDLL(str(out))
     _bind(lib)

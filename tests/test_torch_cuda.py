@@ -15,6 +15,7 @@ import torch
 
 from query_engine_tpu_torch.columnar.batch import ColumnBatch
 from query_engine_tpu_torch.engine.session import Session
+from query_engine_tpu_torch.ops import agg_variants as AV
 from query_engine_tpu_torch.ops import group_agg, small_gather
 from query_engine_tpu_torch.ops import kernels as K
 
@@ -217,3 +218,49 @@ def test_string_nodes_run_eagerly_on_card(cuda_device):
         assert gpu.sql(q).to_pylist() == want
         assert gpu.sql(q).to_pylist() == want
     assert gpu.executor.pipeline.stats["compiles"] >= 1
+
+
+def _agg_inputs(n, case, device):
+    """"dense": all 1024 groups and every chunk lane (values over the full
+    int64 range); "sparse": a few groups, most gid -1, values near +-2^63."""
+    rng = np.random.default_rng(n + len(case))
+    values = rng.integers(-(2**63), 2**63 - 1, n, dtype=np.int64,
+                          endpoint=True)
+    ok = rng.random(n) < 0.97
+    if case == "dense":
+        gid = rng.integers(0, 1024, n).astype(np.int32)
+        gid[rng.random(n) < 0.02] = -1
+        gid[rng.random(n) < 0.01] = 1024 + rng.integers(0, 500)
+    else:
+        gid = np.full(n, -1, np.int32)
+        few = rng.random(n) < 0.01
+        gid[few] = rng.choice([0, 1, 127, 128, 511, 1000, 1023], few.sum())
+        values = np.where(rng.random(n) < 0.5, 2**63 - 1 - values % 1000,
+                          -(2**63) + values % 1000)
+    values[:2] = [-(2**63), 2**63 - 1]
+    return tuple(torch.from_numpy(a).to(device) for a in (values, ok, gid))
+
+
+@pytest.mark.parametrize("case", ["dense", "sparse"])
+@pytest.mark.parametrize("variant,num_groups", [
+    ("v1", 1024), ("v2", 1024), ("v4", 1024), ("v5", 1024), ("s8", 1024),
+    ("s8", 1000)])
+def test_onehot_kernel_chunk_totals_match_plain(cuda_device, variant,
+                                                num_groups, case):
+    """Each one-hot tensor-core kernel's chunk totals equal its plain
+    version's bit for bit at 2^20 + 5 rows (a ragged tail), and two launches
+    give identical bits."""
+    values, ok, gid = _agg_inputs((1 << 20) + 5, case, cuda_device)
+    vlo, vhi, gid_m = AV.prepare(values, ok, gid)
+    before = AV.launches[variant]
+    got = AV.chunk_totals(variant, vlo, vhi, gid_m, num_groups)
+    again = AV.chunk_totals(variant, vlo, vhi, gid_m, num_groups)
+    torch.cuda.synchronize()
+    assert AV.launches[variant] == before + 2
+    want = AV.chunk_totals_plain(variant, vlo, vhi, gid_m, num_groups)
+    assert got.is_cuda and got.shape == (num_groups, AV.LANES[variant])
+    assert torch.equal(got, want)
+    assert torch.equal(got, again)
+    sums, counts = AV.recombine(variant, got)
+    v0_s, v0_c = group_agg.grouped_sum_count(values, ok, gid, num_groups)
+    assert torch.equal(sums, v0_s) and torch.equal(counts, v0_c)

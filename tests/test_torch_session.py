@@ -8,6 +8,7 @@ NotImplementedError, and importing the port and running a query leaves
 jax out of the process.
 """
 
+import math
 import os
 import subprocess
 import sys
@@ -168,6 +169,33 @@ def test_explain_analyze_runs(csv_pair):
     ).to_pylist()]
     assert lines[0].startswith("Projection") or "Filter" in "\n".join(lines)
     assert "rows: 5" in lines
+
+
+def _same_floats(rows):
+    """Rows with each float as (is NaN, sign, value): any NaN compares equal
+    to any NaN (a NaN's sign bit is not part of a result), and -0.0 apart
+    from 0.0."""
+    return [tuple(((True, 0.0, 0.0) if math.isnan(x)
+                   else (False, math.copysign(1.0, x), x))
+                  if isinstance(x, float) else x for x in row)
+            for row in rows]
+
+
+@pytest.mark.parametrize("expr", ["(b*10)*0.0", "-((b*10)*0.0)"])
+@pytest.mark.parametrize("order", ["", " DESC"])
+def test_nan_sort_key_sorts_last_in_both(expr, order):
+    """NaN from overflow (b*10 = +-inf at b = +-1e308, times 0.0) sorts last
+    in both packages, whatever its sign and the direction."""
+    data = {"a": [1, 2, 3, 4, 5, 6],
+            "b": [1e308, -1e308, 2.0, -3.5, 0.0, 1e308]}
+    js, ts = JSession(), Session()
+    for s in (js, ts):
+        s.register_table("t", data)
+    q = f"SELECT a, {expr} AS x FROM t ORDER BY x{order}"
+    want = js.sql(q).to_pylist()
+    assert sum(math.isnan(x) for _, x in want) == 3
+    assert all(math.isnan(x) for _, x in want[3:])
+    assert _same_floats(ts.sql(q).to_pylist()) == _same_floats(want)
 
 
 @pytest.mark.parametrize("query", [
