@@ -47,6 +47,20 @@ Phase 6  drives the aggregate probes' entry points (`probes.probe_agg_variants
          version's bit for bit. On the probe's data it times each kernel,
          its plain version, its entry point and v0 (CUDA events) and prints
          rows/s, the tensor-core TFLOP/s and the input GB/s.
+Phase 7  builds the TPC-H tables at scale factor 1 (6,001,215 lineitem
+         rows; tpch/data.py) on the card and runs the twelve subquery-free
+         queries through Session(device="cuda").sql. Each query's rows must
+         equal the numpy oracle (tpch/oracle.py): integers, strings and
+         dates exactly, floats to rtol 1e-9, in ORDER BY order (rows whose
+         float sort keys agree within that may swap). Prints per query the
+         median of 5 warm runs, the host syncs, the change in
+         pipeline.stats (with the host ms in eager leaves and captures)
+         and the group_agg launches of its first run. Each group_agg call
+         of a first run outside a graph capture is held against the plain
+         version on the same tensors (phase 1's tolerance); fails if
+         group_agg launched in none of the queries or if Q6 did not run in
+         the compiled pipeline. Then Q6 and Q14 with their dates a year
+         later on the same Session must give the shifted oracle's rows.
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after; a kernel of the path that was not launched fails the run.
@@ -60,6 +74,8 @@ check exits non-zero without those lines, and so does a machine without
 CUDA or a directory without the package.
 """
 
+import collections
+import contextlib
 import json
 import os
 import statistics
@@ -704,6 +720,205 @@ def phase6():
     return main_launches, max_err, times
 
 
+def _stats_change(before, after, skip=()):
+    return {k: v - before[k] for k, v in after.items()
+            if v != before[k] and k not in skip}
+
+
+def device_ms(sess, query):
+    """Kernel time on the card of one warm run of `query` (torch.profiler:
+    the sum of the CUDA kernels' own time) and that run's wall ms."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sess.sql(query).to_pylist()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    cuda = torch.autograd.DeviceType.CUDA
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == cuda) / 1e3
+    return busy, wall
+
+
+@contextlib.contextmanager
+def group_agg_held_against_plain(calls):
+    """While open, every call of `group_agg.grouped_sums_counts_multi` made
+    on CUDA tensors outside a graph capture (the executor's, and a
+    program's first run) is held against the plain version on the same
+    tensors: counts and integer sums exactly, float sums within phase 1's
+    tolerance. Appends one record per call to `calls`. The plain version
+    launches no kernel, so the launch counts are the path's own."""
+    import torch
+
+    from query_engine_tpu_torch.ops import group_agg
+
+    kernel = group_agg.grouped_sums_counts_multi
+
+    def held(items, gid, num_groups):
+        got = kernel(items, gid, num_groups)
+        if not gid.is_cuda or torch.cuda.is_current_stream_capturing():
+            return got
+        want = group_agg.grouped_sums_counts_multi_plain(items, gid,
+                                                         num_groups)
+        shape = f"n={gid.numel()} G={num_groups} item"
+        err, n_float = 0.0, 0
+        for i, ((v, ok), (s, c), (ws, wc)) in enumerate(zip(items, got,
+                                                            want)):
+            check(torch.equal(c, wc), f"group_agg at {shape} {i}: counts "
+                  "differ from the plain version")
+            if not s.is_floating_point():
+                check(torch.equal(s, ws), f"group_agg at {shape} {i}: int "
+                      "sums differ from the plain version")
+                continue
+            n_float += 1
+            x = v[ok & torch.isfinite(v)]
+            atol = float(x.abs().max()) * ATOL_PER_MAX if x.numel() else 0.0
+            close = torch.isclose(s, ws, rtol=RTOL, atol=atol,
+                                  equal_nan=True)
+            check(bool(close.all()), f"group_agg at {shape} {i}: "
+                  f"{int((~close).sum())} float sums outside rtol {RTOL} "
+                  f"atol {atol} of the plain version")
+            both = torch.isfinite(s) & torch.isfinite(ws)
+            if bool(both.any()):
+                err = max(err, float((s - ws)[both].abs().max()))
+        calls.append({"n": gid.numel(), "groups": num_groups,
+                      "items": len(items), "float_items": n_float,
+                      "columns": len(items) + 3 * n_float,
+                      "max_abs_err": err})
+        return got
+
+    group_agg.grouped_sums_counts_multi = held
+    try:
+        yield
+    finally:
+        group_agg.grouped_sums_counts_multi = kernel
+
+
+def phase7():
+    """The twelve subquery-free TPC-H queries at scale factor 1 through
+    Session(device="cuda").sql, each against the numpy oracle."""
+    import torch
+
+    from query_engine_tpu_torch.engine.session import Session
+    from query_engine_tpu_torch.tpch import data, oracle, queries
+
+    t0 = time.perf_counter()
+    tables = data.generate(data.SF1_LINEITEM)
+    gen_s = time.perf_counter() - t0
+    sess = Session(device="cuda")
+    check(sess.executor._compiled, "QE_COMPILED is off in this environment")
+    t0 = time.perf_counter()
+    data.register(sess, tables)
+    torch.cuda.synchronize()
+    reg_s = time.perf_counter() - t0
+    sizes = ", ".join(f"{k} {t.num_rows:,}" for k, t in tables.items())
+    print(f"phase 7: TPC-H SF1 tables generated on the host in {gen_s:.2f} s "
+          f"and registered on the card in {reg_s:.2f} s: {sizes}")
+    pipe = sess.executor.pipeline
+    timing = ("leaf_ms", "capture_ms")
+    out, held = {}, {}
+    for q, text in queries.QUERIES.items():
+        t0 = time.perf_counter()
+        want = oracle.run(q, tables)
+        oracle_s = time.perf_counter() - t0
+        keys = oracle.FLOAT_SORT_KEYS.get(q, ())
+        st0, syncs0 = dict(pipe.stats), sess.executor.host_syncs
+        held[q] = []
+        reset_counts()
+        with group_agg_held_against_plain(held[q]):
+            t0 = time.perf_counter()
+            rows = sess.sql(text).to_pylist()
+            first_ms = (time.perf_counter() - t0) * 1e3
+        launches = read_counts()["group_agg"]
+        first = _stats_change(st0, pipe.stats, timing)
+        first_syncs = sess.executor.host_syncs - syncs0
+        try:
+            err = oracle.compare(rows, want, keys)
+        except AssertionError as e:
+            raise CheckFailed(f"TPC-H {q} at SF1 differs from the numpy "
+                              f"oracle: {e}") from None
+        check(len(rows) > 0, f"TPC-H {q} at SF1 returned no rows")
+        walls, leaf_walls, capture_walls = [], [], []
+        kinds0 = collections.Counter(pipe.leaf_kinds)
+        st1, syncs1 = dict(pipe.stats), sess.executor.host_syncs
+        for _ in range(5):
+            before = dict(pipe.stats)
+            t0 = time.perf_counter()
+            again = sess.sql(text).to_pylist()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            leaf_walls.append(pipe.stats["leaf_ms"] - before["leaf_ms"])
+            capture_walls.append(pipe.stats["capture_ms"]
+                                 - before["capture_ms"])
+            try:
+                oracle.compare(again, want, keys)
+            except AssertionError as e:
+                raise CheckFailed(f"TPC-H {q}: a warm run differs from the "
+                                  f"oracle: {e}") from None
+        ms = statistics.median(walls)
+        syncs = (sess.executor.host_syncs - syncs1) / 5
+        warm = {k: v / 5
+                for k, v in _stats_change(st1, pipe.stats, timing).items()}
+        leaves = sorted(pipe.leaf_kinds - kinds0)
+        leaf_ms = statistics.median(leaf_walls)
+        capture_ms = statistics.median(capture_walls)
+        busy, wall = device_ms(sess, text)
+        out[q] = {"ms": ms, "first_ms": first_ms, "syncs": syncs,
+                  "first_syncs": first_syncs, "first": first, "warm": warm,
+                  "group_agg": launches, "max_rel_err": err,
+                  "rows": len(rows), "eager_leaves": leaves,
+                  "leaf_ms": leaf_ms, "capture_ms": capture_ms,
+                  "device_ms": busy, "profiled_wall_ms": wall}
+        print(f"phase 7: {q}: {len(rows)} rows == numpy oracle (max rel err "
+              f"{err:.3g}, oracle {oracle_s:.2f} s); {ms:.3f} ms/query median "
+              f"of 5 warm runs, {syncs:g} host syncs/query; first run "
+              f"{first_ms:.1f} ms, {first_syncs} syncs, stats {first}; warm "
+              f"stats per query {warm}; eager leaves {leaves} "
+              f"{leaf_ms:.3f} ms/query, captures {capture_ms:.3f} ms/query "
+              f"(host clock, medians of the same runs); group_agg launches "
+              f"{launches}; one profiled "
+              f"run: {busy:.3f} ms of kernel time in {wall:.3f} ms wall")
+        for c in held[q]:
+            print(f"phase 7: {q}: group_agg == plain on the same tensors: "
+                  f"n={c['n']} G={c['groups']} {c['items']} items "
+                  f"({c['float_items']} float, {c['columns']} kernel "
+                  f"columns): counts and int sums exact, float sums within "
+                  f"rtol {RTOL} atol max|x|*{ATOL_PER_MAX}, max abs err "
+                  f"{c['max_abs_err']:.6g}")
+    with_agg = [q for q, r in out.items() if r["group_agg"] > 0]
+    check(with_agg, "group_agg launched in none of the TPC-H queries")
+    for q in with_agg:
+        check(held[q], f"TPC-H {q}: no group_agg call of its first run was "
+              "held against the plain version")
+    q6 = out["Q6"]
+    check((q6["first"].get("compiles", 0) or q6["first"].get("hits", 0))
+          and not q6["first"].get("fallbacks") and not q6["warm"].get(
+              "fallbacks"),
+          f"Q6 did not run in the compiled pipeline: {q6['first']} "
+          f"{q6['warm']}")
+    tables_t = oracle.shifted(tables)
+    for q, text in queries.SHIFTED.items():
+        st0 = dict(pipe.stats)
+        rows = sess.sql(text).to_pylist()
+        try:
+            oracle.compare(rows, tables_t[q])
+        except AssertionError as e:
+            raise CheckFailed(f"TPC-H {q} with its dates a year later "
+                              f"differs from the oracle: {e}") from None
+        check(rows != oracle.run(q, tables),
+              f"TPC-H {q}: the shifted dates give the old rows")
+        print(f"phase 7: {q} with its dates a year later on the same "
+              f"Session: rows == numpy oracle {rows}; stats "
+              f"{_stats_change(st0, pipe.stats, timing)}")
+    total = sum(r["ms"] for r in out.values())
+    print(f"phase 7: the twelve queries: {total:.1f} ms in all (sum of the "
+          f"medians); group_agg launched in {with_agg}")
+    return out, held
+
+
 def main():
     import torch
 
@@ -726,18 +941,25 @@ def main():
         agg_launches, agg_names = phase4(tables, eager_ms)
         b = phase5(tables)
         p6_launches, p6_err, p6_times = phase6()
+        tpch, tpch_held = phase7()
     except CheckFailed as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
     k_ms, p_ms = times["main path shape"]
     gk_ms, gp_ms = g_times[(1024, 1)]  # Query B's shape: 1024 rows, 1 word
+    tpch_by_query = {q: r["group_agg"] for q, r in tpch.items()}
+    tpch_launches = sum(tpch_by_query.values())
+    tpch_err = max((c["max_abs_err"] for calls in tpch_held.values()
+                    for c in calls), default=0.0)
     print(json.dumps({"kernels": [{
         "name": "group_sum_count_i64",
         "route": "cuda",
         "source": "query_engine_tpu_torch/csrc/group_agg.cu",
         "replaces": "query_engine_tpu/ops/pallas/group_agg.py:74",
-        "launches": agg_launches,
-        "max_abs_err": max_err,
+        "launches": agg_launches + tpch_launches,
+        "launches_by_phase": {"4": agg_launches, "7": tpch_by_query},
+        "max_abs_err": max(max_err, tpch_err),
+        "max_abs_err_by_phase": {"1": max_err, "7": tpch_err},
         "ms": k_ms,
         "plain_ms": p_ms,
         "in_replay": agg_names,

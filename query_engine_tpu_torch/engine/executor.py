@@ -1,8 +1,10 @@
 """Physical plan executor.
 
 The counterpart of `query_engine_tpu.engine.executor.QueryExecutor`, for
-these nodes: scan, projection, filter, INNER equi-join, grouped and global
-aggregate, sort and limit. Any other node raises NotImplementedError.
+these nodes: scan, projection, filter, INNER, LEFT, RIGHT and FULL
+equi-joins (with or without a residual ON condition), grouped and global
+aggregate, sort, limit and derived tables (a subquery in FROM). Any other
+node raises NotImplementedError.
 
 As in the JAX package, every node first goes to the compiled pipeline
 (engine/pipeline.py, on unless QE_COMPILED=0), which runs the largest
@@ -165,6 +167,11 @@ class QueryExecutor:
             return self._exec_sort(plan)
         if isinstance(plan, pp.PLimit):
             return self._exec_limit(plan)
+        if isinstance(plan, pp.PSubquery) and not plan.shared:
+            # a derived table: its child's batch under the subquery's names
+            # (a shared CTE, referenced more than once, is not in the slice)
+            child = self.execute(plan.input)
+            return ColumnBatch(plan.out_schema, child.columns, child.num_rows)
         raise NotImplementedError(
             f"query_engine_tpu_torch does not execute {type(plan).__name__} "
             "yet"
@@ -207,10 +214,11 @@ class QueryExecutor:
 
     # ---- join ----------------------------------------------------------
     def _exec_join(self, plan: pp.PHashJoin) -> ColumnBatch:
-        if plan.join_type is not lp.JoinType.INNER or not plan.key_pairs:
+        jt = plan.join_type
+        if jt not in _EQUI_JOINS or not plan.key_pairs:
             raise NotImplementedError(
-                f"query_engine_tpu_torch executes INNER equi-joins only, not "
-                f"{plan.join_type.value} join on {len(plan.key_pairs)} keys"
+                f"query_engine_tpu_torch executes equi-joins only, not "
+                f"{jt.value} join on {len(plan.key_pairs)} keys"
             )
         left = self.execute(plan.left)
         right = self.execute(plan.right)
@@ -224,7 +232,7 @@ class QueryExecutor:
             lkeys.append((lv.data, lv.validity))
             rkeys.append((rv.data, rv.validity))
         lr, rr = K.join_ranks(lkeys, rkeys, left.num_rows, right.num_rows)
-        total_t, counts, _off, rank_start, right_by_rank, _lm, _rm = \
+        total_t, counts, _off, rank_start, right_by_rank, lm, rm = \
             K.join_counts(lr, rr, left.num_rows, right.num_rows)
         total = self._host_int(total_t)
         # pass 2: emit the pairs at a capacity chosen from the count
@@ -234,9 +242,66 @@ class QueryExecutor:
         )
         out = self._assemble_join(plan, left, right, li, ri, valid, valid,
                                   total)
+        if jt is not lp.JoinType.INNER:
+            return self._outer_join(plan, left, right, out, li, ri, lm, rm)
         if plan.residual is not None:
             out = self._filter_batch(out, plan.residual)
         return out
+
+    def _outer_join(self, plan, left, right, pairs, li, ri, lmatched,
+                    rmatched) -> ColumnBatch:
+        """LEFT, RIGHT or FULL: the inner `pairs`, then each outer side's
+        rows that kept no pair, NULL-padded on the other side.
+
+        A residual ON condition (TPC-H Q13's `LEFT JOIN orders ON c_custkey
+        = o_custkey AND o_comment NOT LIKE ...`) is part of the match: a pair
+        counts only when the keys AND the residual hold, and an outer row
+        whose every pair fails the residual still appears once (a filter
+        after the join would drop it). So the pairs are filtered by the
+        residual, and the rows of each side that kept a pair are found again
+        with a scatter-max."""
+        jt, dev = plan.join_type, self.device
+        nl, nr = left.num_rows, right.num_rows
+        keep = K.live_mask(pairs.capacity, pairs.num_rows, dev)
+        if plan.residual is not None:
+            keep = keep & self.evaluator.eval_predicate_mask(plan.residual,
+                                                             pairs)
+            keep_i = keep.to(torch.int32)
+            lmatched = K._scatter_drop(left.capacity, torch.where(keep, li, -1),
+                                       keep_i, 0, torch.int32,
+                                       reduce="amax") > 0
+            rmatched = K._scatter_drop(right.capacity,
+                                       torch.where(keep, ri, -1), keep_i, 0,
+                                       torch.int32, reduce="amax") > 0
+        zero = torch.zeros((), dtype=torch.int64, device=dev)
+        extra_l_t = (~lmatched & K.live_mask(left.capacity, nl, dev)).sum() \
+            if jt in _LEFT_OUTER else zero
+        extra_r_t = (~rmatched & K.live_mask(right.capacity, nr, dev)).sum() \
+            if jt in _RIGHT_OUTER else zero
+        kept, extra_l, extra_r = self._host_list(
+            torch.stack([keep.sum(), extra_l_t, extra_r_t]))
+        if plan.residual is not None:
+            pairs = _take(pairs, K.compaction_indices(
+                keep, pairs.num_rows, padded_capacity(kept)), kept)
+        blocks = [pairs]
+
+        def padded_block(matched, n_rows, n_extra, is_left):
+            ecap = padded_capacity(n_extra)
+            u, _ = K.unmatched_indices(matched, n_rows, ecap)
+            present = K.live_mask(ecap, n_extra, dev)
+            absent = torch.zeros(ecap, dtype=torch.bool, device=dev)
+            zeros = torch.zeros(ecap, dtype=u.dtype, device=dev)
+            if is_left:
+                return self._assemble_join(plan, left, right, u, zeros,
+                                           present, absent, n_extra)
+            return self._assemble_join(plan, left, right, zeros, u, absent,
+                                       present, n_extra)
+
+        if extra_l:
+            blocks.append(padded_block(lmatched, nl, extra_l, True))
+        if extra_r:
+            blocks.append(padded_block(rmatched, nr, extra_r, False))
+        return ColumnBatch.concat(blocks)
 
     def _assemble_join(
         self, plan, left, right, li, ri, lvalid, rvalid, num_rows
@@ -452,6 +517,10 @@ class QueryExecutor:
         return batch.slice(plan.skip, fetch)
 
 
+_EQUI_JOINS = {lp.JoinType.INNER, lp.JoinType.LEFT, lp.JoinType.RIGHT,
+               lp.JoinType.FULL}
+_LEFT_OUTER = {lp.JoinType.LEFT, lp.JoinType.FULL}
+_RIGHT_OUTER = {lp.JoinType.RIGHT, lp.JoinType.FULL}
 _AGG_FUNCS = {lp.AggFunc.COUNT, lp.AggFunc.SUM, lp.AggFunc.AVG,
               lp.AggFunc.MIN, lp.AggFunc.MAX}
 _KERNEL_FUNCS = {lp.AggFunc.SUM, lp.AggFunc.COUNT, lp.AggFunc.AVG}

@@ -34,16 +34,23 @@ Equi-joins with a statically unique side (a GROUP BY below the key, or a
 cached multiplicity stat of 1 on a leaf column) trace in-segment through
 the FK fast paths. Any other join is demoted to an eager leaf: the segment
 above it still compiles, with the join's result fed in as a leaf batch.
-Constructs outside the slice (outer and general-emit joins, DISTINCT,
-windows, set operations, subqueries, functions the evaluator lacks) raise
-_Unsupported and run eagerly, per subtree.
+A derived table (a subquery in FROM) is a pass-through node that renames
+its child's columns. Constructs outside the slice (outer and general-emit
+joins, DISTINCT, windows, set operations, shared CTEs and other subqueries,
+functions the evaluator lacks) raise _Unsupported and run eagerly, per
+subtree. On CUDA so do the expressions that build a table on the host
+(string comparisons, string IN, LIKE: `expr_eval.builds_host_table`); a
+date compared with a string literal is not one of them, since the parsed
+literal (`expr_eval.temporal_literal`) is a program input.
 
 The eager executor is the semantics oracle (tests/test_torch_pipeline.py).
 """
 
 from __future__ import annotations
 
+import collections
 import os
+import time
 from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
@@ -55,7 +62,9 @@ from query_engine_tpu_torch.core.types import TypeKind
 from query_engine_tpu_torch.columnar.batch import (
     Column, ColumnBatch, padded_capacity,
 )
-from query_engine_tpu_torch.engine.expr_eval import unify_dicts
+from query_engine_tpu_torch.engine.expr_eval import (
+    builds_host_table, temporal_literal, unify_dicts,
+)
 from query_engine_tpu_torch.ops import group_agg, small_gather
 from query_engine_tpu_torch.ops import kernels as K
 from query_engine_tpu_torch.plan import logical as lp
@@ -271,7 +280,8 @@ class _ShimBatch:
 _TRACEABLE_BINOPS = {
     lp.BinOp.AND, lp.BinOp.OR, lp.BinOp.EQ, lp.BinOp.NEQ, lp.BinOp.LT,
     lp.BinOp.LTE, lp.BinOp.GT, lp.BinOp.GTE, lp.BinOp.ADD, lp.BinOp.SUB,
-    lp.BinOp.MUL, lp.BinOp.DIV,
+    lp.BinOp.MUL, lp.BinOp.DIV, lp.BinOp.LIKE, lp.BinOp.NOT_LIKE,
+    lp.BinOp.ILIKE, lp.BinOp.NOT_ILIKE,
 }
 
 
@@ -289,28 +299,23 @@ def _expr_traceable(e: lp.LogicalExpr) -> bool:
         elif isinstance(x, lp.Literal):
             if x.value.dtype.kind is TypeKind.DECIMAL128:
                 bad.append(x)
+        elif isinstance(x, lp.ScalarFnExpr):
+            if x.func is not lp.ScalarFn.EXTRACT:
+                bad.append(x)
         elif not isinstance(x, (lp.ColumnRef, lp.AliasExpr, lp.UnaryExpr,
-                                lp.CastExpr, lp.IsNullExpr)):
+                                lp.CastExpr, lp.IsNullExpr, lp.CaseExpr,
+                                lp.InListExpr)):
             bad.append(x)
 
     lp.walk_exprs(e, visit)
     return not bad
 
 
-def _merges_dicts(e: lp.LogicalExpr) -> bool:
-    """True when evaluating e compares dictionary-encoded values: the codes
-    are remapped through tables built on the host (expr_eval.unify_dicts),
-    a host-to-device copy that a CUDA graph cannot capture."""
-    found = []
-
-    def visit(x):
-        if isinstance(x, lp.BinaryExpr) and (
-            x.left.dtype.is_dictionary or x.right.dtype.is_dictionary
-        ):
-            found.append(x)
-
-    lp.walk_exprs(e, visit)
-    return bool(found)
+def _dyn_int(e, value: int, ctx):
+    """Key `e` as an int program input holding `value`."""
+    ctx.dyn_vals.append(("i", int(value)))
+    ctx.dyn_exprs.append(e)
+    return ("dynlit", "i")
 
 
 def _expr_key(e: lp.LogicalExpr, ctx=None):
@@ -320,7 +325,10 @@ def _expr_key(e: lp.LogicalExpr, ctx=None):
 
     With a _SegCtx, numeric/bool literals key as ("dynlit", kind) and their
     VALUES are collected into ctx.dyn_vals — they become program inputs, so
-    one program serves every value (`age > 25` and `age > 30`)."""
+    one program serves every value (`age > 25` and `age > 30`). A date
+    literal (`d < '1995-03-15'`, `DATE '1995-01-01'`) is parsed here and
+    becomes an int input the same way: a replay with another date reads the
+    new value."""
     if isinstance(e, lp.ColumnRef):
         return ("col", e.index, str(e.dtype))
     if isinstance(e, lp.Literal):
@@ -343,13 +351,29 @@ def _expr_key(e: lp.LogicalExpr, ctx=None):
     if isinstance(e, lp.AliasExpr):
         # alias names land in the output schema -> they are part of the key
         return ("as", e.alias, _expr_key(e.expr, ctx))
+    # the date literal this node parses (the literal or the cast), if any
+    node, value = (ctx is not None and temporal_literal(e)) or (None, None)
     if isinstance(e, lp.BinaryExpr):
-        return ("bin", e.op.value, _expr_key(e.left, ctx),
-                _expr_key(e.right, ctx))
+        return ("bin", e.op.value, *(
+            _dyn_int(x, value, ctx) if x is node else _expr_key(x, ctx)
+            for x in (e.left, e.right)))
     if isinstance(e, lp.UnaryExpr):
         return ("un", e.op.value, _expr_key(e.expr, ctx))
     if isinstance(e, lp.CastExpr):
-        return ("cast", str(e.target), _expr_key(e.expr, ctx))
+        return ("cast", str(e.target), _dyn_int(e, value, ctx) if node is e
+                else _expr_key(e.expr, ctx))
+    if isinstance(e, lp.ScalarFnExpr):
+        return ("fn", e.func.value, tuple(_expr_key(a, ctx) for a in e.args))
+    if isinstance(e, lp.CaseExpr):
+        return (
+            "case",
+            tuple((_expr_key(c, ctx), _expr_key(v, ctx))
+                  for c, v in e.branches),
+            None if e.else_expr is None else _expr_key(e.else_expr, ctx),
+        )
+    if isinstance(e, lp.InListExpr):
+        return ("inlist", e.negated, _expr_key(e.expr, ctx),
+                tuple(_expr_key(i, ctx) for i in e.items))
     if isinstance(e, lp.IsNullExpr):
         return ("isnull", e.negated, _expr_key(e.expr, ctx))
     if isinstance(e, lp.AggregateExpr):
@@ -358,6 +382,13 @@ def _expr_key(e: lp.LogicalExpr, ctx=None):
             None if e.expr is None else _expr_key(e.expr, ctx),
         )
     raise _Unsupported(f"expr {type(e).__name__}")
+
+
+def _passes_rows(node) -> bool:
+    """A node whose output columns are its input's (a subset of its rows, a
+    new order, or new names): key multiplicities seen below hold above."""
+    return isinstance(node, (pp.PFilter, pp.PSort, pp.PLimit)) or (
+        isinstance(node, pp.PSubquery) and not node.shared)
 
 
 def _sort_key_key(k: lp.SortKey, ctx=None):
@@ -407,7 +438,12 @@ class CompiledPipeline:
         self._graphs = executor.device.type == "cuda"
         self.stats = {"compiles": 0, "hits": 0, "fallbacks": 0,
                       "joins_inlined": 0, "joins_demoted": 0,
-                      "captures": 0, "replays": 0}
+                      "captures": 0, "replays": 0,
+                      # host-clock ms in the eager subtrees run as leaves
+                      # (the outermost ones) and in captures outside them
+                      "leaf_ms": 0.0, "capture_ms": 0.0}
+        self.leaf_kinds = collections.Counter()  # eager leaves by node type
+        self._leaf_depth = 0
 
     # ---- entry -----------------------------------------------------------
     def try_execute(self, plan: pp.PhysicalPlan) -> Optional[ColumnBatch]:
@@ -586,9 +622,12 @@ class CompiledPipeline:
         """Capture the body into a CUDA graph over these inputs. The entry
         keeps the input tensors alive: the graph reads their addresses."""
         entry.graph = entry.outputs = None  # free the old graph's pool
+        t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
             outputs = self._body(entry, planes, n_bufs, dyn_bufs)
+        if self._leaf_depth == 0:
+            self.stats["capture_ms"] += (time.perf_counter() - t0) * 1e3
         entry.graph = graph
         entry.outputs = outputs
         entry.planes = planes
@@ -599,7 +638,9 @@ class CompiledPipeline:
 
     # ---- segment analysis --------------------------------------------------
     def _traceable(self, e: lp.LogicalExpr) -> bool:
-        return _expr_traceable(e) and not (self._graphs and _merges_dicts(e))
+        # a graph cannot capture a host table's copy to the device
+        return _expr_traceable(e) and not (self._graphs
+                                           and builds_host_table(e))
 
     def _child(self, plan, ctx):
         """Key a child subtree; an unsupported child becomes a leaf boundary
@@ -686,6 +727,13 @@ class CompiledPipeline:
                 ),
                 leaves, n + 1,
             )
+        if isinstance(plan, pp.PSubquery):
+            if plan.shared:
+                # a WITH query referenced more than once: not in the slice
+                raise _Unsupported("shared CTE")
+            # a derived table: a pass-through node that renames its child
+            body, leaves, n = self._child(plan.input, ctx)
+            return ("subq", tuple(plan.out_schema.names()), body), leaves, n
         # anything else: eager leaf boundary (distinct, window, set op, ...)
         raise _Unsupported(type(plan).__name__)
 
@@ -746,7 +794,7 @@ class CompiledPipeline:
                     return None
                 idxs.append(e.index)
             node = plan
-            while isinstance(node, (pp.PFilter, pp.PSort, pp.PLimit)):
+            while _passes_rows(node):
                 node = node.input
             if (
                 isinstance(node, pp.PHashAggregate)
@@ -781,7 +829,7 @@ class CompiledPipeline:
         while True:
             if id(node) in ctx.forced or isinstance(node, pp.PScan):
                 return ("stat", node, idx)
-            if isinstance(node, (pp.PFilter, pp.PSort, pp.PLimit)):
+            if _passes_rows(node):
                 node = node.input
                 continue
             if isinstance(node, pp.PProjection):
@@ -851,7 +899,15 @@ class CompiledPipeline:
     def _materialize_leaf(self, node) -> ColumnBatch:
         if isinstance(node, pp.PScan):
             return self.executor._exec_scan(node)
-        return self.executor.execute(node)
+        self.leaf_kinds[type(node).__name__[1:]] += 1
+        self._leaf_depth += 1
+        t0 = time.perf_counter()
+        try:
+            return self.executor.execute(node)
+        finally:
+            self._leaf_depth -= 1
+            if self._leaf_depth == 0:
+                self.stats["leaf_ms"] += (time.perf_counter() - t0) * 1e3
 
     @staticmethod
     def _leaf_sig(b: ColumnBatch):
@@ -876,6 +932,10 @@ class CompiledPipeline:
             # segment leaf: a table scan, or a subtree the segment analysis
             # designated as an eager boundary
             return next(tables)
+        if isinstance(plan, pp.PSubquery):  # a derived table: new names
+            t = self._trace(plan.input, tables, leaf_ids, res)
+            return _TTable(plan.out_schema, t.cols, t.sel, t.capacity,
+                           t.dense, t.bounds)
         if isinstance(plan, pp.PLimit) and isinstance(plan.input, pp.PSort) \
                 and plan.fetch is not None:
             name, op, kids = "topk", self._trace_topk, [plan.input.input]

@@ -18,6 +18,9 @@ from query_engine_tpu_torch.engine.session import Session
 from query_engine_tpu_torch.ops import agg_variants as AV
 from query_engine_tpu_torch.ops import group_agg, small_gather
 from query_engine_tpu_torch.ops import kernels as K
+from query_engine_tpu_torch.tpch import data as tpch_data
+from query_engine_tpu_torch.tpch import oracle as tpch_oracle
+from query_engine_tpu_torch.tpch import queries as tpch_queries
 
 pytestmark = pytest.mark.cuda
 
@@ -264,3 +267,37 @@ def test_onehot_kernel_chunk_totals_match_plain(cuda_device, variant,
     sums, counts = AV.recombine(variant, got)
     v0_s, v0_c = group_agg.grouped_sum_count(values, ok, gid, num_groups)
     assert torch.equal(sums, v0_s) and torch.equal(counts, v0_c)
+
+
+@pytest.fixture(scope="module")
+def tpch_sessions():
+    """The TPC-H tables at 2^14 lineitem rows in a CPU and a CUDA Session."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: torch.cuda.is_available() is False")
+    tables = tpch_data.generate(1 << 14)
+    cpu, gpu = Session("cpu"), Session("cuda")
+    for s in (cpu, gpu):
+        tpch_data.register(s, tables)
+    return tables, cpu, gpu
+
+
+@pytest.mark.parametrize("q", list(tpch_queries.QUERIES))
+def test_tpch_query_on_card_matches_cpu(tpch_sessions, q):
+    """Each of the twelve queries on the card (first run, then a replay)
+    equals the CPU port's rows: integers, strings and dates exactly, floats
+    to rtol 1e-9 (fixed-point sums on the card)."""
+    _, cpu, gpu = tpch_sessions
+    text = tpch_queries.QUERIES[q]
+    want = cpu.sql(text).to_pylist()
+    keys = tpch_oracle.FLOAT_SORT_KEYS.get(q, ())
+    for _ in range(2):
+        tpch_oracle.compare(gpu.sql(text).to_pylist(), want, keys)
+
+
+@pytest.mark.parametrize("q", list(tpch_queries.SHIFTED))
+def test_tpch_shifted_literals_on_card(tpch_sessions, q):
+    """The shifted date literals replay the program with the new dates."""
+    tables, _, gpu = tpch_sessions
+    gpu.sql(tpch_queries.QUERIES[q]).to_pylist()
+    got = gpu.sql(tpch_queries.SHIFTED[q]).to_pylist()
+    tpch_oracle.compare(got, tpch_oracle.shifted(tables)[q])

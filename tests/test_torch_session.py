@@ -199,8 +199,8 @@ def test_nan_sort_key_sorts_last_in_both(expr, order):
 
 
 @pytest.mark.parametrize("query", [
-    "SELECT e.name FROM employees e LEFT JOIN departments d "
-    "ON e.dept_id = d.dept_id",
+    "SELECT name FROM employees WHERE salary > "
+    "(SELECT AVG(salary) FROM employees)",
     "SELECT COUNT(DISTINCT dept_id) FROM employees",
     "SELECT name, ROW_NUMBER() OVER (ORDER BY age) FROM employees",
     "SELECT DISTINCT dept_id FROM employees",
@@ -211,6 +211,17 @@ def test_outside_the_slice_raises(csv_pair, query):
     _, ts = csv_pair
     with pytest.raises(NotImplementedError):
         ts.sql(query)
+
+
+def test_left_join_matches_jax(csv_pair):
+    """A LEFT join keeps Frank, whose dept_id is NULL, with a NULL
+    department."""
+    js, ts = csv_pair
+    q = ("SELECT e.name, d.dept_name FROM employees e LEFT JOIN departments d "
+         "ON e.dept_id = d.dept_id ORDER BY e.name")
+    want = js.sql(q).to_pylist()
+    assert ts.sql(q).to_pylist() == want
+    assert ("Frank", None) in want
 
 
 def test_register_parquet(tmp_path):
@@ -249,10 +260,39 @@ def test_port_imports_no_jax():
         "rows = s.sql('SELECT COUNT(*) FROM employees WHERE age > 25')"
         ".to_pylist()\n"
         "assert rows == [(5,)], rows\n"
+        "from query_engine_tpu_torch.tpch import data, oracle, queries\n"
+        "t = data.generate(1 << 10)\n"
+        "data.register(s, t)\n"
+        "oracle.compare(s.sql(queries.QUERIES['Q13']).to_pylist(),\n"
+        "               oracle.run('Q13', t))\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'query_engine_tpu' or "
         "m.startswith('query_engine_tpu.'))\n"
         "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=ROOT, env=env, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_tpch_subpackage_needs_no_pandas_or_pyarrow():
+    """The TPC-H tables, queries and oracle run with pandas and pyarrow
+    blocked from import."""
+    code = (
+        "import sys\n"
+        "sys.modules['pandas'] = sys.modules['pyarrow'] = None\n"
+        "from query_engine_tpu_torch.engine.session import Session\n"
+        "from query_engine_tpu_torch.tpch import data, oracle, queries\n"
+        "t = data.generate(1 << 10)\n"
+        "s = Session(device='cpu')\n"
+        "data.register(s, t)\n"
+        "for q in ('Q1', 'Q9'):\n"
+        "    oracle.compare(s.sql(queries.QUERIES[q]).to_pylist(),\n"
+        "                   oracle.run(q, t))\n"
         "print('ok')\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
