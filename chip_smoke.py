@@ -6,12 +6,17 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Phase 0  prints the card's name and power limit and builds the CUDA kernels
          from `query_engine_tpu_torch/csrc` with nvcc (sm_90a).
 Phase 1  holds the grouped SUM/COUNT kernel against its plain PyTorch
-         version on the same CUDA tensors: the main path's shape (2^23 rows,
-         2048 groups, one int64 column and COUNT(*)), 32768 groups (int64
-         and float64: the device-memory path), int64 values near +-2^62
-         (wrap-around) and float64 with +inf, -inf and NaN. Integers must
-         match exactly, floats within the tolerance below; two kernel runs
-         must give identical bits. Times both versions at 2^23 rows.
+         version (`accumulate_plain`) on the same CUDA tensors, bit for bit:
+         the main path's shape (2^23 rows, 2048 slots, one int64 item and
+         COUNT(*)), Q1's (2^23 rows, 4 of 128 slots, one int64 and three
+         float64 items and COUNT(*)), the segment route at 2^23 slots with
+         sorted runs of ids (Q3) and with 175 live groups (Q9), 32768
+         groups (int64 and float64), int64 values near +-2^62 (wrap-around)
+         and float64 with +inf, -inf and NaN. Two kernel runs must give
+         identical bits, and float sums must agree with float64 summation
+         within the tolerance below. Per case: the kernel's time, its bound
+         (bytes over the card's memory rate) and share of it, the entry
+         point's, the plain version's and one `index_add_`'s time.
 Phase 2  runs the engine's eager path (the compiled pipeline off for this
          Session) through `Session(device="cuda").sql` at 2^23 - 17 fact
          rows and 1024 dimension rows (Query A, the bench query), checks
@@ -21,7 +26,9 @@ Phase 2  runs the engine's eager path (the compiled pipeline off for this
          time by operator (torch.profiler).
 Phase 3  holds the small-table gather kernel against its plain version at
          2^23 rows, tables of 1024 and 4096 rows and 1 and 3 words, indices
-         of -1 and out of range included: bit-exact. Times both versions.
+         of -1 and out of range included: bit-exact. Times both versions
+         and `torch.index_select` on indices already in range, and prints
+         the bound.
 Phase 4  runs Query A through the compiled pipeline (the default): the
          first query runs the program and captures it into a CUDA graph,
          later ones replay it. Rows equal the oracle exactly, one host read
@@ -45,8 +52,9 @@ Phase 6  drives the aggregate probes' entry points (`probes.probe_agg_variants
          v0_production (the group_agg kernel), with the same bits on a second
          run; each kernel's [G, L] chunk totals must equal its plain
          version's bit for bit. On the probe's data it times each kernel,
-         its plain version, its entry point and v0 (CUDA events) and prints
-         rows/s, the tensor-core TFLOP/s and the input GB/s.
+         its plain version, its entry point, v0 and one `index_add_` of the
+         same sums and counts (CUDA events) and prints rows/s, the
+         tensor-core TFLOP/s, the input GB/s and the bound.
 Phase 7  builds the TPC-H tables at scale factor 1 (6,001,215 lineitem
          rows; tpch/data.py) on the card and runs the twelve subquery-free
          queries through Session(device="cuda").sql. Each query's rows must
@@ -56,10 +64,14 @@ Phase 7  builds the TPC-H tables at scale factor 1 (6,001,215 lineitem
          median of 5 warm runs, the host syncs, the change in
          pipeline.stats (with the host ms in eager leaves and captures)
          and the group_agg launches of its first run. Each group_agg call
-         of a first run outside a graph capture is held against the plain
-         version on the same tensors (phase 1's tolerance); fails if
-         group_agg launched in none of the queries or if Q6 did not run in
-         the compiled pipeline. Then Q6 and Q14 with their dates a year
+         of a first run outside a graph capture (the bounded GROUP BY's and
+         the segment route's) is held against the plain versions on the
+         same tensors: bit for bit against the kernel's, phase 1's
+         tolerance against float64 summation. Fails unless group_agg
+         launched in Q1, Q3, Q5, Q8, Q9, Q10 and Q12 and its kernel appears
+         in each one's profiled warm run, if any query's profiled warm run
+         shows torch's `index_add_` kernels, or if Q6 did not run in the
+         compiled pipeline. Then Q6 and Q14 with their dates a year
          later on the same Session must give the shifted oracle's rows.
 
 Each path runs with the kernels' launch counts set to 0 just before it and
@@ -69,7 +81,8 @@ move when the program first runs and when it is captured, and the
 profiler's kernel names show what a replay ran.
 
 The line before the last is one JSON object with the kernels' launches,
-errors and times; the last line is {"ok": true, "device": {...}}. Any failed
+errors, times, bounds and library times; the last line is {"ok": true,
+"device": {...}}. Any failed
 check exits non-zero without those lines, and so does a machine without
 CUDA or a directory without the package.
 """
@@ -129,6 +142,32 @@ def cuda_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters=20):
+    """Mean device time of fn() in ms: `iters` calls captured into one CUDA
+    graph, replayed between CUDA events, so the host's launch overhead (the
+    wrapper's Python) is not in it. fn must read nothing back to the
+    host."""
+    import torch
+
+    fn()
+    fn()  # eager warm-up: builds, caches launch attributes, fills pools
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / iters
+
+
 def phase0():
     from query_engine_tpu_torch.ops._build import load_library
 
@@ -148,14 +187,23 @@ def phase0():
     return card
 
 
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
+
+
+def bound_ms(nbytes):
+    """The least time the card could take to move `nbytes`: each input read
+    once and each output written once at the published memory rate."""
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
 def _items(rng, n, kinds, dev):
     import torch
 
     items = []
     for kind in kinds:
         ok = torch.from_numpy(rng.random(n) < 0.85).to(dev)
-        if kind == "count_star":
-            v = torch.ones(n, dtype=torch.int64, device=dev)
+        if kind == "count_star":  # reads only its ok plane
+            v = None
         elif kind == "i64":
             v = torch.from_numpy(rng.integers(50_000, 151_000, n)).to(dev)
         elif kind == "i64_wrap":
@@ -164,6 +212,8 @@ def _items(rng, n, kinds, dev):
                                             (1 << 62) - 1, -(1 << 62))).to(dev)
         elif kind == "f64":
             v = torch.from_numpy(rng.normal(0.0, 1e7, n)).to(dev)
+        elif kind == "f64_price":  # TPC-H amounts: positive, below 1e5
+            v = torch.from_numpy(rng.random(n) * 1e5).to(dev)
         else:  # f64 with +inf, -inf and NaN rows
             x = rng.normal(0.0, 1e3, n)
             x[rng.random(n) < 1e-4] = np.inf
@@ -174,76 +224,140 @@ def _items(rng, n, kinds, dev):
     return items
 
 
+def _gids(rng, n, case):
+    """Group ids of a phase-1 case: "uniform" over the used slots, "sorted
+    runs" in row order (Q3's lineitem rows by l_orderkey), 1 % excluded."""
+    kind, used = case
+    if kind == "sorted runs":
+        g = np.repeat(np.arange(n), rng.integers(1, 8, n))[:n]
+    else:
+        g = rng.integers(0, used, n)
+    g[rng.random(n) < 0.01] = -1  # excluded rows
+    return g
+
+
+def index_add_library(items, gid, G):
+    """`library_ms` of a grouped SUM/COUNT: one `index_add_(0, gid64, src)`
+    of an [n, 2C] int64 source (values, then ok as 0/1; a float item's
+    fixed-point q, a COUNT item's ones) into [G + 1, 2C], ids outside the
+    range on row G. The source is made here, outside the timing; returns
+    the function to time."""
+    import torch
+
+    from query_engine_tpu_torch.ops import group_agg
+
+    cols = []
+    for v, ok in items:
+        if v is None:
+            v = torch.ones_like(ok, dtype=torch.int64)
+        elif v.is_floating_point():
+            v, _ = group_agg.quantize(v, ok)
+        cols.append(torch.where(ok, v.to(torch.int64), 0))
+    cols += [ok.to(torch.int64) for _, ok in items]
+    src = torch.stack(cols, 1).contiguous()
+    g = gid.to(torch.int64)
+    g = torch.where((g >= 0) & (g < G), g, G)
+    out = torch.zeros((G + 1, src.shape[1]), dtype=torch.int64,
+                      device=src.device)
+    return lambda: out.index_add_(0, g, src)
+
+
+def group_agg_bytes(items, gid, G):
+    """Bytes the grouped SUM/COUNT must move: gid, each item's values and ok
+    plane read once, its output rows ([R, G] int64) written once."""
+    from query_engine_tpu_torch.ops import group_agg
+
+    rows = sum(group_agg.ROWS[group_agg._kind(v)] for v, _ in items)
+    return (gid.nbytes + sum(ok.nbytes + (0 if v is None else v.nbytes)
+                             for v, ok in items) + rows * G * 8)
+
+
 def phase1():
+    """group_agg against its plain version at the main path's shapes; returns
+    the largest absolute errors (against the plain version, against float64
+    summation) and the numbers of each case."""
     import torch
 
     from query_engine_tpu_torch.ops import group_agg
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED)
-    cases = [
-        ("main path shape", 1 << 23, 2048, 1024, ["i64", "count_star"]),
-        ("32768 groups", 1 << 23, 32768, 32768, ["i64", "f64"]),
-        ("wrap-around", 1 << 20, 2048, 2048, ["i64_wrap"]),
-        ("inf/-inf/NaN", 1 << 20, 2048, 2048, ["f64_ieee", "i64"]),
+    n23 = 1 << 23
+    cases = [  # name, n, G, (ids, used slots), gid dtype, item kinds
+        ("main path shape", n23, 2048, ("uniform", 1024), torch.int32,
+         ["i64", "count_star"]),
+        ("Q1 shape", n23, 128, ("uniform", 4), torch.int64,
+         ["i64", "f64_price", "f64_price", "f64_price", "count_star"]),
+        ("sorted runs, G = 2^23", n23, n23, ("sorted runs", 0), torch.int64,
+         ["f64_price"]),
+        ("175 live of G = 2^23", n23, n23, ("uniform", 175), torch.int64,
+         ["f64_price"]),
+        ("32768 groups", n23, 32768, ("uniform", 32768), torch.int32,
+         ["i64", "f64"]),
+        ("wrap-around", 1 << 20, 2048, ("uniform", 2048), torch.int32,
+         ["i64_wrap"]),
+        ("inf/-inf/NaN", 1 << 20, 2048, ("uniform", 2048), torch.int32,
+         ["f64_ieee", "i64", "count_star"]),
     ]
-    max_err = 0.0
-    times = {}
-    for name, n, G, g_used, kinds in cases:
-        gid_np = rng.integers(0, g_used, n).astype(np.int32)
-        gid_np[rng.random(n) < 0.01] = -1  # excluded rows
-        gid = torch.from_numpy(gid_np).to(dev)
+    max_err = {"plain": 0.0, "float64": 0.0}
+    out = {}
+    for name, n, G, ids, gdt, kinds in cases:
+        gid = torch.from_numpy(_gids(rng, n, ids)).to(dev).to(gdt)
         items = _items(rng, n, kinds, dev)
-        got = group_agg.grouped_sums_counts_multi(items, gid, G)
-        again = group_agg.grouped_sums_counts_multi(items, gid, G)
-        want = group_agg.grouped_sums_counts_multi_plain(items, gid, G)
+        rows, inv = group_agg.accumulate_kernel(items, gid, G)
+        rows2, inv2 = group_agg.accumulate_kernel(items, gid, G)
+        want_rows, want_inv = group_agg.accumulate_plain(items, gid, G)
         torch.cuda.synchronize()
-        for kind, (v, _), (s, c), (s2, c2), (ws, wc) in zip(
-            kinds, items, got, again, want
-        ):
+        max_err["plain"] = max(max_err["plain"], float(
+            (rows - want_rows).abs().max()), float(
+            (inv - want_inv).abs().max()) if inv.numel() else 0.0)
+        check(torch.equal(rows, want_rows) and torch.equal(inv, want_inv),
+              f"{name}: kernel rows differ from the plain version's")
+        check(torch.equal(rows, rows2) and torch.equal(inv, inv2),
+              f"{name}: two kernel runs differ")
+        got = group_agg.grouped_sums_counts_multi(items, gid, G)
+        same = group_agg.fixed_point(items, gid, G, group_agg.accumulate_plain)
+        f64 = group_agg.grouped_sums_counts_multi_plain(items, gid, G)
+        for kind, (v, _), (s, c), (ps, pc), (ws, wc) in zip(
+                kinds, items, got, same, f64):
             check(s.is_cuda and c.is_cuda, f"{name}: result not on the card")
-            check(torch.equal(c, c2) and torch.equal(
-                s.view(torch.int64), s2.view(torch.int64)),
-                f"{name} {kind}: two kernel runs differ")
-            check(torch.equal(c, wc), f"{name} {kind}: counts differ")
-            if s.dtype == torch.int64:
+            check(torch.equal(c, pc) and torch.equal(c, wc),
+                  f"{name} {kind}: counts differ")
+            check(torch.equal(s.view(torch.int64), ps.view(torch.int64)),
+                  f"{name} {kind}: sums differ from the plain version's bits")
+            if not s.is_floating_point():
                 check(torch.equal(s, ws), f"{name} {kind}: int sums differ")
                 continue
             a, b = s.cpu().numpy(), ws.cpu().numpy()
             x = v.cpu().numpy()
-            finite_max = float(np.abs(x[np.isfinite(x)]).max())
-            atol = finite_max * ATOL_PER_MAX
+            atol = float(np.abs(x[np.isfinite(x)]).max()) * ATOL_PER_MAX
             close = np.isclose(a, b, rtol=RTOL, atol=atol, equal_nan=True)
             check(bool(close.all()),
                   f"{name} {kind}: {int((~close).sum())} float sums outside "
-                  f"rtol {RTOL} atol {atol}")
+                  f"rtol {RTOL} atol {atol} of float64 summation")
             both = np.isfinite(a) & np.isfinite(b)
             if both.any():
-                err = np.abs(a[both] - b[both]).max()
-                max_err = max(max_err, float(err))
-        print(f"phase 1: {name}: n={n} G={G} {kinds}: kernel == plain "
-              "(ints exact, floats in tolerance), two runs bit-identical")
-        if n == 1 << 23:
-            k_ms = cuda_ms(lambda: group_agg.grouped_sums_counts_multi(
-                items, gid, G))
-            p_ms = cuda_ms(lambda: group_agg.grouped_sums_counts_multi_plain(
-                items, gid, G))
-            times[name] = (k_ms, p_ms)
-            print(f"phase 1: {name}: kernel {k_ms:.4f} ms, plain "
-                  f"{p_ms:.4f} ms (mean of 20 after 3 warm-up, CUDA events)")
-        if name == "main path shape":
-            # the accumulate step alone, on already stacked int64 planes
-            vals = torch.stack([v for v, _ in items])
-            oks = torch.stack([ok for _, ok in items])
-            k_acc = cuda_ms(lambda: group_agg.accumulate_kernel(
-                gid, vals, oks, G))
-            p_acc = cuda_ms(lambda: group_agg.accumulate_plain(
-                gid, vals, oks, G))
-            nbytes = gid.nbytes + vals.nbytes + oks.nbytes + 2 * 8 * 2 * G
-            print(f"phase 1: {name}: accumulate only: kernel {k_acc:.4f} "
-                  f"ms ({nbytes / k_acc / 1e6:.1f} GB/s of {nbytes} "
-                  f"bytes), plain {p_acc:.4f} ms")
-    return max_err, times
+                max_err["float64"] = max(max_err["float64"], float(
+                    np.abs(a[both] - b[both]).max()))
+        k_ms = graph_ms(lambda: group_agg.accumulate_kernel(items, gid, G))
+        e_ms = graph_ms(lambda: group_agg.grouped_sums_counts_multi(
+            items, gid, G))
+        p_ms = graph_ms(lambda: group_agg.accumulate_plain(items, gid, G),
+                        iters=3)
+        lib_ms = graph_ms(index_add_library(items, gid, G), iters=3)
+        nbytes = group_agg_bytes(items, gid, G)
+        b_ms = bound_ms(nbytes)
+        out[name] = {"ms": k_ms, "entry_ms": e_ms, "plain_ms": p_ms,
+                     "library_ms": lib_ms, "bound_ms": b_ms, "bytes": nbytes}
+        print(f"phase 1: {name}: n={n} G={G} gid {str(gdt)[6:]} {kinds}: "
+              "kernel == plain version bit for bit (rows, scales, sums, "
+              "counts), two runs bit-identical, floats within tolerance of "
+              f"float64 summation; kernel {k_ms:.4f} ms, bound {b_ms:.4f} ms "
+              f"({nbytes} bytes, {100 * b_ms / k_ms:.1f} % of it), entry "
+              f"point {e_ms:.4f} ms, plain {p_ms:.4f} ms, library "
+              f"(index_add_) {lib_ms:.4f} ms (device time: CUDA graph "
+              "replays between CUDA events)")
+    return max_err, out
 
 
 def make_tables(dev, seed=SEED):
@@ -349,16 +463,18 @@ def profile_query(sess, query, tag):
     return names | {k.name for e in events for k in getattr(e, "kernels", ())}
 
 
-def profile_program(sess, tag):
-    """Device time of the session's captured program by operator: its body
-    run once eagerly (the same kernels a replay runs) under torch.profiler,
-    where each operator's own kernels sit under its pipeline:<operator>
-    range."""
+def profile_program(sess, tag, entry=None):
+    """Device time of a captured program by operator (the session's only
+    one unless `entry` is given): its body run once eagerly (the same
+    kernels a replay runs) under torch.profiler, where each operator's own
+    kernels sit under its pipeline:<operator> range. Returns the total and
+    {operator: ms}."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     pipe = sess.executor.pipeline
-    (entry,) = [e for e in pipe._cache.values() if e.graph is not None]
+    if entry is None:
+        (entry,) = [e for e in pipe._cache.values() if e.graph is not None]
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -383,10 +499,11 @@ def profile_program(sess, tag):
         print(f"  {name:<34} {us / 1e3:8.3f} ms  {100 * us / total:5.1f} %")
     for e in events:  # launched through ctypes, outside any aten op
         if e.device_type == cuda and any(
-                k in e.key for k in ("sum_count_", "gather_words")):
+                k in e.key for k in ("sum_count_", "float_absmax",
+                                     "gather_words")):
             print(f"  of which hand kernel {e.key[:40]}: "
                   f"{e.self_device_time_total / 1e3:.3f} ms")
-    return total / 1e3
+    return total / 1e3, {name: us / 1e3 for name, us in ops}
 
 
 def kernel_names(names, *parts):
@@ -476,16 +593,23 @@ def phase3():
             max_err = max(max_err, err)
             check(torch.equal(got, want),
                   f"small gather T={T} W={W}: kernel != plain")
-            k_ms = cuda_ms(lambda: small_gather.gather_words(idx, table))
-            p_ms = cuda_ms(lambda: small_gather.gather_words_plain(idx,
-                                                                   table))
-            times[(T, W)] = (k_ms, p_ms)
+            k_ms = graph_ms(lambda: small_gather.gather_words(idx, table))
+            p_ms = graph_ms(lambda: small_gather.gather_words_plain(idx,
+                                                                    table))
+            # the library call: index_select on indices already in range
+            in_range = idx.clamp(0, T - 1).to(torch.int64)
+            lib_ms = graph_ms(lambda: torch.index_select(table, 0, in_range))
             nbytes = n * 4 + n * W * 4 + T * W * 4
+            times[(T, W)] = {"ms": k_ms, "plain_ms": p_ms,
+                             "library_ms": lib_ms,
+                             "bound_ms": bound_ms(nbytes)}
             print(f"phase 3: small gather n={n} T={T} W={W}: kernel == plain "
                   f"bit for bit; kernel {k_ms:.4f} ms "
                   f"({nbytes / k_ms / 1e6:.1f} GB/s of {nbytes} bytes), "
-                  f"plain {p_ms:.4f} ms (mean of 20 after 3 warm-up, CUDA "
-                  "events)")
+                  f"bound {bound_ms(nbytes):.4f} ms "
+                  f"({100 * bound_ms(nbytes) / k_ms:.1f} % of it), plain "
+                  f"{p_ms:.4f} ms, library (index_select) {lib_ms:.4f} ms "
+                  "(device time: CUDA graph replays between CUDA events)")
     return max_err, times
 
 
@@ -522,7 +646,7 @@ def phase4(tables, eager_ms):
     check(syncs == 1, f"compiled Query A: {syncs} host syncs per warm query")
     names = profile_query(sess, QUERY, "phase 4: compiled Query A (replay)")
     profile_program(sess, "phase 4: compiled Query A")
-    found = kernel_names(names, "sum_count_shared", "sum_count_global")
+    found = kernel_names(names, "sum_count_shared")
     check(found, "the group_agg kernel is not among a replayed query's CUDA "
                  f"kernels: {sorted(names)}")
     print(f"phase 4: the replayed query ran {found}")
@@ -697,26 +821,35 @@ def phase6():
               f"repeat runs bit-identical; launches {launches}")
         if name != "probe data":
             continue
-        v0_ms = cuda_ms(lambda: group_agg.grouped_sum_count(values, ok, gid,
-                                                            G))
-        u = torch.where(ok, values, 0)[None]
-        v0_acc_ms = cuda_ms(lambda: group_agg.accumulate_kernel(
-            gid_m, u, ok[None], G))
+        v0_ms = graph_ms(lambda: group_agg.grouped_sum_count(values, ok, gid,
+                                                             G))
+        v0_acc_ms = graph_ms(lambda: group_agg.accumulate_kernel(
+            [(values, ok)], gid, G))
+        lib_ms = graph_ms(index_add_library([(values, ok)], gid, G),
+                          iters=5)
+        nbytes = values.nbytes + ok.nbytes + gid.nbytes  # 13 B/row
         print(f"phase 6: v0_production {v0_ms:.4f} ms, its accumulate "
-              f"kernel alone {v0_acc_ms:.4f} ms")
+              f"kernel alone {v0_acc_ms:.4f} ms; library (index_add_) "
+              f"{lib_ms:.4f} ms; bound {bound_ms(nbytes):.4f} ms "
+              f"({nbytes} bytes)")
         for v, f in entries.items():
-            k_ms = cuda_ms(lambda: AV.chunk_totals_kernel(v, vlo, vhi, gid_m,
-                                                          G))
-            p_ms = cuda_ms(lambda: AV.chunk_totals_plain(v, vlo, vhi, gid_m,
-                                                         G), iters=5)
+            k_ms = graph_ms(lambda: AV.chunk_totals_kernel(v, vlo, vhi, gid_m,
+                                                           G))
+            p_ms = graph_ms(lambda: AV.chunk_totals_plain(v, vlo, vhi, gid_m,
+                                                          G), iters=5)
             e_ms = cuda_ms(lambda: f(values, ok, gid))
             r = PV.kernel_rates(v, n, k_ms)
-            times[v] = (k_ms, p_ms, e_ms, v0_ms, v0_acc_ms)
+            times[v] = {"ms": k_ms, "plain_ms": p_ms, "entry_ms": e_ms,
+                        "v0_ms": v0_ms, "v0_accumulate_ms": v0_acc_ms,
+                        "library_ms": lib_ms, "bound_ms": bound_ms(nbytes)}
             print(f"phase 6: {v}: kernel {k_ms:.4f} ms ({r['rows_per_sec']:.4g}"
                   f" rows/s, {r['tc_tflops']:.2f} TFLOP/s on the tensor cores,"
                   f" {r['gb_per_sec']:.1f} GB/s of input), plain {p_ms:.4f} "
-                  f"ms, entry point {e_ms:.4f} ms, v0 {v0_ms:.4f} ms "
-                  "(CUDA events)")
+                  f"ms, entry point {e_ms:.4f} ms, v0 {v0_ms:.4f} ms, "
+                  f"bound {bound_ms(nbytes):.4f} ms "
+                  f"({100 * bound_ms(nbytes) / k_ms:.1f} % of it) (device "
+                  "time from CUDA graph replays; the entry point's from "
+                  "back-to-back calls, CUDA events)")
     return main_launches, max_err, times
 
 
@@ -727,7 +860,8 @@ def _stats_change(before, after, skip=()):
 
 def device_ms(sess, query):
     """Kernel time on the card of one warm run of `query` (torch.profiler:
-    the sum of the CUDA kernels' own time) and that run's wall ms."""
+    the sum of the CUDA kernels' own time), that run's wall ms and the
+    names of the kernels it ran."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -739,19 +873,23 @@ def device_ms(sess, query):
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     cuda = torch.autograd.DeviceType.CUDA
-    busy = sum(e.self_device_time_total for e in prof.key_averages()
+    events = prof.key_averages()
+    busy = sum(e.self_device_time_total for e in events
                if e.device_type == cuda) / 1e3
-    return busy, wall
+    names = {e.key for e in events if e.device_type == cuda}
+    return busy, wall, names
 
 
 @contextlib.contextmanager
 def group_agg_held_against_plain(calls):
     """While open, every call of `group_agg.grouped_sums_counts_multi` made
-    on CUDA tensors outside a graph capture (the executor's, and a
-    program's first run) is held against the plain version on the same
-    tensors: counts and integer sums exactly, float sums within phase 1's
-    tolerance. Appends one record per call to `calls`. The plain version
-    launches no kernel, so the launch counts are the path's own."""
+    on CUDA tensors outside a graph capture (the executor's, the segment
+    route's, and a program's first run) is held against the plain versions
+    on the same tensors: bit for bit against the kernel's plain version
+    (`fixed_point` with `accumulate_plain`), counts and integer sums
+    exactly and float sums within phase 1's tolerance against float64
+    summation. Appends one record per call to `calls`. The plain versions
+    launch no kernel, so the launch counts are the path's own."""
     import torch
 
     from query_engine_tpu_torch.ops import group_agg
@@ -762,14 +900,20 @@ def group_agg_held_against_plain(calls):
         got = kernel(items, gid, num_groups)
         if not gid.is_cuda or torch.cuda.is_current_stream_capturing():
             return got
+        same = group_agg.fixed_point(items, gid, num_groups,
+                                     group_agg.accumulate_plain)
         want = group_agg.grouped_sums_counts_multi_plain(items, gid,
                                                          num_groups)
         shape = f"n={gid.numel()} G={num_groups} item"
         err, n_float = 0.0, 0
-        for i, ((v, ok), (s, c), (ws, wc)) in enumerate(zip(items, got,
-                                                            want)):
-            check(torch.equal(c, wc), f"group_agg at {shape} {i}: counts "
-                  "differ from the plain version")
+        for i, ((v, ok), (s, c), (ps, pc), (ws, wc)) in enumerate(
+                zip(items, got, same, want)):
+            check(torch.equal(c, pc) and torch.equal(c, wc),
+                  f"group_agg at {shape} {i}: counts differ from the plain "
+                  "versions")
+            check(torch.equal(s.view(torch.int64), ps.view(torch.int64)),
+                  f"group_agg at {shape} {i}: sums differ from the kernel's "
+                  "plain version")
             if not s.is_floating_point():
                 check(torch.equal(s, ws), f"group_agg at {shape} {i}: int "
                       "sums differ from the plain version")
@@ -781,13 +925,13 @@ def group_agg_held_against_plain(calls):
                                   equal_nan=True)
             check(bool(close.all()), f"group_agg at {shape} {i}: "
                   f"{int((~close).sum())} float sums outside rtol {RTOL} "
-                  f"atol {atol} of the plain version")
+                  f"atol {atol} of float64 summation")
             both = torch.isfinite(s) & torch.isfinite(ws)
             if bool(both.any()):
                 err = max(err, float((s - ws)[both].abs().max()))
         calls.append({"n": gid.numel(), "groups": num_groups,
                       "items": len(items), "float_items": n_float,
-                      "columns": len(items) + 3 * n_float,
+                      "count_items": sum(v is None for v, _ in items),
                       "max_abs_err": err})
         return got
 
@@ -796,6 +940,13 @@ def group_agg_held_against_plain(calls):
         yield
     finally:
         group_agg.grouped_sums_counts_multi = kernel
+
+
+# the queries whose COUNT, SUM or AVG runs on the card: the bounded GROUP BY
+# (Q1, Q5, Q8, Q12) and the segment route at 2^23 slots (Q3, Q9, Q10)
+TPCH_GROUP_AGG = ("Q1", "Q3", "Q5", "Q8", "Q9", "Q10", "Q12")
+# the queries whose programs' device time is printed by operator
+TPCH_BY_OPERATOR = ("Q1", "Q3", "Q9", "Q10")
 
 
 def phase7():
@@ -827,6 +978,7 @@ def phase7():
         oracle_s = time.perf_counter() - t0
         keys = oracle.FLOAT_SORT_KEYS.get(q, ())
         st0, syncs0 = dict(pipe.stats), sess.executor.host_syncs
+        keys0 = set(pipe._cache)
         held[q] = []
         reset_counts()
         with group_agg_held_against_plain(held[q]):
@@ -865,13 +1017,26 @@ def phase7():
         leaves = sorted(pipe.leaf_kinds - kinds0)
         leaf_ms = statistics.median(leaf_walls)
         capture_ms = statistics.median(capture_walls)
-        busy, wall = device_ms(sess, text)
+        busy, wall, names = device_ms(sess, text)
+        by_operator = {}
+        if q in TPCH_BY_OPERATOR:  # the query's captured programs
+            for key in set(pipe._cache) - keys0:
+                if pipe._cache[key].graph is not None:
+                    _, ops = profile_program(sess, f"phase 7: {q}",
+                                             pipe._cache[key])
+                    for name, ms_op in ops.items():
+                        by_operator[name] = by_operator.get(name, 0) + ms_op
         out[q] = {"ms": ms, "first_ms": first_ms, "syncs": syncs,
                   "first_syncs": first_syncs, "first": first, "warm": warm,
                   "group_agg": launches, "max_rel_err": err,
                   "rows": len(rows), "eager_leaves": leaves,
                   "leaf_ms": leaf_ms, "capture_ms": capture_ms,
-                  "device_ms": busy, "profiled_wall_ms": wall}
+                  "device_ms": busy, "profiled_wall_ms": wall,
+                  "by_operator_ms": by_operator,
+                  "group_agg_kernels": kernel_names(names, "sum_count_",
+                                                    "float_absmax"),
+                  # torch's index_add_ kernels (indexFunc{Small,Large}Index)
+                  "index_add_kernels": kernel_names(names, "indexFunc")}
         print(f"phase 7: {q}: {len(rows)} rows == numpy oracle (max rel err "
               f"{err:.3g}, oracle {oracle_s:.2f} s); {ms:.3f} ms/query median "
               f"of 5 warm runs, {syncs:g} host syncs/query; first run "
@@ -880,16 +1045,25 @@ def phase7():
               f"{leaf_ms:.3f} ms/query, captures {capture_ms:.3f} ms/query "
               f"(host clock, medians of the same runs); group_agg launches "
               f"{launches}; one profiled "
-              f"run: {busy:.3f} ms of kernel time in {wall:.3f} ms wall")
+              f"run: {busy:.3f} ms of kernel time in {wall:.3f} ms wall, "
+              f"group_agg kernels in it {out[q]['group_agg_kernels']}, "
+              f"index_add_ kernels {out[q]['index_add_kernels']}")
         for c in held[q]:
             print(f"phase 7: {q}: group_agg == plain on the same tensors: "
                   f"n={c['n']} G={c['groups']} {c['items']} items "
-                  f"({c['float_items']} float, {c['columns']} kernel "
-                  f"columns): counts and int sums exact, float sums within "
-                  f"rtol {RTOL} atol max|x|*{ATOL_PER_MAX}, max abs err "
-                  f"{c['max_abs_err']:.6g}")
+                  f"({c['float_items']} float, {c['count_items']} count "
+                  f"only): bit for bit against the kernel's plain version; "
+                  f"against float64 summation counts and int sums exact, "
+                  f"float sums within rtol {RTOL} atol max|x|*{ATOL_PER_MAX},"
+                  f" max abs err {c['max_abs_err']:.6g}")
     with_agg = [q for q, r in out.items() if r["group_agg"] > 0]
-    check(with_agg, "group_agg launched in none of the TPC-H queries")
+    for q in TPCH_GROUP_AGG:
+        check(q in with_agg, f"TPC-H {q}: group_agg did not launch")
+        check(out[q]["group_agg_kernels"], f"TPC-H {q}: no group_agg kernel "
+              "in its profiled warm run")
+    for q, r in out.items():  # no grouped sum went to a plain index_add_
+        check(not r["index_add_kernels"], f"TPC-H {q}: index_add_ kernels "
+              f"in its profiled warm run: {r['index_add_kernels']}")
     for q in with_agg:
         check(held[q], f"TPC-H {q}: no group_agg call of its first run was "
               "held against the plain version")
@@ -945,23 +1119,27 @@ def main():
     except CheckFailed as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
-    k_ms, p_ms = times["main path shape"]
-    gk_ms, gp_ms = g_times[(1024, 1)]  # Query B's shape: 1024 rows, 1 word
+    main_shape = times["main path shape"]
+    gather = g_times[(1024, 1)]  # Query B's shape: 1024 rows, 1 word
     tpch_by_query = {q: r["group_agg"] for q, r in tpch.items()}
     tpch_launches = sum(tpch_by_query.values())
     tpch_err = max((c["max_abs_err"] for calls in tpch_held.values()
                     for c in calls), default=0.0)
     print(json.dumps({"kernels": [{
-        "name": "group_sum_count_i64",
+        "name": "group_agg",
         "route": "cuda",
         "source": "query_engine_tpu_torch/csrc/group_agg.cu",
         "replaces": "query_engine_tpu/ops/pallas/group_agg.py:74",
         "launches": agg_launches + tpch_launches,
         "launches_by_phase": {"4": agg_launches, "7": tpch_by_query},
-        "max_abs_err": max(max_err, tpch_err),
-        "max_abs_err_by_phase": {"1": max_err, "7": tpch_err},
-        "ms": k_ms,
-        "plain_ms": p_ms,
+        "max_abs_err": max_err["plain"],
+        "max_abs_err_vs_float64": {"1": max_err["float64"], "7": tpch_err},
+        "ms": main_shape["ms"],
+        "plain_ms": main_shape["plain_ms"],
+        "bound_ms": main_shape["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": main_shape["library_ms"],
+        "by_shape": times,
         "in_replay": agg_names,
     }, {
         "name": "small_gather_u32",
@@ -970,8 +1148,12 @@ def main():
         "replaces": "query_engine_tpu/ops/pallas/small_gather.py:40",
         "launches": b["set"][1]["small_gather"],
         "max_abs_err": g_err,
-        "ms": gk_ms,
-        "plain_ms": gp_ms,
+        "ms": gather["ms"],
+        "plain_ms": gather["plain_ms"],
+        "bound_ms": gather["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": gather["library_ms"],
+        "by_shape": {f"T={t} W={w}": r for (t, w), r in g_times.items()},
         "in_replay": b["set"][2],
     }] + [{
         "name": name,
@@ -980,10 +1162,13 @@ def main():
         "replaces": replaces,
         "launches": p6_launches[f"onehot_{v}"],
         "max_abs_err": p6_err,
-        "ms": p6_times[v][0],
-        "plain_ms": p6_times[v][1],
-        "entry_ms": p6_times[v][2],
-        "v0_ms": p6_times[v][3],
+        "ms": p6_times[v]["ms"],
+        "plain_ms": p6_times[v]["plain_ms"],
+        "bound_ms": p6_times[v]["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": p6_times[v]["library_ms"],
+        "entry_ms": p6_times[v]["entry_ms"],
+        "v0_ms": p6_times[v]["v0_ms"],
     } for v, (name, source, replaces) in ONEHOT_KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

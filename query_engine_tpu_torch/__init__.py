@@ -21,7 +21,9 @@ Layer map:
   index/      B-Tree and Hash indexes + manager (copied)
 
 Devices: every tensor the engine makes lives on the device passed to
-`Session(device=...)`. Nothing looks for a GPU and falls back to the CPU.
+`Session(device=...)`, the card ("cuda") by default; `device="cpu"` asks
+for the CPU. Without CUDA, `Session()` raises; nothing falls back to the
+CPU.
 """
 
 __version__ = "0.1.0"

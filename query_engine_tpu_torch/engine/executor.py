@@ -380,8 +380,7 @@ class QueryExecutor:
             if key not in item_of:
                 item_of[key] = len(items)
                 if av is None:
-                    items.append((torch.ones(cap, dtype=torch.int64,
-                                             device=dev), lm))
+                    items.append((None, lm))  # COUNT(*) reads only lm
                 else:
                     vals = av.data if av.data.is_floating_point() \
                         else av.data.to(torch.int64)
@@ -391,7 +390,7 @@ class QueryExecutor:
         if items:
             # static bound padded to cover out_cap (<= padded(nb + 1))
             results = group_agg.grouped_sums_counts_multi(
-                items, gid.to(torch.int32), padded_capacity(kernel_bound)
+                items, gid, padded_capacity(kernel_bound)
             )
 
         for fi, (agg, av, slot) in enumerate(

@@ -1281,19 +1281,17 @@ class CompiledPipeline:
                 if not eligible(agg, av):
                     continue
                 if av is None:
-                    collect(torch.ones(cap, dtype=torch.int64, device=dev),
-                            sel, "__star")
+                    collect(None, sel, "__star")  # reads only its ok plane
                 else:
                     vals = (av.data if av.data.is_floating_point()
                             else av.data.to(torch.int64))
                     collect(vals, sel & av.validity, str(_expr_key(agg.expr)))
             if bucket_mode:
-                collect(torch.ones(cap, dtype=torch.int64, device=dev), sel,
-                        "__star")
+                collect(None, sel, "__star")
         results = []
         if items:
             results = group_agg.grouped_sums_counts_multi(
-                items, gid.to(torch.int32), kernel_bound
+                items, gid, kernel_bound
             )
 
         fi = len(gvals)
@@ -1352,8 +1350,8 @@ class CompiledPipeline:
             if use_kernel:
                 rows_per_bucket = results[item_of["__star"]][1]
             else:
-                rows_per_bucket = K._segment_sum(
-                    K.live_mask(cap, sel).to(torch.int64), gid, S)
+                rows_per_bucket = K._segment_count(
+                    K.live_mask(cap, sel), gid, S)
             return _TTable(schema, cols, rows_per_bucket[:S] > 0, S, False,
                            [None] * len(cols))
         sel_out = torch.arange(S, device=dev) < ng

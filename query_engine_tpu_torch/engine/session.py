@@ -7,7 +7,8 @@ execute_query_sync). It takes SELECT statements and EXPLAIN [ANALYZE];
 other statement kinds raise NotImplementedError.
 
 Every table the session registers and every tensor it makes lies on the
-device given to `Session(device=...)`.
+device given to `Session(device=...)`: the card ("cuda") unless the caller
+asks for the CPU with `device="cpu"`.
 """
 
 from __future__ import annotations
@@ -33,11 +34,18 @@ from query_engine_tpu_torch.utils.profiling import QueryTiming
 
 
 class Session:
-    def __init__(self, device="cpu"):
-        """device: the torch device every table and result lives on, "cpu"
-        by default; "cuda" runs the engine on the GPU. Nothing falls back
-        to another device."""
+    def __init__(self, device="cuda"):
+        """device: the torch device every table and result lives on, the
+        card ("cuda") by default; "cpu" runs the engine on the CPU. Nothing
+        falls back to another device: without CUDA a Session on the card
+        raises here."""
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                f"Session(device={str(device)!r}): CUDA is not available "
+                "(torch.cuda.is_available() is False); pass device='cpu' to "
+                "run on the CPU"
+            )
         self.udfs = UdfRegistry()
         self.planner = Planner(self.udfs)
         self.optimizer = Optimizer()

@@ -58,8 +58,8 @@ def _nvcc() -> str:
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    f = lib.qe_group_sum_count_i64
-    f.argtypes = [p, p, p, i64, i32, i32, p, p, p]
+    f = lib.qe_group_agg
+    f.argtypes = [p, i32, i64, i32, i32, p, p, p, i32, p, p, p, p]
     f.restype = i32
     f = lib.qe_small_gather_u32
     f.argtypes = [p, p, i64, i32, i32, p, p]

@@ -16,11 +16,12 @@ Differences from the JAX package, all of representation, none of result:
   * packed 32-bit words (gather_columns_packed, fk_gather_by_rank) are
     int64 planes holding values in [0, 2^32); the small-table gather takes
     them as int32 bit patterns (ops/small_gather.py);
-  * int64 segment sums are one `index_add_` (exact and order-independent);
-    float segment sums on a CUDA tensor go through the fixed-point path of
-    ops/group_agg.py with an int64 accumulator, so they give the same bits
-    on every run (a float64 `index_add_` on CUDA uses atomics whose order
-    changes the result).
+  * segment counts and sums: on a CUDA tensor every one is a launch of the
+    group_agg kernel (ops/group_agg.py), which sums integers exactly and
+    floats in fixed point, so they give the same bits on every run (a
+    float64 `index_add_` on CUDA uses atomics whose order changes the
+    result); on the CPU an int64 or float64 `index_add_`, the JAX
+    package's CPU semantics.
 
 Nulls: SQL three-valued logic. Group keys: NULLs group together. Join keys:
 NULLs never match (each null row gets a unique negative rank).
@@ -73,15 +74,12 @@ def _scatter_drop(size: int, index: torch.Tensor, src, fill, dtype,
     return out[:size]
 
 
-def _segment_sum(values: torch.Tensor, segment_ids: torch.Tensor,
-                 num_segments: int) -> torch.Tensor:
-    """jax.ops.segment_sum: ids outside [0, num_segments) are dropped."""
-    ok = (segment_ids >= 0) & (segment_ids < num_segments)
-    out = torch.zeros(num_segments, dtype=values.dtype, device=values.device)
-    return out.index_add_(
-        0, torch.where(ok, segment_ids, torch.zeros_like(segment_ids)),
-        torch.where(ok, values, torch.zeros_like(values)),
-    )
+def _segment_count(ok: torch.Tensor, segment_ids: torch.Tensor,
+                   num_segments: int) -> torch.Tensor:
+    """Rows per segment where `ok` (int64); ids outside [0, num_segments)
+    are dropped. On the card one group_agg launch that reads only `ok`."""
+    return group_agg.grouped_sums_counts_multi(
+        [(None, ok)], segment_ids, num_segments)[0][1]
 
 
 def _lexsort(operands: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -567,7 +565,7 @@ def group_ids_direct(
         (key.to(torch.int64) - key_min).clamp(0, num_buckets - 1),
         torch.where(lm, num_buckets, nb),  # nulls -> last; pad -> dropped
     )
-    counts = _segment_sum(lm.to(torch.int64), bucket.clamp(0, nb - 1), nb)
+    counts = _segment_count(lm, bucket.clamp(0, nb - 1), nb)
     observed = counts > 0
     dense = torch.cumsum(observed.to(torch.int64), 0) - 1  # bucket -> id
     num_groups = observed.sum(dtype=torch.int64)
@@ -597,21 +595,6 @@ def key_range(key: torch.Tensor, valid: torch.Tensor, num_rows):
 # ---------------------------------------------------------------------------
 
 
-def _segment_sum_float(data: torch.Tensor, ok: torch.Tensor,
-                       gid: torch.Tensor, num_segments: int) -> torch.Tensor:
-    """Float segment sum. On the CPU: a float64 index_add, which is what the
-    JAX package computes there. On CUDA: dynamic-scale fixed point summed
-    in int64 (group_agg's prep and finish with the plain accumulator), so
-    the bits do not depend on atomic order."""
-    x = data.to(torch.float64)
-    if x.device.type == "cpu":
-        return _segment_sum(torch.where(ok, x, 0.0), gid, num_segments)
-    s, _ = group_agg.fixed_point_multi(
-        [(x, ok)], gid, num_segments, group_agg.accumulate_plain
-    )[0]
-    return s
-
-
 def segment_aggregate(
     func: str,
     data: Optional[torch.Tensor],
@@ -627,30 +610,28 @@ def segment_aggregate(
     Semantics parity (reference operators.rs:745-848): COUNT ignores nulls
     (COUNT(*) counts rows), SUM/AVG/MIN/MAX ignore nulls and are NULL for
     empty/all-null groups; SUM(int) accumulates in int64 (wrapping), AVG in
-    float64.
+    float64. The count, and the sum of SUM and AVG, come from one
+    `group_agg.grouped_sums_counts_multi` call: one kernel launch on a
+    CUDA tensor (floats in fixed point), int64 and float64 `index_add_`s
+    on the CPU.
     """
     capacity = gid.shape[0]
     device = gid.device
     lm = live_mask(capacity, num_rows, device)
     ones = torch.ones(num_segments, dtype=torch.bool, device=device)
-    if func == "count_star":
-        return _segment_sum(lm.to(torch.int64), gid, num_segments), ones
-    if data is None or validity is None:
+    if func != "count_star" and (data is None or validity is None):
         raise ValueError(f"aggregate {func} needs a data and validity plane")
-    ok = lm & validity
-    cnt = _segment_sum(ok.to(torch.int64), gid, num_segments)
-    if func == "count":
+    ok = lm if func == "count_star" else lm & validity
+    value = data if func in ("sum", "avg") else None
+    s, cnt = group_agg.grouped_sums_counts_multi(
+        [(value, ok)], gid, num_segments)[0]
+    if func in ("count_star", "count"):
         return cnt, ones
     has = cnt > 0
-    if func == "sum" or func == "avg":
-        if data.is_floating_point():
-            s = _segment_sum_float(data, ok, gid, num_segments)
-        else:
-            s = _segment_sum(torch.where(ok, data.to(torch.int64), 0), gid,
-                             num_segments)
-        if func == "avg":
-            return s.to(torch.float64) / cnt.clamp(min=1).to(torch.float64), has
+    if func == "sum":
         return s, has
+    if func == "avg":
+        return s.to(torch.float64) / cnt.clamp(min=1).to(torch.float64), has
     if func == "min" or func == "max":
         out = _segment_extreme(data, ok, gid, num_segments, func == "min")
         if data.is_floating_point():
@@ -832,8 +813,8 @@ def join_counts(
     r_ok = live_mask(cap_r, n_right, device) & (right_ranks >= 0)
     lr_c = torch.where(l_ok, left_ranks, n_ranks - 1)
     rr_c = torch.where(r_ok, right_ranks, n_ranks - 1)
-    cnt_r = _segment_sum(r_ok.to(torch.int64), rr_c, n_ranks)
-    cnt_l = _segment_sum(l_ok.to(torch.int64), lr_c, n_ranks)
+    cnt_r = _segment_count(r_ok, rr_c, n_ranks)
+    cnt_l = _segment_count(l_ok, lr_c, n_ranks)
     # the n_ranks-1 dummy slot may mix pad/null counts; mask at use
     counts = torch.where(l_ok, cnt_r[lr_c], 0)
     offsets = torch.cumsum(counts, 0) - counts

@@ -1,0 +1,132 @@
+"""group_agg at the main path's shapes, on the card, for one checkout.
+
+Times the grouped SUM/COUNT entry point (`grouped_sums_counts_multi`) and
+the segment route (`segment_aggregate`) as the engine calls them:
+
+  A             Query A's aggregate: 2^23 rows, 2048 slots (1025 used),
+                one int64 SUM and COUNT(*)
+  Q1            TPC-H Q1's: 2^23 rows, 4 of 128 slots, one int64 and three
+                float64 items and COUNT(*)
+  seg_*         the segment route at 2^23 slots (Q3, Q9, Q10: keys with no
+                static bound): SUM(float64) and COUNT(*), ids in sorted
+                runs of 1-7 rows (Q3's lineitem rows by l_orderkey) and
+                uniform over 175 live groups (Q9's nation x year)
+
+and prints one JSON line: per case the device time in ms (a CUDA graph of
+10 calls replayed between CUDA events, so the host's launch overhead is
+not in it) and a digest of the result's bits, with the card's name and
+power limit. The data comes from a fixed seed, so two checkouts' digests
+are equal exactly when their results are bit for bit equal.
+
+    python scripts/group_agg_shapes.py
+    python scripts/group_agg_shapes.py --root DIR
+
+`--root` imports `query_engine_tpu_torch` from another checkout, e.g. an
+earlier commit unpacked with `git archive`; one whose group_agg takes no
+count-only items is driven as its engine drove it (COUNT(*) as a plane of
+ones, int32 ids). The timing is `chip_smoke.graph_ms` of the checkout that
+holds this script. Compare two checkouts on one card, in turns: parent,
+change, change, parent. Exits non-zero without CUDA.
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import os
+import subprocess
+import sys
+
+
+def digest(result):
+    import torch
+
+    h = hashlib.sha256()
+    for pair in result:
+        for t in (pair if isinstance(pair, tuple) else (pair,)):
+            t = t.view(torch.int64) if t.is_floating_point() else t
+            h.update(t.cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", default=None,
+                    help="checkout whose query_engine_tpu_torch to import "
+                         "(default: the one that holds this file)")
+    args = ap.parse_args(argv)
+    here = os.path.abspath(os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), ".."))  # the checkout that holds this file
+    sys.path.insert(0, here)
+    from chip_smoke import graph_ms
+
+    sys.path.insert(0, os.path.abspath(args.root or here))
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("group_agg_shapes: torch.cuda.is_available() is False",
+              file=sys.stderr)
+        return 1
+    from query_engine_tpu_torch.ops import group_agg as ga
+    from query_engine_tpu_torch.ops import kernels as K
+
+    counts_only = hasattr(ga, "fixed_point")  # takes (None, ok) items
+    dev = torch.device("cuda")
+    n = 1 << 23
+    rng = np.random.default_rng(5)
+
+    def ok_plane(p=0.85):
+        return torch.from_numpy(rng.random(n) < p).to(dev)
+
+    ones = torch.ones(n, dtype=torch.int64, device=dev)
+
+    def as_engine(items, star, gid, G):
+        if counts_only:
+            return ga.grouped_sums_counts_multi(items + [(None, star)], gid, G)
+        return ga.grouped_sums_counts_multi(items + [(ones, star)],
+                                            gid.to(torch.int32), G)
+
+    gid_a = torch.from_numpy(rng.integers(0, 1025, n)).to(dev)
+    items_a = [(torch.from_numpy(rng.integers(50_000, 151_000, n)).to(dev),
+                ok_plane())]
+    star_a = ok_plane()
+    gid_q1 = torch.from_numpy(rng.integers(0, 4, n)).to(dev)
+    items_q1 = [(torch.from_numpy(rng.integers(1, 51, n)).to(dev),
+                 ok_plane(0.98))] + [
+        (torch.from_numpy(rng.random(n) * 1e5).to(dev), ok_plane(0.98))
+        for _ in range(3)]
+    star_q1 = ok_plane(0.98)
+    runs = torch.from_numpy(
+        np.repeat(np.arange(n), rng.integers(1, 8, n))[:n]).to(dev)
+    live175 = torch.from_numpy(rng.integers(0, 175, n)).to(dev)
+    x, x_ok = torch.from_numpy(rng.random(n) * 1e5).to(dev), ok_plane(0.5)
+    cases = {
+        "A": lambda: as_engine(items_a, star_a, gid_a, 2048),
+        "Q1": lambda: as_engine(items_q1, star_q1, gid_q1, 128),
+        "seg_runs_sum": lambda: K.segment_aggregate("sum", x, x_ok, runs, n,
+                                                    n),
+        "seg_175_sum": lambda: K.segment_aggregate("sum", x, x_ok, live175,
+                                                   n, n),
+        "seg_runs_count_star": lambda: K.segment_aggregate(
+            "count_star", x, x_ok, runs, n, n),
+        "seg_175_count_star": lambda: K.segment_aggregate(
+            "count_star", x, x_ok, live175, n, n),
+    }
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    out = {"root": args.root or ".", "group_agg": ga.__file__,
+           "card": smi.stdout.strip().splitlines()[0] if smi.stdout else ""}
+    for name, fn in cases.items():
+        result = fn()
+        torch.cuda.synchronize()
+        out[name] = {"ms": graph_ms(fn, iters=10),
+                     "digest": digest(result)}
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

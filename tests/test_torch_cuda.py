@@ -64,25 +64,124 @@ def _items(n, G, seed, device):
                                  (1 << 16, 32768), (100, 5)])
 def test_kernel_matches_plain_and_repeats_bits(cuda_device, n, G):
     """Shared-memory (small G) and device-memory (G = 32768) paths. Ints
-    exact; floats to rtol 1e-9, atol max|x| * 1e-9 (fixed point against
-    float64 summation); two launches give identical bits."""
+    exact; floats to rtol 1e-9, atol max|x| * 1e-9 against float64
+    summation, and bit for bit against the kernel's plain version; two
+    launches give identical bits."""
     gid, items, x = _items(n, G, n + G, cuda_device)
     before = group_agg.launches
     got = group_agg.grouped_sums_counts_multi(items, gid, G)
     again = group_agg.grouped_sums_counts_multi(items, gid, G)
     assert group_agg.launches == before + 2
     want = group_agg.grouped_sums_counts_multi_plain(items, gid, G)
+    same = group_agg.fixed_point(items, gid, G, group_agg.accumulate_plain)
     atol = np.abs(x[np.isfinite(x)]).max() * 1e-9
-    for (s, c), (s2, c2), (ws, wc) in zip(got, again, want):
+    for (s, c), (s2, c2), (ws, wc), (ps, pc) in zip(got, again, want, same):
         assert s.is_cuda and c.is_cuda
         assert torch.equal(c, c2)
         assert torch.equal(s.view(torch.int64), s2.view(torch.int64))
-        assert torch.equal(c, wc)
+        assert torch.equal(c, wc) and torch.equal(c, pc)
+        assert torch.equal(s.view(torch.int64), ps.view(torch.int64))
         if s.dtype == torch.int64:
             assert torch.equal(s, ws)
         else:
             np.testing.assert_allclose(s.cpu().numpy(), ws.cpu().numpy(),
                                        rtol=1e-9, atol=atol)
+
+
+def _engine_case(case, n, device):
+    """(gid, items, G) at the shapes the engine gives the kernel: count-only,
+    int64, int32, float64 with +-inf and NaN, float32 items."""
+    rng = np.random.default_rng(n + len(case))
+    G = 2048
+    gid = rng.integers(0, G, n)
+    if case == "Q1":  # 4 of 128 slots
+        G, gid = 128, rng.integers(0, 4, n)
+    elif case == "sorted runs":  # Q3's ids follow row order in short runs
+        gid = np.repeat(np.arange(n), rng.integers(1, 8, n))[:n]
+        G = int(gid.max()) + 1
+    elif case == "2^23 slots, 175 live":  # Q9
+        G, gid = 1 << 23, rng.integers(0, 175, n)
+    elif case == "one group":  # a global aggregate
+        gid = np.zeros(n, np.int64)
+    gid[rng.random(n) < 0.03] = -1
+    x = rng.normal(0.0, 1e5, n)
+    x[rng.permutation(n)[:6]] = [np.inf, np.inf, -np.inf, -np.inf, np.nan,
+                                 1e300]
+    items = [
+        (None, rng.random(n) < 0.9),
+        (rng.integers(-(2**62), 2**62, n), rng.random(n) < 0.8),
+        (rng.integers(-(2**31), 2**31, n).astype(np.int32),
+         rng.random(n) < 0.7),
+        (x, rng.random(n) < 0.85),
+        (rng.normal(0, 3, n).astype(np.float32), rng.random(n) < 0.6),
+    ]
+    t = [(None if v is None else torch.from_numpy(v).to(device),
+          torch.from_numpy(ok).to(device)) for v, ok in items]
+    return torch.from_numpy(gid).to(device), t, G
+
+
+@pytest.mark.parametrize("gid_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("case", ["uniform", "Q1", "sorted runs",
+                                  "2^23 slots, 175 live", "one group"])
+def test_kernel_rows_equal_plain_contract(cuda_device, case, gid_dtype):
+    """The kernel's [R, G] rows and inverse scales equal `accumulate_plain`
+    bit for bit: warp aggregation (few groups, sorted runs, one group), the
+    shared table and the device-memory groups past it (2^23 slots)."""
+    gid, items, G = _engine_case(case, (1 << 18) + 7, cuda_device)
+    gid = gid.to(gid_dtype)
+    rows, inv = group_agg.accumulate_kernel(items, gid, G)
+    rows2, inv2 = group_agg.accumulate_kernel(items, gid, G)
+    want, want_inv = group_agg.accumulate_plain(items, gid, G)
+    assert torch.equal(rows, want) and torch.equal(rows, rows2)
+    assert torch.equal(inv, want_inv) and torch.equal(inv, inv2)
+
+
+def test_kernel_takes_views_at_any_offset(cuda_device):
+    """Views that start off a 16-byte boundary (and a ragged tail) give the
+    plain version's rows: the wrapper realigns what the 16-byte loads
+    cannot read."""
+    n = (1 << 16) + 9
+    gid, items, G = _engine_case("uniform", n, cuda_device)
+    gid = gid[1:n - 8]
+    items = [(None if v is None else v[3:n - 6], ok[5:n - 4])
+             for v, ok in items]
+    rows, inv = group_agg.accumulate_kernel(items, gid, G)
+    want, want_inv = group_agg.accumulate_plain(items, gid, G)
+    assert torch.equal(rows, want) and torch.equal(inv, want_inv)
+
+
+def test_more_items_than_one_launch_takes(cuda_device):
+    """18 items: two launches (16 descriptors each at most) write their rows
+    and scales in order."""
+    gid, items, G = _engine_case("Q1", (1 << 16) + 3, cuda_device)
+    items = (items * 4)[:18]
+    before = group_agg.launches
+    rows, inv = group_agg.accumulate_kernel(items, gid, G)
+    assert group_agg.launches == before + 2
+    want, want_inv = group_agg.accumulate_plain(items, gid, G)
+    assert torch.equal(rows, want) and torch.equal(inv, want_inv)
+
+
+def test_segment_aggregate_on_card_equals_plain_route(cuda_device):
+    """segment_aggregate on the card (one group_agg launch per aggregate)
+    gives the bits of the card's route with the plain accumulator."""
+    gid, items, G = _engine_case("sorted runs", 1 << 16, cuda_device)
+    g = gid.clamp(min=0)
+    for v, ok in items[1:]:
+        for func in ("count_star", "count", "sum", "avg", "min"):
+            before = group_agg.launches
+            got, has = K.segment_aggregate(func, v, ok, g, ok.shape[0], G)
+            assert group_agg.launches == before + 1
+            lm_ok = ok if func != "count_star" else torch.ones_like(ok)
+            value = v if func in ("sum", "avg") else None
+            s, c = group_agg.fixed_point([(value, lm_ok)], g, G,
+                                         group_agg.accumulate_plain)[0]
+            want = {"count_star": c, "count": c, "sum": s, "min": None,
+                    "avg": s.to(torch.float64) / c.clamp(min=1)}[func]
+            assert torch.equal(has, c > 0) or func in ("count_star", "count")
+            if want is not None:
+                assert torch.equal(got.view(torch.int64),
+                                   want.view(torch.int64))
 
 
 def test_float_segment_sum_on_card_is_deterministic(cuda_device):

@@ -1,12 +1,15 @@
 """The port's grouped SUM/COUNT (query_engine_tpu_torch.ops.group_agg)
 against the JAX package's Pallas kernel, run in interpret mode on the CPU as
-tests/test_pallas_kernels.py runs it.
+tests/test_pallas_kernels.py runs it, and against the card's route as it was
+before the kernel read its items where they lie.
 
 Inputs come from numpy with a fixed seed. Integer results must match
 exactly. Float sums: the JAX kernel sums dynamic-scale fixed point, the
 port's CPU path sums float64; they agree to rtol 1e-9 with atol
 max|x| * 1e-9 (fixed-point rounding of ~n * max|x| * 2^-40 against float64
-round-off — the bound tests/test_pallas_kernels.py uses).
+round-off — the bound tests/test_pallas_kernels.py uses). The card's route
+(`fixed_point` with `accumulate_plain`) must give the same bits as the
+stacked-plane route it replaced (`_stacked_route` below).
 """
 
 import functools
@@ -71,7 +74,8 @@ def _reference(n, G, ieee):
 
 
 def _torch_items(items):
-    return [(torch.from_numpy(v), torch.from_numpy(ok)) for v, ok in items]
+    return [(None if v is None else torch.from_numpy(v), torch.from_numpy(ok))
+            for v, ok in items]
 
 
 CASES = [(100, 7, False), (5000, 37, False), (2048, 1024, False),
@@ -93,12 +97,12 @@ def test_multi_plain_matches_jax(n, G, ieee):
 
 @pytest.mark.parametrize("n,G,ieee", CASES)
 def test_fixed_point_with_plain_accumulator_matches_jax(n, G, ieee):
-    """The kernel path's prep and finish (quantize, flag columns, rescale)
-    composed with the plain int64 accumulator — the arithmetic the CUDA
-    kernel runs, on the CPU."""
+    """The card's route (item descriptors, in-kernel quantization, flag
+    rows, rescale) with the kernel's plain version — the arithmetic the
+    CUDA kernel runs, on the CPU."""
     gid, items, ref = _reference(n, G, ieee)
-    got = tga.fixed_point_multi(_torch_items(items), torch.from_numpy(gid),
-                                G, tga.accumulate_plain)
+    got = tga.fixed_point(_torch_items(items), torch.from_numpy(gid), G,
+                          tga.accumulate_plain)
     for (s, c), (rs, rc), (v, _) in zip(got, ref, items):
         np.testing.assert_array_equal(c.numpy(), np.asarray(rc))
         _assert_sums(s, rs, v)
@@ -123,9 +127,8 @@ def test_ieee_semantics_per_group():
     for s, c in (
         tga.grouped_sum_count(torch.from_numpy(vals), torch.from_numpy(ok),
                               torch.from_numpy(gid), 5),
-        tga.fixed_point_multi([(torch.from_numpy(vals), torch.from_numpy(ok))],
-                              torch.from_numpy(gid), 5,
-                              tga.accumulate_plain)[0],
+        tga.fixed_point([(torch.from_numpy(vals), torch.from_numpy(ok))],
+                        torch.from_numpy(gid), 5, tga.accumulate_plain)[0],
     ):
         s = s.numpy()
         assert s[0] == np.inf and s[1] == -np.inf
@@ -139,7 +142,7 @@ def test_int64_sums_wrap_like_twos_complement():
     ok = np.ones(4, bool)
     want = big.astype(np.uint64)
     want = (want[[0, 2]] + want[[1, 3]]).view(np.int64)  # wraps mod 2^64
-    s, _ = tga.fixed_point_multi(
+    s, _ = tga.fixed_point(
         [(torch.from_numpy(big), torch.from_numpy(ok))],
         torch.from_numpy(gid), 2, tga.accumulate_plain)[0]
     np.testing.assert_array_equal(s.numpy(), want)
@@ -151,9 +154,138 @@ def test_int64_sums_wrap_like_twos_complement():
 def test_kernel_wrapper_refuses_cpu_tensors():
     """On a CPU tensor the kernel wrapper raises instead of falling back."""
     gid = torch.zeros(8, dtype=torch.int32)
-    vals = torch.zeros((1, 8), dtype=torch.int64)
-    ok = torch.ones((1, 8), dtype=torch.bool)
+    items = [(torch.zeros(8, dtype=torch.int64), torch.ones(8, dtype=bool)),
+             (None, torch.ones(8, dtype=bool))]
     before = tga.launches
     with pytest.raises(ValueError, match="CUDA"):
-        tga.accumulate_kernel(gid, vals, ok, 4)
+        tga.accumulate_kernel(items, gid, 4)
     assert tga.launches == before
+
+
+# ---------------------------------------------------------------------------
+# the card's route against the stacked-plane route it replaced
+# ---------------------------------------------------------------------------
+
+
+def _stacked_accumulate(gid, vals, ok, num_groups):
+    """The replaced kernel's contract: gid [n], vals [C, n] int64, ok [C, n]
+    -> sums [C, G], counts [C, G] by int64 index_add_."""
+    g = gid.to(torch.int64)
+    ok = ok & ((g >= 0) & (g < num_groups))
+    g = torch.where(ok, g, torch.zeros_like(g))
+    n_cols = vals.shape[0]
+    flat = (torch.arange(n_cols)[:, None] * num_groups + g).reshape(-1)
+    sums = torch.zeros(n_cols * num_groups, dtype=torch.int64)
+    counts = torch.zeros(n_cols * num_groups, dtype=torch.int64)
+    sums.index_add_(0, flat, torch.where(ok, vals, 0).reshape(-1))
+    counts.index_add_(0, flat, ok.to(torch.int64).reshape(-1))
+    return sums.view(n_cols, num_groups), counts.view(n_cols, num_groups)
+
+
+def _flags(n_pos, n_neg, n_nan):
+    return ((n_pos > 0).to(torch.int64) | (n_neg > 0).to(torch.int64) << 1
+            | (n_nan > 0).to(torch.int64) << 2)
+
+
+def _stacked_route(items, gid, num_groups):
+    """The card's route before this design: every item stacked into int64
+    planes (a float as q and three flag columns, COUNT(*) as a plane of
+    ones), one accumulate, then the same rescale."""
+    gid32 = gid.to(torch.int32)
+    vals, oks, layout = [], [], []
+    for v, ok in items:
+        if v is None:
+            v = torch.ones(gid.shape[0], dtype=torch.int64)
+        layout.append((len(vals), None))
+        if v.is_floating_point():
+            q, inv = tga.quantize(v, ok)
+            x = v.to(torch.float64)
+            layout[-1] = (len(vals), inv)
+            vals += [q, q, q, q]
+            oks += [ok, ok & torch.isposinf(x), ok & torch.isneginf(x),
+                    ok & torch.isnan(x)]
+        else:
+            vals.append(v.to(torch.int64))
+            oks.append(ok)
+    sums, counts = _stacked_accumulate(gid32, torch.stack(vals),
+                                       torch.stack(oks), num_groups)
+    return [(sums[c], counts[c]) if inv is None else
+            (tga.finish_float(sums[c], _flags(*counts[c + 1:c + 4]), inv),
+             counts[c])
+            for c, inv in layout]
+
+
+def _route_case(case, seed=0):
+    """(gid, items, G) for the shapes the engine gives the kernel."""
+    rng = np.random.default_rng(seed + len(case))
+    n, G = 4096, 128
+    gid = rng.integers(0, G, n)
+    if case == "few groups":  # Q1: 4 of 128 slots
+        gid = rng.integers(0, 4, n)
+    elif case == "sorted runs":  # Q3: ids follow row order in short runs
+        gid = np.repeat(np.arange(n), rng.integers(1, 8, n))[:n]
+        G = int(gid.max()) + 1
+    elif case == "2^14 slots, few live":  # Q9: ~175 live of the slots
+        G = 1 << 14
+        gid = rng.integers(0, 175, n)
+    elif case == "out of range":
+        gid[rng.random(n) < 0.1] = -1
+        gid[rng.random(n) < 0.05] = G + rng.integers(0, 100)
+        gid[:2] = [-(2**31), 2**31 - 1]
+    x = rng.normal(0.0, 1e5, n)
+    x[rng.permutation(n)[:9]] = [np.inf, np.inf, -np.inf, -np.inf, np.nan,
+                                 np.inf, -np.inf, np.nan, 1e300]
+    items = [
+        (None, rng.random(n) < 0.9),  # COUNT(*)
+        (rng.integers(-(2**62), 2**62, n), rng.random(n) < 0.8),
+        (rng.integers(-(2**31), 2**31, n).astype(np.int32),
+         rng.random(n) < 0.7),
+        (x, rng.random(n) < 0.85),
+        (rng.normal(0, 3, n).astype(np.float32), rng.random(n) < 0.6),
+        (rng.random(n) < 0.5, rng.random(n) < 0.9),  # bool values
+    ]
+    return torch.from_numpy(gid), _torch_items(items), G
+
+
+ROUTE_CASES = ["uniform", "few groups", "sorted runs", "2^14 slots, few live",
+               "out of range"]
+
+
+def _bits(t):
+    return t.view(torch.int64) if t.is_floating_point() else t
+
+
+@pytest.mark.parametrize("gid_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("case", ROUTE_CASES)
+def test_card_route_same_bits_as_stacked_route(case, gid_dtype):
+    """Count-only, int64, int32, bool, float64 (with +-inf, NaN and a huge
+    value) and float32 items through the descriptor route give the bits of
+    the stacked-plane route, sums and counts."""
+    gid, items, G = _route_case(case)
+    gid = gid.to(gid_dtype)
+    got = tga.fixed_point(items, gid, G, tga.accumulate_plain)
+    want = _stacked_route(items, gid, G)
+    for (s, c), (ws, wc) in zip(got, want):
+        assert torch.equal(c, wc)
+        assert s.dtype == ws.dtype
+        assert torch.equal(_bits(s), _bits(ws))
+
+
+@pytest.mark.parametrize("case", ROUTE_CASES)
+def test_plain_contract_rows(case):
+    """The [R, G] rows of `accumulate_plain`: one row for a COUNT item, sum
+    and count for an integer item, sum_q, count and flag bits for a float
+    item, and one inverse scale per float item."""
+    gid, items, G = _route_case(case, seed=1)
+    rows, inv = tga.accumulate_plain(items, gid, G)
+    assert rows.shape == (1 + 2 + 2 + 3 + 3 + 2, G)
+    assert rows.dtype == torch.int64 and inv.shape == (2,)
+    g = gid.numpy()
+    in_range = (g >= 0) & (g < G)
+    count_star = np.bincount(g[in_range & items[0][1].numpy()], minlength=G)
+    np.testing.assert_array_equal(rows[0].numpy(), count_star)
+    x, ok = items[3][0].numpy(), items[3][1].numpy() & in_range
+    for bit, cls in enumerate((np.isposinf(x), np.isneginf(x), np.isnan(x))):
+        has = np.bincount(g[ok & cls], minlength=G) > 0
+        np.testing.assert_array_equal((rows[7].numpy() >> bit) & 1, has)
+    assert int(rows[7].max()) <= 7

@@ -78,7 +78,7 @@ def test_bench_query_matches_jax(bench_pair):
 def test_bench_query_with_nulls_and_ties_matches_jax():
     """NULL group keys and duplicate sums: ORDER BY s DESC ties keep group
     order in both packages."""
-    js, ts = JSession(), Session()
+    js, ts = JSession(), Session(device="cpu")
     data = {
         "dept": [3, 1, None, 2, 1, None, 3, 2, 5],
         "salary": [10, 20, 30, 20, 10, 0, 20, 10, None],
@@ -188,7 +188,7 @@ def test_nan_sort_key_sorts_last_in_both(expr, order):
     in both packages, whatever its sign and the direction."""
     data = {"a": [1, 2, 3, 4, 5, 6],
             "b": [1e308, -1e308, 2.0, -3.5, 0.0, 1e308]}
-    js, ts = JSession(), Session()
+    js, ts = JSession(), Session(device="cpu")
     for s in (js, ts):
         s.register_table("t", data)
     q = f"SELECT a, {expr} AS x FROM t ORDER BY x{order}"
@@ -231,7 +231,7 @@ def test_register_parquet(tmp_path):
     path = str(tmp_path / "t.parquet")
     pq.write_table(pa.table({"k": [1, 2, 1, None], "v": [1.5, 2.0, 3.0, 4.0]}),
                    path)
-    js, ts = JSession(), Session()
+    js, ts = JSession(), Session(device="cpu")
     for s in (js, ts):
         s.register_parquet("t", path)
     q = "SELECT k, SUM(v), COUNT(*) FROM t GROUP BY k ORDER BY k"
@@ -243,7 +243,7 @@ def test_register_source():
     from query_engine_tpu_torch.storage.csv import CsvDataSource
 
     path = os.path.join(DATA, "departments.csv")
-    js, ts = JSession(), Session()
+    js, ts = JSession(), Session(device="cpu")
     js.register_source("dep", JCsv(path))
     ts.register_source("dep", CsvDataSource(path))
     q = "SELECT dept_name, location FROM dep WHERE dept_id >= 102"
@@ -301,3 +301,19 @@ def test_tpch_subpackage_needs_no_pandas_or_pyarrow():
                          text=True, cwd=ROOT, env=env, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def test_session_defaults_to_the_card(monkeypatch):
+    """Session() runs on CUDA; without CUDA it raises at construction and
+    Session(device="cpu") runs."""
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Session()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Session(device="cuda")
+    s = Session(device="cpu")
+    assert s.device.type == "cpu"
+    s.register_table("t", {"x": [1, 2, 3]})
+    assert s.sql("SELECT SUM(x) FROM t").to_pylist() == [(6,)]
