@@ -54,7 +54,10 @@ Phase 6  drives the aggregate probes' entry points (`probes.probe_agg_variants
          version's bit for bit. On the probe's data it times each kernel,
          its plain version, its entry point, v0 and one `index_add_` of the
          same sums and counts (CUDA events) and prints rows/s, the
-         tensor-core TFLOP/s, the input GB/s and the bound.
+         tensor-core TFLOP/s, the input GB/s, the bound (bytes) and the
+         design floor (the dense one-hot product's operations over the
+         published int8 or bf16 peak, at the N the kernel issues and at the
+         lanes the function needs), each with the kernel's share of it.
 Phase 7  builds the TPC-H tables at scale factor 1 (6,001,215 lineitem
          rows; tpch/data.py) on the card and runs the twelve subquery-free
          queries through Session(device="cuda").sql. Each query's rows must
@@ -182,7 +185,7 @@ def phase0():
     built = load_library()
     print(f"phase 0: built {built.path.name} in {built.seconds:.2f} s")
     for line in built.log.splitlines():
-        if "registers" in line or "smem" in line:
+        if "registers" in line or "smem" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}")
     return card
 
@@ -725,6 +728,30 @@ def phase5(tables):
 
 
 N_PROBE = 1 << 24
+# Published dense tensor-core peaks of the H100 SXM (NVIDIA data sheet), in
+# operations a second: the one-hot kernels' int8 and bf16 products.
+TC_PEAK = {"s8": 1979e12, "bf16": 989e12}
+# The product's N as the kernel issues it (padded to whole n8 tiles) and the
+# lanes of it the function needs (s8: 16 nibbles and the count; v1: 8 bytes,
+# the count and 3 flags; v2: 8 bytes and the count; v4, v5: 9 lanes x 8).
+PRODUCT_N = {"s8": (24, 17), "v1": (16, 12), "v2": (16, 9), "v4": (72, 72),
+             "v5": (72, 72)}
+
+
+def design_floor_ms(variant, n):
+    """(padded, needed): the least time a one-hot design could take for n
+    rows, at the published peak of its type (s8: int8; v1, v2, v4, v5:
+    bf16), for the dense product as the kernel issues it
+    (probe_agg_variants.FLOPS_PER_ROW) and for its lanes that the function
+    needs."""
+    from query_engine_tpu_torch.probes.probe_agg_variants import FLOPS_PER_ROW
+
+    peak = TC_PEAK["s8" if variant == "s8" else "bf16"]
+    padded = FLOPS_PER_ROW[variant] * n / peak * 1e3
+    n_issued, n_needed = PRODUCT_N[variant]
+    return padded, padded * n_needed / n_issued
+
+
 ONEHOT_KERNELS = {  # variant -> (name, source, the TPU kernel it replaces)
     "v1": ("onehot_bytes_v1", "query_engine_tpu_torch/csrc/agg_onehot_bytes.cu",
            "benchmarks/probe_agg_variants.py:39"),
@@ -839,6 +866,7 @@ def phase6():
                                                           G), iters=5)
             e_ms = cuda_ms(lambda: f(values, ok, gid))
             r = PV.kernel_rates(v, n, k_ms)
+            floor_ms, needed_ms = design_floor_ms(v, n)
             times[v] = {"ms": k_ms, "plain_ms": p_ms, "entry_ms": e_ms,
                         "v0_ms": v0_ms, "v0_accumulate_ms": v0_acc_ms,
                         "library_ms": lib_ms, "bound_ms": bound_ms(nbytes)}
@@ -847,9 +875,13 @@ def phase6():
                   f" {r['gb_per_sec']:.1f} GB/s of input), plain {p_ms:.4f} "
                   f"ms, entry point {e_ms:.4f} ms, v0 {v0_ms:.4f} ms, "
                   f"bound {bound_ms(nbytes):.4f} ms "
-                  f"({100 * bound_ms(nbytes) / k_ms:.1f} % of it) (device "
-                  "time from CUDA graph replays; the entry point's from "
-                  "back-to-back calls, CUDA events)")
+                  f"({100 * bound_ms(nbytes) / k_ms:.1f} % of it), design "
+                  f"floor (N = {PRODUCT_N[v][0]}, padded) {floor_ms:.4f} ms "
+                  f"({100 * floor_ms / k_ms:.1f} % of it), its "
+                  f"{PRODUCT_N[v][1]} needed lanes {needed_ms:.4f} ms "
+                  f"({100 * needed_ms / k_ms:.1f} %) (device time from CUDA "
+                  "graph replays; the entry point's from back-to-back calls, "
+                  "CUDA events)")
     return main_launches, max_err, times
 
 

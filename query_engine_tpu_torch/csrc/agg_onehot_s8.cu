@@ -4,151 +4,105 @@
 // Replaces the TPU kernel `_kernel_s8`, launched by `grouped_sum_count_s8`,
 // in benchmarks/probe_int8_mxu.py. There the MXU multiplied an s8 one-hot
 // [rows x 1024 groups] by the rows' 16 nibbles and a count lane with s32
-// accumulation; here mma.sync.m16n8k32 (s8 x s8 -> s32) does the same.
+// accumulation; here wgmma.m64n24k32 (s8 x s8 -> s32) does the same.
 //
 // Contract (wrapper: query_engine_tpu_torch/ops/agg_variants.py):
 //   gid [n] int32; row r belongs to group gid[r] when 0 <= gid < G <= 1024
 //   vlo, vhi [n] uint32: the low and high words of the row's 64-bit value
 //   tot [G, 17] int64, zero-filled by the caller: nibbles 0..15, count
 //
-// Layout: D[group, lane] = A[group, row] x B[row, lane]. A block of 16 warps
-// covers 1024 groups, 64 per warp (4 m16 tiles); the 17 lanes are three n8
-// tiles (nibbles of vlo; nibbles of vhi; the count). Each thread builds its
-// fragments in registers from the 8 rows of each 32-row step that the
-// fragment layout gives it (onehot_mma.cuh). Warps whose groups all lie at
-// or past G skip the work.
+// Layout (onehot_wgmma.cuh): D[group, lane] = A[group, row] x B[row, lane],
+// a k-step of 32 rows. A is the s8 one-hot (byte (gid, k) = 1); B's lane n
+// < 16 holds the rows' nibble n (of vlo for n < 8, of vhi above), lane 16 is
+// the count (1), lanes 17-23 are 0. Four warpgroups of four m64 tiles cover
+// 1024 groups; tiles wholly at or past G issue no wgmma.
 //
 // Exactness: a nibble (0..15) and 1 are exact in s8, and an s32 accumulator
 // stays exact while 15 * rows < 2^31. Each block moves its accumulators into
 // the int64 total at least every 2^24 rows (15 * 2^24 < 2^31), so the sums
 // are exact at any n, not only up to the JAX design's 2^27 rows.
 //
-// What bounds it on an H100: the tensor-core work (2 * 1024 * 24 int8 ops a
-// row, at twice the bf16 rate) and the integer work of building the one-hot
-// fragments (per thread and 32-row step: 8 slot bits, then a shift and a
-// mask per A register); bytes are 12 B a row.
+// What bounds it on an H100: not bytes (12 B a row) but the dense one-hot
+// product, 2 * 1024 * 24 int8 ops a row (0.417 ms for 2^24 rows at the
+// published 1,979 TOP/s), and below that rate the issue of 16 narrow
+// wgmma a 32-row k-step an SM, each reading a 2 KB A tile from shared
+// memory (scripts/wgmma_small_n.py times that pattern alone). The mma.sync
+// design before it (16 warps loading the same rows and building the same B
+// fragments, the one-hot fragments rebuilt in registers for every m16 tile)
+// was held by the integer pipe. Here four producer warps read each row once
+// a block, B is built once a block, and the one-hot costs two 1-byte shared
+// stores a row (set, later clear); the wgmma warpgroups do nothing else.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "onehot_mma.cuh"
+#include "onehot_wgmma.cuh"
 
 namespace {
 
-constexpr int kGroups = 1024;
-constexpr int kLanes = 17;
-constexpr int kWarps = 16;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kTiles = kGroups / kWarps / 16;  // m16 tiles per warp
-constexpr int kStep = 32;                      // rows per mma (k32)
-constexpr int64_t kFlushRows = int64_t(1) << 24;
+struct S8 {
+  static constexpr int kRows = 32;  // k32: one byte a row
+  static constexpr int kElem = 1;
+  static constexpr int kN = 24;     // 16 nibbles, the count, 7 zero lanes
+  static constexpr int kLanes = 17;
+  static constexpr int kPlanes = 3;  // gid, vlo, vhi
+  static constexpr int64_t kFlushRows = int64_t(1) << 24;
+  static constexpr uint32_t one_bits = 1u;
+  using Acc = int;
+  static constexpr int kAcc = 12;  // m64n24: 3 n8 blocks x 4
 
-__global__ void __launch_bounds__(kThreads) onehot_s8(
-    const int32_t* __restrict__ gid, const uint32_t* __restrict__ vlo,
-    const uint32_t* __restrict__ vhi, int64_t n, int G,
-    int64_t rows_per_block, int64_t* __restrict__ tot) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int grp = lane >> 2, tig = lane & 3;
-  const int g_base = warp * (kTiles * 16);
-  if (g_base >= G) return;  // the whole warp: no mma is left half-issued
-  const int64_t begin = (int64_t)blockIdx.x * rows_per_block;
-  const int64_t stop = begin + rows_per_block;
-  const int64_t end = stop < n ? stop : n;
-
-  int acc[kTiles][3][4];
-  auto zero = [&]() {
-#pragma unroll
-    for (int t = 0; t < kTiles; ++t)
-#pragma unroll
-      for (int j = 0; j < 3; ++j)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[t][j][q] = 0;
-  };
-  auto flush = [&]() {
-#pragma unroll
-    for (int t = 0; t < kTiles; ++t)
-#pragma unroll
-      for (int j = 0; j < 3; ++j)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int g = g_base + 16 * t + grp + 8 * (q >> 1);
-          const int l = 8 * j + 2 * tig + (q & 1);
-          if (g < G && l < kLanes)
-            qe::flush_add(tot, (int64_t)g * kLanes + l,
-                          (unsigned long long)(uint32_t)acc[t][j][q]);
-        }
-  };
-  zero();
-  int64_t since_flush = 0;
-  for (int64_t r0 = begin; r0 < end; r0 += kStep) {
-    // this thread's rows: 4tig + {0..3} (i = 0..3), 4tig + 16 + {0..3}
-    qe::Row w[8];
-    qe::load_quad(gid, vlo, vhi, r0 + 4 * tig, end, w);
-    qe::load_quad(gid, vlo, vhi, r0 + 4 * tig + 16, end, w + 4);
-    // B: n-tile 0 lane grp = nibble grp of vlo, n-tile 1 = nibble grp of
-    // vhi, n-tile 2 lane 16 (grp 0) = the count; byte i of a register is
-    // row i
-    uint32_t b[3][2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      uint32_t lo = 0, hi = 0;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const qe::Row& x = w[4 * h + i];
-        lo |= ((x.lo >> (4 * grp)) & 0xFu) << (8 * i);
-        hi |= ((x.hi >> (4 * grp)) & 0xFu) << (8 * i);
-      }
-      b[0][h] = lo;
-      b[1][h] = hi;
-      b[2][h] = grp == 0 ? 0x01010101u : 0u;
-    }
-    // A: row i is 1 in A row g_base + grp + 8s (s = 2t + half) when its gid
-    // is that group: slot bit s of row i, gathered into byte i of k0 (rows
-    // 0..3) and k1 (rows 4..7), so one shift and mask per register gives
-    // its four 0/1 bytes. Rows with gid < 0 or past this warp's groups set
-    // no bit; those in [G, 1024) land in groups that the flush drops.
-    uint32_t k0 = 0, k1 = 0;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      k0 |= qe::slot_bit(w[i].gid - g_base - grp, 2 * kTiles) << (8 * i);
-      k1 |= qe::slot_bit(w[4 + i].gid - g_base - grp, 2 * kTiles) << (8 * i);
-    }
-#pragma unroll
-    for (int t = 0; t < kTiles; ++t) {
-      uint32_t a[4];
-      a[0] = (k0 >> (2 * t)) & 0x01010101u;
-      a[1] = (k0 >> (2 * t + 1)) & 0x01010101u;
-      a[2] = (k1 >> (2 * t)) & 0x01010101u;
-      a[3] = (k1 >> (2 * t + 1)) & 0x01010101u;
-#pragma unroll
-      for (int j = 0; j < 3; ++j) qe::mma_s8_16832(acc[t][j], a, b[j]);
-    }
-    since_flush += kStep;
-    if (since_flush == kFlushRows) {
-      flush();
-      zero();
-      since_flush = 0;
-    }
+  static __device__ __forceinline__ void store(uint32_t addr, uint32_t v) {
+    qe::st_shared_u8(addr, v);
   }
-  flush();
-}
+  // lane 16 = 1 for all 32 rows
+  static __device__ __forceinline__ void constant_lanes(int k, uint8_t* b) {
+    if (k < kRows) b[qe::kmajor_offset(16, k)] = 1;
+  }
+  // From the warp's rows (lane k: row k): lane 4q + i writes nibble lanes
+  // 2i, 2i + 1 (of vlo) and 8 + 2i, 9 + 2i (of vhi) of rows 4q .. 4q + 3,
+  // byte i of those rows' words gathered by shuffles and byte permutes.
+  static __device__ __forceinline__ void build_b(int lane, const qe::LaneRow& w,
+                                                 uint8_t* b) {
+    const int q = lane >> 2, i = lane & 3;
+    const uint32_t sel = (uint32_t)(i | ((i + 4) << 4));  // byte i of x, y
+    uint32_t lo[4], hi[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      lo[j] = __shfl_sync(0xFFFFFFFFu, w.lo, 4 * q + j);
+      hi[j] = __shfl_sync(0xFFFFFFFFu, w.hi, 4 * q + j);
+    }
+    const uint32_t blo = __byte_perm(__byte_perm(lo[0], lo[1], sel),
+                                     __byte_perm(lo[2], lo[3], sel), 0x5410);
+    const uint32_t bhi = __byte_perm(__byte_perm(hi[0], hi[1], sel),
+                                     __byte_perm(hi[2], hi[3], sel), 0x5410);
+    auto put = [&](int n, uint32_t v) {
+      *reinterpret_cast<uint32_t*>(b + qe::kmajor_offset(n, 4 * q)) = v;
+    };
+    put(2 * i, blo & 0x0F0F0F0Fu);
+    put(2 * i + 1, (blo >> 4) & 0x0F0F0F0Fu);
+    put(8 + 2 * i, bhi & 0x0F0F0F0Fu);
+    put(9 + 2 * i, (bhi >> 4) & 0x0F0F0F0Fu);
+  }
+  static __device__ __forceinline__ void mma(int (&d)[kAcc], uint64_t da,
+                                             uint64_t db) {
+    qe::wgmma_s8_m64n24k32(d, da, db);
+  }
+  static __device__ __forceinline__ unsigned long long to_u64(int v) {
+    return (unsigned long long)(uint32_t)v;
+  }
+};
 
 }  // namespace
 
 // Returns a cudaError_t: 0 when the launch succeeded. Launches on `stream`
-// and does not synchronise.
+// and does not synchronise; the occupancy query is cached (launch_config.cuh).
 extern "C" int qe_onehot_s8(const int32_t* gid, const uint32_t* vlo,
                             const uint32_t* vhi, int64_t n, int G,
                             int64_t* tot, cudaStream_t stream) {
-  static qe::LaunchCache<decltype(&onehot_s8)> cache;
+  static qe::LaunchCache<decltype(&qe::onehot_wgmma<S8>)> cache;
   if (n <= 0 || G <= 0) return (int)cudaSuccess;
-  if (G > kGroups) return (int)cudaErrorInvalidValue;
-  qe::RowGrid grid;
-  cudaError_t err = qe::plan_rows(cache, &onehot_s8, kThreads, n, kStep,
-                                  &grid);
-  if (err != cudaSuccess) return (int)err;
-  onehot_s8<<<grid.blocks, kThreads, 0, stream>>>(gid, vlo, vhi, n, G,
-                                                  grid.rows_per_block, tot);
-  return (int)cudaGetLastError();
+  if (G > qe::kWgGroups) return (int)cudaErrorInvalidValue;
+  const qe::Planes in{{reinterpret_cast<const uint32_t*>(gid), vlo, vhi,
+                       nullptr}};
+  return (int)qe::launch_onehot_wgmma<S8>(cache, in, n, G, tot, stream);
 }

@@ -4,23 +4,20 @@
 // Each of them computes per-group chunk totals tot[g, l] = sum over the rows
 // r with gid[r] == g of chunk l of row r, as the product of a one-hot group
 // matrix A [groups x rows] and a chunk matrix B [rows x lanes] on the tensor
-// cores (mma.sync), and adds each block's totals into the int64 output with
-// 64-bit atomics. Integer addition does not depend on order, so the output
-// has the same bits on every run.
+// cores (mma.sync in agg_onehot_factorized.cu, wgmma through
+// onehot_wgmma.cuh in the other two), and adds each block's totals into the
+// int64 output with 64-bit atomics. Integer addition does not depend on
+// order, so the output has the same bits on every run.
 //
-// Fragment layouts (PTX ISA, "Matrix fragments for mma.m16n8k16" and
-// "mma.m16n8k32"): with lane = 4 * grp + tig (grp = lane / 4, tig = lane % 4)
-//   m16n8k16 bf16  A regs {0,1,2,3} = rows {grp, grp+8, grp, grp+8} x
-//                  k pairs {2tig, 2tig, 2tig+8, 2tig+8} (+0 low half, +1 high)
-//                  B regs {0,1}     = k pairs {2tig, 2tig+8} (+0, +1), col grp
-//   m16n8k32 s8    A regs {0,1,2,3} = rows {grp, grp+8, grp, grp+8} x
-//                  k quads {4tig, 4tig, 4tig+16, 4tig+16} (+0..3, byte order)
-//                  B regs {0,1}     = k quads {4tig, 4tig+16}, col grp
-//   accumulators   {0,1,2,3} = (row grp, col 2tig), (grp, 2tig+1),
-//                  (grp+8, 2tig), (grp+8, 2tig+1)
+// Fragment layout of mma.m16n8k16 bf16 (PTX ISA, "Matrix fragments for
+// mma.m16n8k16"): with lane = 4 * grp + tig (grp = lane / 4, tig = lane % 4)
+//   A regs {0,1,2,3} = rows {grp, grp+8, grp, grp+8} x k pairs {2tig, 2tig,
+//                      2tig+8, 2tig+8} (+0 low half, +1 high)
+//   B regs {0,1}     = k pairs {2tig, 2tig+8} (+0, +1), col grp
+//   accumulators {0,1,2,3} = (row grp, col 2tig), (grp, 2tig+1),
+//                      (grp+8, 2tig), (grp+8, 2tig+1)
 // So in a k16 step each thread needs rows 2tig, 2tig+1, 2tig+8, 2tig+9 of the
-// step, and in a k32 step rows 4tig..4tig+3 and 4tig+16..4tig+19: the same
-// rows feed its A and its B fragments.
+// step: the same rows feed its A and its B fragments.
 
 #pragma once
 
@@ -52,14 +49,6 @@ __device__ __forceinline__ uint32_t onehot_pair(bool lo, bool hi) {
   return (lo ? kBf16One : 0u) | (hi ? kBf16One << 16 : 0u);
 }
 
-// The one-hot of a row for a thread whose A rows are groups base + grp +
-// 8 * s (s = 0 .. slots - 1): bit s set when the row's group is that one.
-// d = gid - base - grp.
-__device__ __forceinline__ uint32_t slot_bit(int d, int slots) {
-  return (unsigned)d < (unsigned)(8 * slots) && (d & 7) == 0
-             ? 1u << (d >> 3) : 0u;
-}
-
 __device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
                                                const uint32_t (&a)[4],
                                                const uint32_t (&b)[2]) {
@@ -67,16 +56,6 @@ __device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ void mma_s8_16832(int (&d)[4],
-                                             const uint32_t (&a)[4],
-                                             const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
@@ -113,26 +92,6 @@ __device__ __forceinline__ void load_pair(const int32_t* __restrict__ gid,
   }
 }
 
-// Rows r .. r + 3 (r a multiple of 4), as 16-byte loads when all four lie
-// before `end`.
-__device__ __forceinline__ void load_quad(const int32_t* __restrict__ gid,
-                                          const uint32_t* __restrict__ vlo,
-                                          const uint32_t* __restrict__ vhi,
-                                          int64_t r, int64_t end, Row* out) {
-  if (r + 3 < end) {
-    const int4 g = __ldg(reinterpret_cast<const int4*>(gid + r));
-    const uint4 l = __ldg(reinterpret_cast<const uint4*>(vlo + r));
-    const uint4 h = __ldg(reinterpret_cast<const uint4*>(vhi + r));
-    out[0] = Row{g.x, l.x, h.x};
-    out[1] = Row{g.y, l.y, h.y};
-    out[2] = Row{g.z, l.z, h.z};
-    out[3] = Row{g.w, l.w, h.w};
-  } else {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) out[i] = load_row(gid, vlo, vhi, r + i, end);
-  }
-}
-
 // Adds a block's accumulator into the int64 total (sums wrap mod 2^64).
 __device__ __forceinline__ void flush_add(int64_t* tot, int64_t i,
                                           unsigned long long v) {
@@ -140,7 +99,8 @@ __device__ __forceinline__ void flush_add(int64_t* tot, int64_t i,
 }
 
 // The grid of a row-range kernel: at most the blocks the card holds at
-// once, each walking a contiguous range of whole `step`-row steps.
+// once (with `smem` bytes of dynamic shared memory each), each walking a
+// contiguous range of whole `step`-row steps.
 struct RowGrid {
   int blocks;
   int64_t rows_per_block;
@@ -148,13 +108,14 @@ struct RowGrid {
 
 template <typename Kernel>
 cudaError_t plan_rows(LaunchCache<Kernel>& cache, Kernel kernel, int threads,
-                      int64_t n, int64_t step, RowGrid* out) {
+                      int64_t n, int64_t step, RowGrid* out,
+                      size_t smem = 0) {
   int dev = 0;
   DeviceLimits lim;
   cudaError_t err = device_limits(&dev, &lim);
   if (err != cudaSuccess) return err;
   int per_sm = 0;
-  err = cache.blocks_per_sm(kernel, dev, lim, threads, 0, &per_sm);
+  err = cache.blocks_per_sm(kernel, dev, lim, threads, smem, &per_sm);
   if (err != cudaSuccess) return err;
   const int64_t steps = (n + step - 1) / step;
   const int64_t full = (int64_t)per_sm * lim.sms;

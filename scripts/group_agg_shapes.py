@@ -1,7 +1,8 @@
-"""group_agg at the main path's shapes, on the card, for one checkout.
+"""The hand kernels' shapes, on the card, for one checkout.
 
-Times the grouped SUM/COUNT entry point (`grouped_sums_counts_multi`) and
-the segment route (`segment_aggregate`) as the engine calls them:
+`--kernels group_agg` (the default) times the grouped SUM/COUNT entry point
+(`grouped_sums_counts_multi`) and the segment route (`segment_aggregate`)
+as the engine calls them:
 
   A             Query A's aggregate: 2^23 rows, 2048 slots (1025 used),
                 one int64 SUM and COUNT(*)
@@ -12,18 +13,23 @@ the segment route (`segment_aggregate`) as the engine calls them:
                 runs of 1-7 rows (Q3's lineitem rows by l_orderkey) and
                 uniform over 175 live groups (Q9's nation x year)
 
-and prints one JSON line: per case the device time in ms (a CUDA graph of
+`--kernels onehot` times the aggregate probes' chunk-totals kernels
+(`ops.agg_variants.chunk_totals_kernel`: s8, v1, v2, v4, v5) on the probe's
+data (`probes.probe_agg_variants.probe_data`: 2^24 rows, 1024 groups, seed
+3).
+
+It prints one JSON line: per case the device time in ms (a CUDA graph of
 10 calls replayed between CUDA events, so the host's launch overhead is
 not in it) and a digest of the result's bits, with the card's name and
 power limit. The data comes from a fixed seed, so two checkouts' digests
 are equal exactly when their results are bit for bit equal.
 
     python scripts/group_agg_shapes.py
-    python scripts/group_agg_shapes.py --root DIR
+    python scripts/group_agg_shapes.py --kernels onehot --root DIR
 
 `--root` imports `query_engine_tpu_torch` from another checkout, e.g. an
-earlier commit unpacked with `git archive`; one whose group_agg takes no
-count-only items is driven as its engine drove it (COUNT(*) as a plane of
+earlier commit unpacked with `git archive`, which builds its kernels into
+its own `_build/`; one whose group_agg takes no count-only items is driven as its engine drove it (COUNT(*) as a plane of
 ones, int32 ids). The timing is `chip_smoke.graph_ms` of the checkout that
 holds this script. Compare two checkouts on one card, in turns: parent,
 change, change, parent. Exits non-zero without CUDA.
@@ -50,30 +56,15 @@ def digest(result):
     return h.hexdigest()[:16]
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--root", default=None,
-                    help="checkout whose query_engine_tpu_torch to import "
-                         "(default: the one that holds this file)")
-    args = ap.parse_args(argv)
-    here = os.path.abspath(os.path.join(os.path.dirname(
-        os.path.abspath(__file__)), ".."))  # the checkout that holds this file
-    sys.path.insert(0, here)
-    from chip_smoke import graph_ms
-
-    sys.path.insert(0, os.path.abspath(args.root or here))
+def group_agg_cases(dev):
+    """(module, {case: fn}) of group_agg at the main path's shapes."""
     import numpy as np
     import torch
 
-    if not torch.cuda.is_available():
-        print("group_agg_shapes: torch.cuda.is_available() is False",
-              file=sys.stderr)
-        return 1
     from query_engine_tpu_torch.ops import group_agg as ga
     from query_engine_tpu_torch.ops import kernels as K
 
     counts_only = hasattr(ga, "fixed_point")  # takes (None, ok) items
-    dev = torch.device("cuda")
     n = 1 << 23
     rng = np.random.default_rng(5)
 
@@ -102,7 +93,7 @@ def main(argv=None) -> int:
         np.repeat(np.arange(n), rng.integers(1, 8, n))[:n]).to(dev)
     live175 = torch.from_numpy(rng.integers(0, 175, n)).to(dev)
     x, x_ok = torch.from_numpy(rng.random(n) * 1e5).to(dev), ok_plane(0.5)
-    cases = {
+    return ga, {
         "A": lambda: as_engine(items_a, star_a, gid_a, 2048),
         "Q1": lambda: as_engine(items_q1, star_q1, gid_q1, 128),
         "seg_runs_sum": lambda: K.segment_aggregate("sum", x, x_ok, runs, n,
@@ -114,10 +105,48 @@ def main(argv=None) -> int:
         "seg_175_count_star": lambda: K.segment_aggregate(
             "count_star", x, x_ok, live175, n, n),
     }
+
+
+def onehot_cases(dev):
+    """(module, {variant: fn}) of the probes' chunk-totals kernels."""
+    from query_engine_tpu_torch.ops import agg_variants as AV
+    from query_engine_tpu_torch.probes.probe_agg_variants import probe_data
+
+    vlo, vhi, gid_m = AV.prepare(*probe_data(1 << 24, dev))
+    return AV, {v: (lambda v=v: [AV.chunk_totals_kernel(
+        v, vlo, vhi, gid_m, AV.NUM_GROUPS)])
+        for v in ("s8", "v1", "v2", "v4", "v5")}
+
+
+CASES = {"group_agg": group_agg_cases, "onehot": onehot_cases}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--kernels", choices=sorted(CASES), default="group_agg",
+                    help="which kernels' cases to time (default: group_agg)")
+    ap.add_argument("--root", default=None,
+                    help="checkout whose query_engine_tpu_torch to import "
+                         "(default: the one that holds this file)")
+    args = ap.parse_args(argv)
+    here = os.path.abspath(os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), ".."))  # the checkout that holds this file
+    sys.path.insert(0, here)
+    from chip_smoke import graph_ms
+
+    sys.path.insert(0, os.path.abspath(args.root or here))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("group_agg_shapes: torch.cuda.is_available() is False",
+              file=sys.stderr)
+        return 1
+    module, cases = CASES[args.kernels](torch.device("cuda"))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
-    out = {"root": args.root or ".", "group_agg": ga.__file__,
+    out = {"root": args.root or ".", "kernels": args.kernels,
+           "module": module.__file__,
            "card": smi.stdout.strip().splitlines()[0] if smi.stdout else ""}
     for name, fn in cases.items():
         result = fn()

@@ -14,6 +14,7 @@ The kernels themselves are held against the plain versions on the card
 
 import importlib.util
 import os
+import re
 import subprocess
 import sys
 
@@ -121,6 +122,59 @@ def test_recombine_wraps_mod_2_64():
                  + 2**63) % 2**64 - 2**63 for row in tot]
         assert s.tolist() == want and s[0] == -1
         assert c.tolist() == tot[:, k].tolist()
+
+
+def _kernel_constants(source):
+    """(rows a k-step, rows between flushes) of a one-hot kernel, read from
+    its CUDA source: `kRows = N;` and `kFlushRows = N;` (or `int64_t(1) <<
+    K;`)."""
+    text = open(os.path.join(ROOT, "query_engine_tpu_torch", "csrc",
+                             source)).read()
+    k_rows = int(re.search(r"\bkRows = (\d+);", text).group(1))
+    flush = re.search(r"\bkFlushRows = ([^;]+);", text).group(1).strip()
+    shift = re.fullmatch(r"int64_t\(1\) << (\d+)", flush)
+    return k_rows, (1 << int(shift.group(1))) if shift else int(flush)
+
+
+def _plain_totals(variant, rows, piece=1 << 19):
+    """chunk_totals_plain of `rows` worst-case rows (value -1: every chunk
+    at its maximum; all in group 0), in pieces to bound memory."""
+    tot = torch.zeros((1, AV.LANES[variant]), dtype=torch.int64)
+    for start in range(0, rows, piece):
+        m = min(piece, rows - start)
+        ones = torch.full((m,), -1, dtype=torch.int32)
+        tot += AV.chunk_totals_plain(variant, ones, ones,
+                                     torch.zeros(m, dtype=torch.int32))[:1]
+    return tot
+
+
+@pytest.mark.parametrize("variant,source,chunk_max,acc_dtype,limit", [
+    ("s8", "agg_onehot_s8.cu", 15, torch.int32, 2**31),  # nibbles in s32
+    ("v1", "agg_onehot_bytes.cu", 255, torch.float32, 2**24),  # bytes in f32
+])
+def test_flush_interval_keeps_accumulators_exact(variant, source, chunk_max,
+                                                 acc_dtype, limit):
+    """A kernel's accumulator (s32, or f32 exact below 2^24) holds at most
+    kFlushRows rows of chunks before it is added into the int64 total.
+    At worst-case values, one flush window's totals fit the accumulator
+    exactly, and windows split at the flush boundaries add up to the
+    whole."""
+    k_rows, flush = _kernel_constants(source)
+    assert flush % k_rows == 0  # a flush falls at the end of a k-step
+    assert chunk_max * flush < limit and flush < limit
+    n = flush + 2 * k_rows + 3  # one full window and a ragged one
+    windows = [_plain_totals(variant, flush),
+               _plain_totals(variant, n - flush)]
+    for w in windows:
+        assert int(w.max()) <= chunk_max * flush
+        assert torch.equal(w.to(acc_dtype).to(torch.int64), w)
+    whole = _plain_totals(variant, n, piece=(1 << 19) - 7)
+    assert torch.equal(windows[0] + windows[1], whole)
+    chunks = 64 // AV.CHUNK_BITS[variant]
+    assert (whole[0, :chunks] == chunk_max * n).all()
+    assert whole[0, chunks] == n
+    s, c = AV.recombine(variant, whole)
+    assert s.tolist() == [-n] and c.tolist() == [n]  # n rows of -1, mod 2^64
 
 
 def test_checks_variant_groups_and_device():

@@ -322,38 +322,71 @@ def test_string_nodes_run_eagerly_on_card(cuda_device):
     assert gpu.executor.pipeline.stats["compiles"] >= 1
 
 
-def _agg_inputs(n, case, device):
-    """"dense": all 1024 groups and every chunk lane (values over the full
-    int64 range); "sparse": a few groups, most gid -1, values near +-2^63."""
-    rng = np.random.default_rng(n + len(case))
+def _agg_inputs(n, case, num_groups, device):
+    """"dense": every group below num_groups and every chunk lane (values
+    over the full int64 range), 2 % of gid -1 and 1 % at or past
+    num_groups; "sparse": a few groups, most gid -1, values near +-2^63;
+    "none": every row excluded (gid -1)."""
+    rng = np.random.default_rng(n + len(case) + num_groups)
     values = rng.integers(-(2**63), 2**63 - 1, n, dtype=np.int64,
                           endpoint=True)
     ok = rng.random(n) < 0.97
     if case == "dense":
-        gid = rng.integers(0, 1024, n).astype(np.int32)
+        gid = rng.integers(0, num_groups, n).astype(np.int32)
         gid[rng.random(n) < 0.02] = -1
-        gid[rng.random(n) < 0.01] = 1024 + rng.integers(0, 500)
-    else:
+        gid[rng.random(n) < 0.01] = num_groups + rng.integers(0, 500)
+    elif case == "sparse":
         gid = np.full(n, -1, np.int32)
         few = rng.random(n) < 0.01
         gid[few] = rng.choice([0, 1, 127, 128, 511, 1000, 1023], few.sum())
         values = np.where(rng.random(n) < 0.5, 2**63 - 1 - values % 1000,
                           -(2**63) + values % 1000)
+    else:
+        gid = np.full(n, -1, np.int32)
     values[:2] = [-(2**63), 2**63 - 1]
     return tuple(torch.from_numpy(a).to(device) for a in (values, ok, gid))
 
 
-@pytest.mark.parametrize("case", ["dense", "sparse"])
-@pytest.mark.parametrize("variant,num_groups", [
-    ("v1", 1024), ("v2", 1024), ("v4", 1024), ("v5", 1024), ("s8", 1024),
-    ("s8", 1000)])
+N_RAGGED = (1 << 20) + 5
+ONEHOT_CASES = [  # (variant, num_groups, n, data, offset in rows)
+    *[(v, g, N_RAGGED, data, 0)
+      for v, g in [("v1", 1024), ("v2", 1024), ("v4", 1024), ("v5", 1024),
+                   ("s8", 1024), ("s8", 1000)]
+      for data in ("dense", "sparse")],
+    # fewer rows than one k-step (s8: 32 rows, v1/v2: 16)
+    ("s8", 1024, 31, "dense", 0), ("v1", 1024, 7, "dense", 0),
+    ("v2", 1024, 15, "dense", 0),
+    # not a multiple of the stage ring (6 k-steps) or of 4
+    ("s8", 1024, 32 * 6 * 7 + 3, "dense", 0),
+    ("v1", 1024, 16 * 6 * 7 + 5, "dense", 0), ("v2", 1024, 4099, "dense", 0),
+    # a block's rows span the bytes kernel's 65,536-row flush
+    ("v1", 1024, 70_000 * 133, "dense", 0),
+    ("v2", 1024, 70_000 * 133, "dense", 0),
+    # every row excluded
+    ("s8", 1024, 5000, "none", 0), ("v1", 1024, 5000, "none", 0),
+    ("v2", 1024, 3, "none", 0),
+    # s8: one partial m64 tile, one full, one full and one partial (the
+    # other tiles issue no wgmma)
+    ("s8", 1, 777, "dense", 0), ("s8", 64, 5000, "dense", 0),
+    ("s8", 65, 4099, "dense", 0),
+    # planes that start 4 rows (16 bytes) into their storage
+    *[(v, 1024, 10_001, "dense", 4) for v in ("v1", "v2", "v4", "v5", "s8")],
+]
+
+
+@pytest.mark.parametrize(
+    "variant,num_groups,n,data,offset", ONEHOT_CASES,
+    ids=[f"{v}-G{g}-n{n}-{d}" + (f"-at{o}" if o else "")
+         for v, g, n, d, o in ONEHOT_CASES])
 def test_onehot_kernel_chunk_totals_match_plain(cuda_device, variant,
-                                                num_groups, case):
+                                                num_groups, n, data, offset):
     """Each one-hot tensor-core kernel's chunk totals equal its plain
-    version's bit for bit at 2^20 + 5 rows (a ragged tail), and two launches
-    give identical bits."""
-    values, ok, gid = _agg_inputs((1 << 20) + 5, case, cuda_device)
-    vlo, vhi, gid_m = AV.prepare(values, ok, gid)
+    version's bit for bit, and two launches give identical bits: at 2^20 + 5
+    rows (a ragged tail) and at the edges of the kernels' tiling (see
+    ONEHOT_CASES)."""
+    values, ok, gid = _agg_inputs(n + offset, data, num_groups, cuda_device)
+    vlo, vhi, gid_m = (t[offset:] for t in AV.prepare(values, ok, gid))
+    values, ok, gid = values[offset:], ok[offset:], gid[offset:]
     before = AV.launches[variant]
     got = AV.chunk_totals(variant, vlo, vhi, gid_m, num_groups)
     again = AV.chunk_totals(variant, vlo, vhi, gid_m, num_groups)
@@ -366,6 +399,8 @@ def test_onehot_kernel_chunk_totals_match_plain(cuda_device, variant,
     sums, counts = AV.recombine(variant, got)
     v0_s, v0_c = group_agg.grouped_sum_count(values, ok, gid, num_groups)
     assert torch.equal(sums, v0_s) and torch.equal(counts, v0_c)
+    if data == "none":
+        assert not got.any()
 
 
 @pytest.fixture(scope="module")
