@@ -44,8 +44,8 @@ Phase 5  runs Query B (the dimension gains a float64 column `rate`, so the
 
 Phase 6  drives the aggregate probes' entry points (`probes.probe_agg_variants
          .run_variant` v1, v2, v4, v5 and `probes.probe_int8_mxu
-         .grouped_sum_count_s8`), which run the four one-hot tensor-core
-         kernels, at 2^24 rows and 1024 groups on three data sets: the
+         .grouped_sum_count_s8`), which run the five one-hot tensor-core
+         kernels (all on wgmma), at 2^24 rows and 1024 groups on three data sets: the
          probe's (seed 3), all groups and lanes over the whole int64 range,
          and a sparse wrap-around case (1 % of rows in 7 groups, values near
          +-2^63). Sums and counts must equal the numpy oracle and

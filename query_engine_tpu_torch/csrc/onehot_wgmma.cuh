@@ -2,7 +2,9 @@
 // wgmma: the shared-memory operand layout and its descriptors, the wgmma,
 // proxy-fence and mbarrier wrappers, and the loop that the full one-hot
 // kernels share (agg_onehot_s8.cu, agg_onehot_bytes.cu). The layout,
-// descriptor and wgmma pieces do not depend on that loop.
+// descriptor, wgmma and barrier pieces do not depend on that loop: the
+// factorized kernels (agg_onehot_factorized.cu) run their own loop on them,
+// with the m64n72k16 wrappers (A from shared memory or from registers).
 //
 // The product. D[group, lane] = A[group, row] x B[row, lane] with M = groups,
 // N = lanes, K = rows: A is the one-hot of the rows' groups, B the chunk
@@ -139,6 +141,50 @@ __device__ __forceinline__ void wgmma_bf16_m64n16k16(float (&d)[8],
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
       : "l"(da), "l"(db), "r"(1));
 }
+
+// The 36 accumulators of an m64n72 f32 tile as asm operands 0..35.
+#define QE_D36(d)                                                            \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),    \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),           \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),       \
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),       \
+      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),       \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),       \
+      "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35])
+#define QE_D36_LIST                                                          \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "  \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "   \
+  "%30, %31, %32, %33, %34, %35}"
+
+// D (64 x 72, f32) += A (64 x 16, bf16) x B (16 x 72, bf16), both from
+// shared, both K-major (no transpose), scales +1.
+__device__ __forceinline__ void wgmma_bf16_m64n72k16(float (&d)[36],
+                                                     uint64_t da,
+                                                     uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %38, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n72k16.f32.bf16.bf16 " QE_D36_LIST
+      ", %36, %37, p, 1, 1, 0, 0;\n}\n"
+      : QE_D36(d)
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// The same with A from registers: each warp's 16 rows of A as the m16k16
+// fragment (regs {0,1,2,3} = rows {grp, grp+8, grp, grp+8} x k pairs {2tig,
+// 2tig, 2tig+8, 2tig+8}, with lane = 4 grp + tig), B from shared, K-major.
+__device__ __forceinline__ void wgmma_bf16_m64n72k16_rs(float (&d)[36],
+                                                        const uint32_t (&a)[4],
+                                                        uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %41, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n72k16.f32.bf16.bf16 " QE_D36_LIST
+      ", {%36, %37, %38, %39}, %40, p, 1, 1, 0;\n}\n"
+      : QE_D36(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+#undef QE_D36
+#undef QE_D36_LIST
 
 // mbarriers in shared memory (addresses from smem_u32).
 __device__ __forceinline__ void mbar_init(uint32_t addr, int count) {

@@ -49,6 +49,7 @@ The eager executor is the semantics oracle (tests/test_torch_pipeline.py).
 from __future__ import annotations
 
 import collections
+import gc
 import os
 import time
 from dataclasses import dataclass
@@ -624,8 +625,18 @@ class CompiledPipeline:
         entry.graph = entry.outputs = None  # free the old graph's pool
         t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            outputs = self._body(entry, planes, n_bufs, dyn_bufs)
+        # A cyclic collection inside the capture may free another CUDA graph
+        # (one an unreachable cycle holds, e.g. a dropped Session's); CUDA
+        # refuses that while a stream captures, and the capture is lost. So
+        # the collector waits until the capture ends.
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph):
+                outputs = self._body(entry, planes, n_bufs, dyn_bufs)
+        finally:
+            if collecting:
+                gc.enable()
         if self._leaf_depth == 0:
             self.stats["capture_ms"] += (time.perf_counter() - t0) * 1e3
         entry.graph = graph

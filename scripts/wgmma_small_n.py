@@ -2,16 +2,20 @@
 
 The full one-hot kernels (csrc/agg_onehot_s8.cu, agg_onehot_bytes.cu) issue,
 per k-step and SM, 16 wgmma of a narrow N: m64n24k32 s8 (32 rows a k-step)
-or m64n16k16 bf16 (16 rows). This script times that issue pattern with
-nothing else in the kernel: one block of 4 warpgroups an SM, each
-warpgroup 4 wgmma a step on its own zeroed A tiles and one shared B tile,
-then commit and `wgmma.wait_group 1`, as the kernels do, through the
-descriptor, fence and wgmma wrappers of csrc/onehot_wgmma.cuh. It runs each
-shape with A read from shared memory (the kernels' form, "ss") and from
-registers ("rs"), and at N = 128 for the card's dense rate. It prints per
-case the ns a wgmma takes an SM, the TOP/s that gives, and the time a
-2^24-row, 1024-group product would take at that rate; the last line is one
-JSON object with the same numbers and the card's name and power limit.
+or m64n16k16 bf16 (16 rows), from 4 warpgroups of 4 wgmma each. The
+factorized kernels (csrc/agg_onehot_factorized.cu) issue 2 wgmma
+m64n72k16 bf16 a 16-row k-step, from 2 warpgroups that take the k-steps in
+turn. This script times each issue pattern with nothing else in the
+kernel: one block an SM of the kernel's warpgroups, each issuing its
+wgmma a step on its own zeroed A tiles and one shared B tile, then commit
+and `wgmma.wait_group 1`, as the kernels do, through the descriptor, fence
+and wgmma wrappers of csrc/onehot_wgmma.cuh. It runs each shape with A
+read from shared memory ("ss") and from registers ("rs"), and the full
+one-hot pattern at N = 128 for the card's dense rate. It prints per case
+the ns a wgmma takes an SM, the TOP/s that gives, and the time a 2^24-row,
+1024-group product would take at that rate with the case's wgmma a k-step;
+the last line is one JSON object with the same numbers and the card's name
+and power limit.
 
     python scripts/wgmma_small_n.py
 
@@ -27,35 +31,42 @@ import subprocess
 import sys
 from pathlib import Path
 
-# name -> (type, N, A from registers)
+# name -> (type, N, A from registers, warpgroups, wgmma a warpgroup a step,
+# wgmma a k-step of the kernel)
 CASES = {
-    "s8_ss_n24": ("s8", 24, False),
-    "s8_rs_n24": ("s8", 24, True),
-    "s8_ss_n128": ("s8", 128, False),
-    "bf16_ss_n16": ("bf16", 16, False),
-    "bf16_rs_n16": ("bf16", 16, True),
-    "bf16_ss_n128": ("bf16", 128, False),
+    "s8_ss_n24": ("s8", 24, False, 4, 4, 16),
+    "s8_rs_n24": ("s8", 24, True, 4, 4, 16),
+    "s8_ss_n128": ("s8", 128, False, 4, 4, 16),
+    "bf16_ss_n16": ("bf16", 16, False, 4, 4, 16),
+    "bf16_rs_n16": ("bf16", 16, True, 4, 4, 16),
+    "bf16_ss_n128": ("bf16", 128, False, 4, 4, 16),
+    "bf16_ss_n72": ("bf16", 72, False, 2, 2, 2),
+    "bf16_rs_n72": ("bf16", 72, True, 2, 2, 2),
 }
 # The kernels' own shapes call their wrappers in csrc/onehot_wgmma.cuh, so
 # this times exactly what the kernels issue; the other cases are inline asm.
-HEADER_MMA = {("s8", 24): "qe::wgmma_s8_m64n24k32",
-              ("bf16", 16): "qe::wgmma_bf16_m64n16k16"}
+HEADER_MMA = {("s8", 24, False): "qe::wgmma_s8_m64n24k32",
+              ("bf16", 16, False): "qe::wgmma_bf16_m64n16k16",
+              ("bf16", 72, False): "qe::wgmma_bf16_m64n72k16",
+              ("bf16", 72, True): "qe::wgmma_bf16_m64n72k16_rs"}
 ROWS = 1 << 24
 ITERS = 20000
 
-# One block of 4 warpgroups an SM; each warpgroup issues 4 wgmma a step on
-# its own A tiles (8 KB from offset 8 KB x warpgroup) and the B tile at
-# 32 KB, with the kernels' descriptor, fence, commit and wait pattern.
+# One block of kWgs warpgroups an SM; each warpgroup issues kPerWg wgmma a
+# step on its own A tiles (2 KB each, from offset 8 KB x warpgroup) and the
+# B tile at 32 KB, with the kernels' descriptor, fence, commit and wait
+# pattern.
 LOOP = """
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "onehot_wgmma.cuh"
 
-template <class Mma>
-__global__ void __launch_bounds__(512, 1) issue(float* out, int iters) {
+template <class Mma, int kWgs, int kPerWg>
+__global__ void __launch_bounds__(128 * kWgs, 1) issue(float* out,
+                                                       int iters) {
   extern __shared__ __align__(1024) uint8_t smem[];
-  for (int i = threadIdx.x; i < 65536 / 16; i += 512)
+  for (int i = threadIdx.x; i < 65536 / 16; i += 128 * kWgs)
     reinterpret_cast<uint4*>(smem)[i] = make_uint4(0u, 0u, 0u, 0u);
   qe::fence_proxy_async();
   __syncthreads();
@@ -68,7 +79,7 @@ __global__ void __launch_bounds__(512, 1) issue(float* out, int iters) {
   for (int it = 0; it < iters; ++it) {
     qe::wgmma_fence();
 #pragma unroll
-    for (int u = 0; u < 4; ++u)
+    for (int u = 0; u < kPerWg; ++u)
       Mma::run(d, qe::kmajor_desc(base + wg * 8192 + u * 2048), db);
     qe::wgmma_commit();
     qe::wgmma_wait<1>();
@@ -82,7 +93,7 @@ __global__ void __launch_bounds__(512, 1) issue(float* out, int iters) {
 """
 
 
-def mma_source(name, kind, n, rs):
+def mma_source(name, kind, n, rs, *_):
     """A struct whose run(d, da, db) issues one wgmma of the case."""
     regs = n // 2
     typ = "int" if kind == "s8" else "float"
@@ -90,8 +101,12 @@ def mma_source(name, kind, n, rs):
             f"  static constexpr int kRegs = {regs};\n"
             f"  static __device__ __forceinline__ void run(T (&d)[{regs}], "
             "uint64_t da, uint64_t db) {\n")
-    if (kind, n) in HEADER_MMA and not rs:
-        return head + f"    {HEADER_MMA[kind, n]}(d, da, db);\n  }}\n}};\n"
+    if (kind, n, rs) in HEADER_MMA:
+        if rs:  # a zero fragment, as the tiles are zero
+            return head + ("    (void)da;\n    const uint32_t a[4] = {0u, 0u, "
+                           f"0u, 0u}};\n    {HEADER_MMA[kind, n, rs]}(d, a, "
+                           "db);\n  }\n};\n")
+        return head + f"    {HEADER_MMA[kind, n, rs]}(d, da, db);\n  }}\n}};\n"
     cons = "r" if kind == "s8" else "f"
     shape = (f"m64n{n}k32.s32.s8.s8" if kind == "s8"
              else f"m64n{n}k16.f32.bf16.bf16")
@@ -122,11 +137,12 @@ def build(build_dir: Path) -> ctypes.CDLL:
     src = LOOP + "".join(mma_source(name, *c) for name, c in CASES.items())
     src += ('extern "C" int qe_wgmma_rate(int which, int blocks, float* out, '
             'int iters, cudaStream_t st) {\n  switch (which) {\n')
-    for i, name in enumerate(CASES):
-        src += (f"    case {i}: cudaFuncSetAttribute(issue<{name}>, "
+    for i, (name, (_, _, _, wgs, per_wg, _)) in enumerate(CASES.items()):
+        kern = f"issue<{name}, {wgs}, {per_wg}>"
+        src += (f"    case {i}: cudaFuncSetAttribute({kern}, "
                 "cudaFuncAttributeMaxDynamicSharedMemorySize, 65536);\n"
-                f"      issue<{name}><<<blocks, 512, 65536, st>>>(out, iters);"
-                " break;\n")
+                f"      {kern}<<<blocks, {128 * wgs}, 65536, st>>>(out, "
+                "iters); break;\n")
     src += "    default: return -1;\n  }\n  return (int)cudaGetLastError();\n}\n"
     build_dir.mkdir(parents=True, exist_ok=True)
     cu, so = build_dir / "wgmma_small_n.cu", build_dir / "wgmma_small_n.so"
@@ -163,7 +179,8 @@ def main() -> int:
                          text=True, timeout=60)
     report = {"card": smi.stdout.strip().splitlines()[0] if smi.stdout
               else "", "sms": sms, "cases": {}}
-    for i, (name, (kind, n, _)) in enumerate(CASES.items()):
+    for i, (name, (kind, n, _, wgs, per_wg, per_step)) in enumerate(
+            CASES.items()):
         if lib.qe_wgmma_rate(i, sms, out.data_ptr(), 100, st):
             raise RuntimeError(f"{name}: launch failed")
         torch.cuda.synchronize()
@@ -174,11 +191,13 @@ def main() -> int:
         e1.record()
         e1.synchronize()
         ms = e0.elapsed_time(e1)
-        ns = ms * 1e6 / (ITERS * 16)  # a wgmma, an SM
+        issued = ITERS * wgs * per_wg  # wgmma an SM
+        ns = ms * 1e6 / issued
         k = 32 if kind == "s8" else 16
-        tops = 2 * 64 * n * k * 16 * ITERS * sms / (ms / 1e3) / 1e12
-        rows_ms = ROWS / k * 16 / sms * ns / 1e6
+        tops = 2 * 64 * n * k * issued * sms / (ms / 1e3) / 1e12
+        rows_ms = ROWS / k * per_step / sms * ns / 1e6
         report["cases"][name] = {"ns_per_wgmma_per_sm": ns, "tops": tops,
+                                 "wgmma_per_k_step": per_step,
                                  "ms_for_2^24_rows": rows_ms}
         print(f"{name}: {ns:.3f} ns a wgmma an SM, {tops:.1f} TOP/s; "
               f"2^24 rows at G = 1024 would take {rows_ms:.4f} ms",

@@ -151,6 +151,7 @@ def _plain_totals(variant, rows, piece=1 << 19):
 @pytest.mark.parametrize("variant,source,chunk_max,acc_dtype,limit", [
     ("s8", "agg_onehot_s8.cu", 15, torch.int32, 2**31),  # nibbles in s32
     ("v1", "agg_onehot_bytes.cu", 255, torch.float32, 2**24),  # bytes in f32
+    ("v4", "agg_onehot_factorized.cu", 255, torch.float32, 2**24),
 ])
 def test_flush_interval_keeps_accumulators_exact(variant, source, chunk_max,
                                                  acc_dtype, limit):
@@ -175,6 +176,41 @@ def test_flush_interval_keeps_accumulators_exact(variant, source, chunk_max,
     assert whole[0, chunks] == n
     s, c = AV.recombine(variant, whole)
     assert s.tolist() == [-n] and c.tolist() == [n]  # n rows of -1, mod 2^64
+
+
+def _factorized_totals(vlo, vhi, gid_m):
+    """The v4/v5 kernels' product in plain torch, in float64: A, the one-hot
+    of glo = gid & 127 [128 x n], times B [n x 72], where an included row's
+    chunk lane k sits at column 8 k + ghi (ghi = gid >> 7) and an excluded
+    row is all zero. Column 8 k + ghi of D's row glo is lane k of group
+    ghi * 128 + glo, as the kernel's flush maps it."""
+    n = gid_m.shape[0]
+    g = gid_m.to(torch.int64)
+    included = (g >= 0) & (g < AV.NUM_GROUPS)
+    glo, ghi = g & 127, torch.where(included, g >> 7, 0)
+    a = torch.zeros((128, n), dtype=torch.float64)
+    a[glo, torch.arange(n)] = 1.0
+    chunks = AV.chunk_planes("v4", vlo, vhi).to(torch.float64)
+    b = torch.zeros((n, 8 * AV.LANES["v4"]), dtype=torch.float64)
+    b.scatter_(1, 8 * torch.arange(AV.LANES["v4"]) + ghi[:, None],
+               chunks * included[:, None])
+    d = a @ b  # [glo, 8 k + ghi]: integers below 2^53, exact
+    return d.reshape(128, AV.LANES["v4"], 8).permute(2, 0, 1).reshape(
+        AV.NUM_GROUPS, AV.LANES["v4"]).to(torch.int64)
+
+
+@pytest.mark.parametrize("n", SIZES[:2])
+def test_factorized_product_equals_plain(n):
+    """The factorized product and its mapping back to [1024, 9] give the
+    plain chunk totals bit for bit, on rows with gid -1, 1024 and beyond,
+    and values at +-2^63."""
+    values, ok, gid = _inputs(n, 7 * n)
+    assert (gid == -1).any() and (gid == 1024).any()
+    assert values.min() == -(2**63) and values.max() == 2**63 - 1
+    vlo, vhi, gid_m = AV.prepare(*(torch.from_numpy(x)
+                                   for x in (values, ok, gid)))
+    want = AV.chunk_totals_plain("v4", vlo, vhi, gid_m)
+    assert torch.equal(_factorized_totals(vlo, vhi, gid_m), want)
 
 
 def test_checks_variant_groups_and_device():

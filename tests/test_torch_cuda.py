@@ -353,18 +353,25 @@ ONEHOT_CASES = [  # (variant, num_groups, n, data, offset in rows)
       for v, g in [("v1", 1024), ("v2", 1024), ("v4", 1024), ("v5", 1024),
                    ("s8", 1024), ("s8", 1000)]
       for data in ("dense", "sparse")],
-    # fewer rows than one k-step (s8: 32 rows, v1/v2: 16)
+    # fewer rows than one k-step (s8: 32 rows, v1, v2, v4, v5: 16)
     ("s8", 1024, 31, "dense", 0), ("v1", 1024, 7, "dense", 0),
-    ("v2", 1024, 15, "dense", 0),
-    # not a multiple of the stage ring (6 k-steps) or of 4
+    ("v2", 1024, 15, "dense", 0), ("v4", 1024, 15, "dense", 0),
+    ("v5", 1024, 9, "dense", 0),
+    # not a multiple of the stage ring (s8, v1, v2: 6 k-steps; v4, v5: 16
+    # stages of two k16 slices, 32 rows) or of 4
     ("s8", 1024, 32 * 6 * 7 + 3, "dense", 0),
     ("v1", 1024, 16 * 6 * 7 + 5, "dense", 0), ("v2", 1024, 4099, "dense", 0),
-    # a block's rows span the bytes kernel's 65,536-row flush
-    ("v1", 1024, 70_000 * 133, "dense", 0),
-    ("v2", 1024, 70_000 * 133, "dense", 0),
+    ("v4", 1024, 32 * 16 * 7 + 5, "dense", 0),
+    ("v5", 1024, 32 * 16 * 7 + 21, "dense", 0),
+    # a block's rows span the 65,536-row flush of the bytes kernels (every
+    # warpgroup sees every row); v4 and v5's two warpgroups take the steps
+    # in turn, so their accumulators cross the flush at twice the rows
+    *[(v, 1024, 70_000 * 133, "dense", 0) for v in ("v1", "v2", "v4", "v5")],
+    *[(v, 1024, 140_000 * 133, "dense", 0) for v in ("v4", "v5")],
     # every row excluded
     ("s8", 1024, 5000, "none", 0), ("v1", 1024, 5000, "none", 0),
-    ("v2", 1024, 3, "none", 0),
+    ("v2", 1024, 3, "none", 0), ("v4", 1024, 5000, "none", 0),
+    ("v5", 1024, 3, "none", 0),
     # s8: one partial m64 tile, one full, one full and one partial (the
     # other tiles issue no wgmma)
     ("s8", 1, 777, "dense", 0), ("s8", 64, 5000, "dense", 0),

@@ -309,3 +309,38 @@ def test_explain_analyze_shows_the_segment():
         "GROUP BY dept_id ORDER BY dept_id"
     ).to_pylist()]
     assert any(line.startswith("compiled_pipeline") for line in lines), lines
+
+
+@pytest.mark.parametrize("fails", [False, True])
+def test_capture_defers_cyclic_collection(monkeypatch, fails):
+    """The cyclic collector is off while a CUDA graph captures (a
+    collection there may free another graph, which CUDA refuses during a
+    capture) and on again afterwards, also when the body raises. The CUDA
+    graph calls are stood in by fakes on the CPU."""
+    import contextlib
+    import gc
+
+    import torch
+
+    from query_engine_tpu_torch.engine import pipeline as P
+
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", lambda: object())
+    monkeypatch.setattr(torch.cuda, "graph",
+                        lambda g: contextlib.nullcontext())
+    pipe = Session(device="cpu").executor.pipeline
+    seen = []
+
+    def body(*args):
+        seen.append(gc.isenabled())
+        if fails:
+            raise RuntimeError("body failed")
+        return []
+
+    monkeypatch.setattr(pipe, "_body", body)
+    assert gc.isenabled()
+    entry = P._Entry(None, [])
+    with (pytest.raises(RuntimeError) if fails
+          else contextlib.nullcontext()):
+        pipe._capture(entry, [], [], [])
+    assert seen == [False] and gc.isenabled()
+    assert (entry.graph is None) == fails
