@@ -24,11 +24,13 @@ Phase 2  runs the engine's eager path (the compiled pipeline off for this
          an independent numpy oracle. Prints ms per query, rows/s, the
          number of host syncs per query, and one profiled query's device
          time by operator (torch.profiler).
-Phase 3  holds the small-table gather kernel against its plain version at
-         2^23 rows, tables of 1024 and 4096 rows and 1 and 3 words, indices
-         of -1 and out of range included: bit-exact. Times both versions
-         and `torch.index_select` on indices already in range, and prints
-         the bound.
+Phase 3  holds the small-table gather kernel, through both entry points
+         (int32 indices and a [T, W] int32 table; the join's int64 indices
+         and [W, T] int64 planes), against its plain versions at 2^23 rows,
+         tables of 1024 and 4096 rows and 1 and 3 words, indices of -1 and
+         out of range included: bit-exact. Times the kernel, the plain
+         version and `torch.index_select` on indices already in range, and
+         prints the bound (each form's own bytes).
 Phase 4  runs Query A through the compiled pipeline (the default): the
          first query runs the program and captures it into a CUDA graph,
          later ones replay it. Rows equal the oracle exactly, one host read
@@ -39,8 +41,10 @@ Phase 4  runs Query A through the compiled pipeline (the default): the
 Phase 5  runs Query B (the dimension gains a float64 column `rate`, so the
          join gathers through the packed lookup route) in two Sessions,
          QE_MXU_GATHER unset and then set: rows equal its oracle exactly in
-         both, and with the gate set the small gather kernel appears among
-         the CUDA kernels of a profiled replayed query.
+         both, and with the gate set the small gather kernel launches once
+         per run of the program (the join's one packed gather) and appears
+         among the CUDA kernels of a profiled replayed query. Prints the
+         join's device ms with the gate unset and set.
 
 Phase 6  drives the aggregate probes' entry points (`probes.probe_agg_variants
          .run_variant` v1, v2, v4, v5 and `probes.probe_int8_mxu
@@ -505,7 +509,8 @@ def profile_program(sess, tag, entry=None):
                 k in e.key for k in ("sum_count_", "float_absmax",
                                      "gather_words")):
             print(f"  of which hand kernel {e.key[:40]}: "
-                  f"{e.self_device_time_total / 1e3:.3f} ms")
+                  f"{e.self_device_time_total / 1e3:.3f} ms in {e.count} "
+                  "launches")
     return total / 1e3, {name: us / 1e3 for name, us in ops}
 
 
@@ -567,47 +572,81 @@ def phase2(tables):
     return ms
 
 
+GATHER_N = 1 << 23
+# phase 3's shapes (T, W): Query B's table of 1024 rows, 1 word, and the
+# engine's largest table, 4096 rows, at 1 and 3 words
+GATHER_SHAPES = ((1024, 1), (1024, 3), (4096, 1), (4096, 3))
+
+
+def gather_inputs(rng, T, W, dev, n=GATHER_N):
+    """The small gather's inputs at one shape: int32 indices and the
+    [T, W] int32 table (the JAX function's form), the same indices as int64
+    and the same words as int64 planes [W, T] (the join's form); 5 % of
+    indices -1, 1 % T, two far out of range."""
+    import torch
+
+    table = torch.from_numpy(rng.integers(-(2**31), 2**31, (T, W)).astype(
+        np.int32)).to(dev)
+    idx = rng.integers(0, T, n)
+    idx[rng.random(n) < 0.05] = -1  # unmatched rows
+    idx[rng.random(n) < 0.01] = T  # just past the table
+    idx[:2] = [2**31 - 1, -(2**31)]
+    idx64 = torch.from_numpy(idx).to(dev)
+    planes = (table.T.to(torch.int64) & 0xFFFFFFFF).contiguous()
+    return idx64.to(torch.int32), table, idx64, planes
+
+
+def gather_forms(T, W, inputs, n=GATHER_N):
+    """{form: (kernel, plain, library, bytes)} of the small gather's two
+    entry points on `inputs` (gather_inputs): the library call is one
+    index_select on indices already in range; bytes are the indices read
+    once, the output written once and the table read once."""
+    import torch
+
+    from query_engine_tpu_torch.ops import small_gather as sg
+
+    idx32, table, idx64, planes = inputs
+    in_range = idx64.clamp(0, T - 1)
+    return {
+        "u32": (lambda: sg.gather_words(idx32, table),
+                lambda: sg.gather_words_plain(idx32, table),
+                lambda: torch.index_select(table, 0, in_range),
+                n * 4 + n * W * 4 + T * W * 4),
+        "planes": (lambda: sg.gather_word_planes(idx64, planes),
+                   lambda: sg.gather_word_planes_plain(idx64, planes),
+                   lambda: torch.index_select(planes, 1, in_range),
+                   n * 8 + n * W * 8 + T * W * 8),
+    }
+
+
 def phase3():
     import torch
 
-    from query_engine_tpu_torch.ops import small_gather
-
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED)
-    n = 1 << 23
     max_err = 0
     times = {}
-    for T in (1024, 4096):
-        for W in (1, 3):
-            table = torch.from_numpy(rng.integers(
-                -(2**31), 2**31, (T, W)).astype(np.int32)).to(dev)
-            idx_np = rng.integers(0, T, n).astype(np.int32)
-            idx_np[rng.random(n) < 0.05] = -1  # unmatched rows
-            idx_np[rng.random(n) < 0.01] = T  # just past the table
-            idx_np[:2] = [2**31 - 1, -(2**31)]
-            idx = torch.from_numpy(idx_np).to(dev)
-            got = small_gather.gather_words(idx, table)
-            want = small_gather.gather_words_plain(idx, table)
+    for T, W in GATHER_SHAPES:
+        forms = gather_forms(T, W, gather_inputs(rng, T, W, dev))
+        for form, (kernel, plain, library, nbytes) in forms.items():
+            got, want = kernel(), plain()
             torch.cuda.synchronize()
-            check(got.is_cuda and got.shape == (n, W),
-                  f"small gather T={T} W={W}: bad result")
+            check(got.is_cuda and got.shape == want.shape
+                  and got.dtype == want.dtype,
+                  f"small gather {form} T={T} W={W}: bad result")
             err = int((got.to(torch.int64) - want.to(torch.int64)).abs()
                       .max())
             max_err = max(max_err, err)
             check(torch.equal(got, want),
-                  f"small gather T={T} W={W}: kernel != plain")
-            k_ms = graph_ms(lambda: small_gather.gather_words(idx, table))
-            p_ms = graph_ms(lambda: small_gather.gather_words_plain(idx,
-                                                                    table))
-            # the library call: index_select on indices already in range
-            in_range = idx.clamp(0, T - 1).to(torch.int64)
-            lib_ms = graph_ms(lambda: torch.index_select(table, 0, in_range))
-            nbytes = n * 4 + n * W * 4 + T * W * 4
-            times[(T, W)] = {"ms": k_ms, "plain_ms": p_ms,
-                             "library_ms": lib_ms,
-                             "bound_ms": bound_ms(nbytes)}
-            print(f"phase 3: small gather n={n} T={T} W={W}: kernel == plain "
-                  f"bit for bit; kernel {k_ms:.4f} ms "
+                  f"small gather {form} T={T} W={W}: kernel != plain")
+            k_ms = graph_ms(kernel)
+            p_ms = graph_ms(plain)
+            lib_ms = graph_ms(library)
+            times[f"{form} T={T} W={W}"] = {
+                "ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms,
+                "bound_ms": bound_ms(nbytes), "bytes": nbytes}
+            print(f"phase 3: small gather {form} n={GATHER_N} T={T} W={W}: "
+                  f"kernel == plain bit for bit; kernel {k_ms:.4f} ms "
                   f"({nbytes / k_ms / 1e6:.1f} GB/s of {nbytes} bytes), "
                   f"bound {bound_ms(nbytes):.4f} ms "
                   f"({100 * bound_ms(nbytes) / k_ms:.1f} % of it), plain "
@@ -701,7 +740,9 @@ def phase5(tables):
               f"\n{rows}\n{want}")
         check(launches["group_agg"] > 0,
               f"Query B ({gate}) did not launch the group_agg kernel")
-        check((launches["small_gather"] > 0) == (gate == "set"),
+        # set: one launch per run of the program (its first run and its
+        # capture), the join's one packed gather
+        check(launches["small_gather"] == (2 if gate == "set" else 0),
               f"Query B ({gate}): small gather launches {launches}")
         st = dict(sess.executor.pipeline.stats)
         check(st["replays"] >= 1 and st["joins_inlined"] >= 1,
@@ -714,16 +755,18 @@ def phase5(tables):
         check(syncs == 1, f"Query B ({gate}): {syncs} host syncs per query")
         names = profile_query(sess, QUERY_B,
                               f"phase 5: Query B ({gate}, replay)")
-        profile_program(sess, f"phase 5: Query B ({gate})")
+        _, ops = profile_program(sess, f"phase 5: Query B ({gate})")
         found = kernel_names(names, "gather_words")
         check(bool(found) == (gate == "set"),
               f"Query B ({gate}): gather kernels in the replay: {found}")
         check(kernel_names(names, "sum_count_"),
               f"Query B ({gate}): no group_agg kernel in the replay")
-        out[gate] = (ms, launches, found)
+        out[gate] = (ms, launches, found, ops["pipeline:join"])
     os.environ.pop("QE_MXU_GATHER", None)
     print(f"phase 5: Query B gate unset {out['unset'][0]:.3f} ms vs set "
-          f"{out['set'][0]:.3f} ms per query")
+          f"{out['set'][0]:.3f} ms per query; the join's device ms "
+          f"(program body, profiler) unset {out['unset'][3]:.3f}, set "
+          f"{out['set'][3]:.3f} ({out['set'][3] - out['unset'][3]:+.3f})")
     return out
 
 
@@ -1152,7 +1195,8 @@ def main():
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
     main_shape = times["main path shape"]
-    gather = g_times[(1024, 1)]  # Query B's shape: 1024 rows, 1 word
+    # Query B's gather: the join's form, 1024 rows, 1 word
+    gather = g_times["planes T=1024 W=1"]
     tpch_by_query = {q: r["group_agg"] for q, r in tpch.items()}
     tpch_launches = sum(tpch_by_query.values())
     tpch_err = max((c["max_abs_err"] for calls in tpch_held.values()
@@ -1185,8 +1229,9 @@ def main():
         "bound_ms": gather["bound_ms"],
         "bound_by": "bytes",
         "library_ms": gather["library_ms"],
-        "by_shape": {f"T={t} W={w}": r for (t, w), r in g_times.items()},
+        "by_shape": g_times,
         "in_replay": b["set"][2],
+        "join_ms": {"unset": b["unset"][3], "set": b["set"][3]},
     }] + [{
         "name": name,
         "route": "cuda",

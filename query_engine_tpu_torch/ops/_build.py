@@ -61,9 +61,9 @@ def _bind(lib: ctypes.CDLL) -> None:
     f = lib.qe_group_agg
     f.argtypes = [p, i32, i64, i32, i32, p, p, p, i32, p, p, p, p]
     f.restype = i32
-    f = lib.qe_small_gather_u32
-    f.argtypes = [p, p, i64, i32, i32, p, p]
-    f.restype = i32
+    for f in (lib.qe_small_gather_u32, lib.qe_small_gather_planes):
+        f.argtypes = [p, p, i64, i32, i32, p, p]
+        f.restype = i32
     f = lib.qe_onehot_bytes
     f.argtypes = [p, p, p, p, i64, p, p]
     f.restype = i32

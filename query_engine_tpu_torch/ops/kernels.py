@@ -15,7 +15,8 @@ Differences from the JAX package, all of representation, none of result:
     end of an output one element longer, which is then sliced off;
   * packed 32-bit words (gather_columns_packed, fk_gather_by_rank) are
     int64 planes holding values in [0, 2^32); the small-table gather takes
-    them as int32 bit patterns (ops/small_gather.py);
+    and gives them as they are, with the int64 index plane
+    (`small_gather.gather_word_planes`, one launch);
   * segment counts and sums: on a CUDA tensor every one is a launch of the
     group_agg kernel (ops/group_agg.py), which sums integers exactly and
     floats in fixed point, so they give the same bits on every run (a
@@ -371,8 +372,9 @@ def gather_columns_packed(
 
     mxu_small (the JAX name kept): when the source has at most
     small_gather.MAX_TABLE rows, the words are gathered by the small-table
-    gather (ops/small_gather.py: the CUDA kernel on the card). Indices must
-    be in range, as for the plain gather.
+    gather (`small_gather.gather_word_planes`: on the card one kernel launch
+    over the int64 indices and planes, with no conversion around it).
+    Indices must be int64 and in range, as for the plain gather.
     """
     n_cols = len(datas)
     slots, direct = [], []
@@ -390,10 +392,8 @@ def gather_columns_packed(
     raw_planes = _pack_words(words, layout, datas, valids, bounds, src_len,
                              indices.device)
     if mxu_small and raw_planes and src_len <= small_gather.MAX_TABLE:
-        table = small_gather.to_bits(torch.stack(raw_planes, dim=1))
-        got = small_gather.from_bits(
-            small_gather.gather_words(indices.to(torch.int32), table))
-        planes = [got[:, w] for w in range(len(raw_planes))]
+        planes = list(small_gather.gather_word_planes(
+            indices, torch.stack(raw_planes)))
     else:
         planes = [p[indices] for p in raw_planes]
 

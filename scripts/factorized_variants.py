@@ -32,39 +32,50 @@ ROOT = Path(__file__).resolve().parent.parent
 ENTRY = "qe_onehot_factorized"
 
 
-def variant_source(text: str, assignments: str) -> str:
-    """The kernel source with each NAME=VALUE of `assignments` set and the
-    entry point renamed to ENTRY + "_variant"."""
+def variant_source(text: str, assignments: str, entries=(ENTRY,)) -> str:
+    """The kernel source with each NAME=VALUE of `assignments` set and each
+    entry point renamed to its name + "_variant"."""
     for item in assignments.split(","):
         name, value = item.split("=")
         text, found = re.subn(rf"(constexpr int {name} = )[^;]+;",
                               rf"\g<1>{value};", text)
         if found != 1:
             raise SystemExit(f"{name}: {found} definitions in the source")
-    return text.replace(f"int {ENTRY}(", f"int {ENTRY}_variant(")
+    for entry in entries:
+        text = text.replace(f"int {entry}(", f"int {entry}_variant(")
+    return text
 
 
-def build(assignments: str):
+def build(assignments: str, source="agg_onehot_factorized.cu",
+          entries=(ENTRY,), argtypes=None):
+    """A copy of csrc/`source` with `assignments`, built and loaded: its
+    renamed entry points, by their original names. `argtypes` defaults to
+    qe_onehot_factorized's."""
     from query_engine_tpu_torch.ops._build import (BUILD_DIR, NVCC_FLAGS,
                                                    SRC_DIR, _nvcc)
 
     label = re.sub(r"\W", "_", assignments)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = BUILD_DIR / f"factorized_{label}.cu"
+    cu = BUILD_DIR / f"{Path(source).stem}_{label}.cu"
     so = cu.with_suffix(".so")
-    cu.write_text(variant_source(
-        (SRC_DIR / "agg_onehot_factorized.cu").read_text(), assignments))
+    cu.write_text(variant_source((SRC_DIR / source).read_text(), assignments,
+                                 entries))
     r = subprocess.run([_nvcc(), *NVCC_FLAGS, "-I", str(SRC_DIR), "-shared",
                         "-o", str(so), str(cu)], capture_output=True,
                        text=True)
     if r.returncode:
         raise RuntimeError(f"nvcc failed for {assignments}:\n{r.stdout}"
                            f"{r.stderr}")
-    fn = getattr(ctypes.CDLL(str(so)), f"{ENTRY}_variant")
+    lib = ctypes.CDLL(str(so))
     p = ctypes.c_void_p
-    fn.argtypes = [p, p, p, ctypes.c_int64, ctypes.c_int, p, p]
-    fn.restype = ctypes.c_int
-    return fn
+    fns = {}
+    for entry in entries:
+        fn = getattr(lib, f"{entry}_variant")
+        fn.argtypes = argtypes or [p, p, p, ctypes.c_int64, ctypes.c_int, p,
+                                   p]
+        fn.restype = ctypes.c_int
+        fns[entry] = fn
+    return fns
 
 
 def main(argv=None) -> int:
@@ -85,7 +96,7 @@ def main(argv=None) -> int:
     from query_engine_tpu_torch.probes.probe_agg_variants import probe_data
 
     kernels = {"base": getattr(load_library().lib, ENTRY)}
-    kernels.update((a, build(a)) for a in args.set)
+    kernels.update((a, build(a)[ENTRY]) for a in args.set)
     vlo, vhi, gid_m = AV.prepare(*probe_data(1 << 24, "cuda"))
     want = AV.chunk_totals_plain("v4", vlo, vhi, gid_m)
 

@@ -18,6 +18,11 @@ as the engine calls them:
 data (`probes.probe_agg_variants.probe_data`: 2^24 rows, 1024 groups, seed
 3).
 
+`--kernels gather` times the small-table gather (`ops.small_gather`) at
+`chip_smoke.py` phase 3's four shapes (2^23 rows; T in {1024, 4096}, W in
+{1, 3}) and inputs: `gather_words` (int32 indices and table) and, in a
+checkout that has it, `gather_word_planes` (the join's int64 form).
+
 It prints one JSON line: per case the device time in ms (a CUDA graph of
 10 calls replayed between CUDA events, so the host's launch overhead is
 not in it) and a digest of the result's bits, with the card's name and
@@ -26,6 +31,7 @@ are equal exactly when their results are bit for bit equal.
 
     python scripts/group_agg_shapes.py
     python scripts/group_agg_shapes.py --kernels onehot --root DIR
+    python scripts/group_agg_shapes.py --kernels gather --root DIR
 
 `--root` imports `query_engine_tpu_torch` from another checkout, e.g. an
 earlier commit unpacked with `git archive`, which builds its kernels into
@@ -118,7 +124,30 @@ def onehot_cases(dev):
         for v in ("s8", "v1", "v2", "v4", "v5")}
 
 
-CASES = {"group_agg": group_agg_cases, "onehot": onehot_cases}
+def gather_cases(dev):
+    """(module, {case: fn}) of the small gather at chip_smoke phase 3's
+    four shapes and inputs: the int32 form (`gather_words`, in every
+    checkout since the kernel's port) and, where the checkout has it, the
+    join's form (`gather_word_planes`)."""
+    import numpy as np
+
+    from chip_smoke import GATHER_SHAPES, SEED, gather_inputs
+    from query_engine_tpu_torch.ops import small_gather as sg
+
+    rng = np.random.default_rng(SEED)
+    cases = {}
+    for T, W in GATHER_SHAPES:
+        idx32, table, idx64, planes = gather_inputs(rng, T, W, dev)
+        cases[f"u32 T={T} W={W}"] = (
+            lambda i=idx32, t=table: [sg.gather_words(i, t)])
+        if hasattr(sg, "gather_word_planes"):
+            cases[f"planes T={T} W={W}"] = (
+                lambda i=idx64, p=planes: [sg.gather_word_planes(i, p)])
+    return sg, cases
+
+
+CASES = {"group_agg": group_agg_cases, "onehot": onehot_cases,
+         "gather": gather_cases}
 
 
 def main(argv=None) -> int:

@@ -218,24 +218,103 @@ def test_bench_query_on_card_matches_cpu(cuda_device):
     assert out.to_pylist() == cpu.sql(BENCH_QUERY).to_pylist()
 
 
-@pytest.mark.parametrize("n,T,W", [(1 << 16, 1024, 1), (1 << 16, 4096, 3),
-                                   (1000, 1, 1), (5000, 300, 20),
-                                   (777, 4096, 17)])
+SMALL_GATHER_N = [0, 1, 5, (1 << 16) + 3]
+SMALL_GATHER_T = [1, 1024, 4096]
+# W <= 4 instantiated, 5 and up the runtime loop; at T = 4096, 15 and 32
+# words exceed a block's shared memory: the table read through L1/L2
+SMALL_GATHER_W = [1, 2, 3, 4, 5, 14, 15, 32]
+
+
+def _gather_indices(rng, n, T, dtype):
+    far = [-(2**31), 2**31 - 1] if dtype == np.int32 else \
+        [-(2**31), 2**31, -(2**40), 2**40]
+    idx = rng.integers(-1, T + 1, n + 1)
+    special = [-1, T, *far]
+    idx[1:1 + min(n, len(special))] = special[:n]
+    return idx.astype(dtype)
+
+
+@pytest.mark.parametrize("W", SMALL_GATHER_W)
+@pytest.mark.parametrize("T", SMALL_GATHER_T)
+@pytest.mark.parametrize("n", SMALL_GATHER_N)
 def test_small_gather_kernel_matches_plain(cuda_device, n, T, W):
-    """Bit-exact against the plain version, out-of-range indices included;
-    (4096, 17) exceeds a block's shared memory: the device-memory path."""
+    """The int32 form, bit-exact against the plain version: indices of -1,
+    T and +-2^31 included, an index tensor that starts on a 16-byte
+    boundary and one sliced at offset 1 (the rows before the boundary and
+    the stores off it go the scalar way)."""
     rng = np.random.default_rng(n + T + W)
     table = rng.integers(-(2**31), 2**31, (T, W)).astype(np.int32)
-    idx = rng.integers(-1, T + 1, n).astype(np.int32)
-    idx[:4] = [-(2**31), 2**31 - 1, T, -1]
-    ti = torch.from_numpy(idx).to(cuda_device)
     tt = torch.from_numpy(table).to(cuda_device)
-    before = small_gather.launches
-    got = small_gather.gather_words(ti, tt)
+    whole = torch.from_numpy(_gather_indices(rng, n, T, np.int32)).to(
+        cuda_device)
+    for ti in (whole[:n], whole[1:]):
+        before = small_gather.launches
+        got = small_gather.gather_words(ti, tt)
+        torch.cuda.synchronize()
+        assert small_gather.launches == before + (n > 0)
+        assert got.is_cuda and got.dtype == torch.int32 and got.shape == (n, W)
+        assert torch.equal(got, small_gather.gather_words_plain(ti, tt))
+
+
+@pytest.mark.parametrize("W", SMALL_GATHER_W)
+@pytest.mark.parametrize("T", SMALL_GATHER_T)
+@pytest.mark.parametrize("n", SMALL_GATHER_N)
+def test_small_gather_planes_kernel_matches_plain(cuda_device, n, T, W):
+    """The join's form (int64 indices and planes), bit-exact against its
+    plain version: indices of -1, T, +-2^31 and +-2^40, plane values with
+    bits above the low 32, aligned and offset-1 index views."""
+    rng = np.random.default_rng(n + T + W + 1)
+    planes = torch.from_numpy(rng.integers(0, 2**36, (W, T))).to(cuda_device)
+    whole = torch.from_numpy(_gather_indices(rng, n, T, np.int64)).to(
+        cuda_device)
+    for ti in (whole[:n], whole[1:]):
+        before = small_gather.launches
+        got = small_gather.gather_word_planes(ti, planes)
+        torch.cuda.synchronize()
+        assert small_gather.launches == before + (n > 0)
+        assert got.is_cuda and got.dtype == torch.int64 and got.shape == (W, n)
+        assert torch.equal(got,
+                           small_gather.gather_word_planes_plain(ti, planes))
+
+
+@pytest.mark.parametrize("n", [5, (1 << 16) + 3])
+def test_small_gather_empty_table_gives_zeros(cuda_device, n):
+    """T = 0: every index is out of range, both forms launch and write
+    zeros."""
+    rng = np.random.default_rng(n)
+    i64 = torch.from_numpy(_gather_indices(rng, n, 0, np.int64)[:n]).to(
+        cuda_device)
+    for W in (1, 3, 5):
+        got = small_gather.gather_words(
+            i64.to(torch.int32),
+            torch.zeros((0, W), dtype=torch.int32, device=cuda_device))
+        planes = small_gather.gather_word_planes(
+            i64, torch.zeros((W, 0), dtype=torch.int64, device=cuda_device))
+        torch.cuda.synchronize()
+        assert got.shape == (n, W) and not got.any()
+        assert planes.shape == (W, n) and not planes.any()
+
+
+def test_small_gather_planes_replays_in_a_graph(cuda_device):
+    """The join's form captured into a CUDA graph (as the pipeline captures
+    it) and replayed over new index contents."""
+    rng = np.random.default_rng(8)
+    T, W, n = 1024, 3, (1 << 16) + 5
+    planes = torch.from_numpy(rng.integers(0, 2**32, (W, T))).to(cuda_device)
+    idx = torch.from_numpy(_gather_indices(rng, n, T, np.int64)[:n]).to(
+        cuda_device)
+    small_gather.gather_word_planes(idx, planes)  # eager: caches the limits
     torch.cuda.synchronize()
-    assert small_gather.launches == before + 1
-    assert got.is_cuda and got.dtype == torch.int32 and got.shape == (n, W)
-    assert torch.equal(got, small_gather.gather_words_plain(ti, tt))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = small_gather.gather_word_planes(idx, planes)
+    for seed in (1, 2):
+        fresh = np.random.default_rng(seed)
+        idx.copy_(torch.from_numpy(_gather_indices(fresh, n, T, np.int64)[:n]))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out,
+                           small_gather.gather_word_planes_plain(idx, planes))
 
 
 def _bench_sessions(device, n, seed, mxu_gather, monkeypatch):

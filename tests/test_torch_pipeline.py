@@ -255,13 +255,13 @@ def test_queries_a_and_b(bench_reference, monkeypatch, query, mxu_gather):
     d = dims[q]
     monkeypatch.setenv("QE_MXU_GATHER", mxu_gather)
     calls = []
-    real = small_gather.gather_words
+    real = small_gather.gather_word_planes
 
-    def counted(idx, table):
-        calls.append(tuple(table.shape))
-        return real(idx, table)
+    def counted(idx, planes):
+        calls.append(tuple(planes.shape))
+        return real(idx, planes)
 
-    monkeypatch.setattr(small_gather, "gather_words", counted)
+    monkeypatch.setattr(small_gather, "gather_word_planes", counted)
     fast, slow = Session(device="cpu"), Session(device="cpu")
     slow.executor._compiled = False
     for s in (fast, slow):
@@ -277,7 +277,7 @@ def test_queries_a_and_b(bench_reference, monkeypatch, query, mxu_gather):
     assert st["hits"] == 1, st
     uses_gather = query == "B" and mxu_gather == "1"
     # one packed word per fact row: dept_id and the validity bits
-    assert calls == ([(1024, 1)] * 2 if uses_gather else []), calls
+    assert calls == ([(1, 1024)] * 2 if uses_gather else []), calls
 
 
 def test_warm_query_a_reads_the_device_once(bench_reference):

@@ -1,12 +1,12 @@
 """The small-table gather and the FK join kernels against their JAX twins.
 
-The small gather's plain version (what the port runs on the CPU) against
-the JAX package's `mxu_gather_words`, whose Pallas kernel runs in interpret
-mode on the CPU, as tests/test_pallas_kernels.py runs it: bit-exact, with
-indices of -1, T and far out of range. Then `gather_columns_packed` (both
-routes), `fk_gather_by_rank`, `fk_join_right_lookup` and the segment
-position helpers against the JAX functions on the same numpy inputs:
-results must be exact.
+The small gather's plain versions (what the port runs on the CPU), of both
+forms, against the JAX package's `mxu_gather_words`, whose Pallas kernel
+runs in interpret mode on the CPU, as tests/test_pallas_kernels.py runs it:
+bit-exact, with indices of -1, T and far out of range. Then
+`gather_columns_packed` (both routes), `fk_gather_by_rank`,
+`fk_join_right_lookup` and the segment position helpers against the JAX
+functions on the same numpy inputs: results must be exact.
 """
 
 import jax.numpy as jnp
@@ -54,6 +54,46 @@ def test_gather_words_plain_matches_jax_kernel(T, W):
     # zero rows exactly where the index is out of range
     out_of_range = (idx < 0) | (idx >= T)
     assert (got.numpy()[out_of_range] == 0).all()
+
+
+@pytest.mark.parametrize("T", [1, 300, 4096])
+@pytest.mark.parametrize("W", [1, 3, 5])
+def test_gather_word_planes_plain_matches_jax_kernel(T, W):
+    """The join's form (int64 indices, int64 planes [W, T], planes out)
+    against the Pallas kernel, exact. JAX casts indices to int32, so it
+    is given -1 where an int64 index lies outside the int32 range; the
+    port's contract zeroes every index outside [0, T)."""
+    rng = np.random.default_rng(T * 10 + W + 1)
+    table = rng.integers(0, 2**32, (T, W), dtype=np.uint64).astype(np.uint32)
+    n = 3000
+    idx = rng.integers(0, T, n)
+    idx[rng.random(n) < 0.2] = -1
+    idx[:8] = [-1, T, T + 1, 2**40, -(2**40), 2**31, -(2**31) - 1, T - 1]
+    in_i32 = (idx >= -(2**31)) & (idx < 2**31)
+    want = np.asarray(mxu_gather_words(
+        jnp.asarray(np.where(in_i32, idx, -1).astype(np.int32)),
+        jnp.asarray(table), W))
+    planes = _t(table.T.astype(np.int64))
+    got = small_gather.gather_word_planes(_t(idx), planes)
+    assert got.dtype == torch.int64 and got.shape == (W, n)
+    np.testing.assert_array_equal(got.numpy(), want.T.astype(np.int64))
+    assert (got.numpy()[:, (idx < 0) | (idx >= T)] == 0).all()
+    # bits above the low 32 of a plane value are not gathered
+    high = small_gather.gather_word_planes(_t(idx), planes | (7 << 40))
+    assert torch.equal(high, got)
+
+
+def test_gather_word_planes_checks_dtypes():
+    with pytest.raises(ValueError):  # int32 indices: the join's are int64
+        small_gather.gather_word_planes(torch.zeros(4, dtype=torch.int32),
+                                        torch.zeros((1, 2), dtype=torch.int64))
+    with pytest.raises(ValueError):
+        small_gather.gather_word_planes(torch.zeros(4, dtype=torch.int64),
+                                        torch.zeros((1, 2), dtype=torch.int32))
+    with pytest.raises(ValueError):  # the kernel takes CUDA tensors only
+        small_gather.gather_word_planes_kernel(
+            torch.zeros(4, dtype=torch.int64),
+            torch.zeros((1, 2), dtype=torch.int64))
 
 
 def test_word_bit_patterns_round_trip():
@@ -117,6 +157,33 @@ def test_gather_columns_packed_matches_jax(mxu_small, which):
             _eq(a, b)
         for a, b in zip(pv, jv):
             _eq(a, b)
+
+
+def test_packed_route_is_one_word_plane_gather(monkeypatch):
+    """mxu_small: one gather_word_planes call over all the packed planes,
+    and no int32 conversion pass (to_bits / from_bits) around it."""
+    rng = np.random.default_rng(12)
+    cap = 256
+    cols = _build_side(rng, cap, 200)
+    calls = []
+    real = small_gather.gather_word_planes
+
+    def counted(idx, planes):
+        calls.append((idx.dtype, tuple(planes.shape)))
+        return real(idx, planes)
+
+    def refused(*args):
+        raise AssertionError("a bit-pattern conversion on the packed route")
+
+    monkeypatch.setattr(small_gather, "gather_word_planes", counted)
+    monkeypatch.setattr(small_gather, "to_bits", refused)
+    monkeypatch.setattr(small_gather, "from_bits", refused)
+    idx = _t(rng.integers(0, cap, 1024))
+    TK.gather_columns_packed([_t(c[0]) for c in cols],
+                             [_t(c[1]) for c in cols], [c[2] for c in cols],
+                             idx, mxu_small=True)
+    (call,) = calls
+    assert call[0] == torch.int64 and call[1][1] == cap
 
 
 def _ranks(rng, cap_l, cap_r, n_l, n_r, n_ranks):
