@@ -23,12 +23,13 @@ import numpy as np
 class Dictionary:
     """An immutable sorted dictionary of Python strings."""
 
-    __slots__ = ("values", "_index")
+    __slots__ = ("values", "_index", "_maps")
 
     def __init__(self, values: np.ndarray):
         # values must be sorted & unique; callers use from_values/from_sorted.
         self.values = values
         self._index: Optional[dict] = None
+        self._maps: Optional[dict] = None  # map_values results by key
 
     @staticmethod
     def from_values(values: Sequence[str]) -> Tuple["Dictionary", np.ndarray]:
@@ -91,15 +92,26 @@ class Dictionary:
         remap_other = np.searchsorted(union, other.values).astype(np.int32)
         return Dictionary(union), remap_self, remap_other
 
-    def map_values(self, fn) -> Tuple["Dictionary", np.ndarray]:
+    def map_values(self, fn, key=None) -> Tuple["Dictionary", np.ndarray]:
         """Apply a scalar string fn to every dictionary value (UPPER/LOWER/...).
 
         The result dictionary must stay sorted, so we re-sort and return a
-        remap plane old_code -> new_code for the device gather.
+        remap plane old_code -> new_code for the device gather. With a
+        `key` naming fn, the result is kept on this dictionary: the same
+        map of the same dictionary (a SUBSTRING evaluated once per IN item
+        and once per query) is computed once and gives the same result
+        dictionary object.
         """
+        if key is not None and self._maps is not None and key in self._maps:
+            return self._maps[key]
         mapped = np.asarray([fn(v) for v in self.values], dtype=object)
         uniq, inverse = np.unique(mapped, return_inverse=True)
-        return Dictionary(uniq), inverse.astype(np.int32)
+        out = Dictionary(uniq), inverse.astype(np.int32)
+        if key is not None:
+            if self._maps is None:
+                self._maps = {}
+            self._maps[key] = out
+        return out
 
 
 def merge_many(dicts: List[Dictionary]) -> Tuple[Dictionary, List[np.ndarray]]:

@@ -3,8 +3,10 @@
 The counterpart of `query_engine_tpu.engine.executor.QueryExecutor`, for
 these nodes: scan, projection, filter, INNER, LEFT, RIGHT and FULL
 equi-joins (with or without a residual ON condition), grouped and global
-aggregate, sort, limit and derived tables (a subquery in FROM). Any other
-node raises NotImplementedError.
+aggregate (DISTINCT included), sort, limit, derived tables (a subquery in
+FROM) and shared WITH queries, materialized once per query. Any other node
+raises NotImplementedError. Subquery expressions run their plans through
+`execute` (the evaluator's `subquery_exec`).
 
 As in the JAX package, every node first goes to the compiled pipeline
 (engine/pipeline.py, on unless QE_COMPILED=0), which runs the largest
@@ -111,8 +113,13 @@ class QueryExecutor:
     def __init__(self, device="cpu", udfs=None):
         self.device = torch.device(device)
         self.udfs = udfs
-        self.evaluator = Evaluator(self.device, udfs=udfs)
+        self.evaluator = Evaluator(self.device, udfs=udfs,
+                                   subquery_exec=self.execute)
         self.host_syncs = 0  # scalar/plane reads from the device, cumulative
+        # per query: the batch of each shared (multiply referenced) WITH
+        # query, keyed by id() of its shared physical node; every reference
+        # reads this one batch. The Session clears it around a query.
+        self._cte_memo = {}
         self.pipeline = CompiledPipeline(self)
         self._compiled = compiled_enabled()
 
@@ -167,10 +174,19 @@ class QueryExecutor:
             return self._exec_sort(plan)
         if isinstance(plan, pp.PLimit):
             return self._exec_limit(plan)
-        if isinstance(plan, pp.PSubquery) and not plan.shared:
-            # a derived table: its child's batch under the subquery's names
-            # (a shared CTE, referenced more than once, is not in the slice)
-            child = self.execute(plan.input)
+        if isinstance(plan, pp.PSubquery):
+            # a derived table or a WITH query: its child's batch under the
+            # subquery's names. A shared one (referenced more than once)
+            # runs once per query and every reference reads the SAME batch,
+            # so float aggregates over it are bit-identical everywhere (Q15
+            # compares its MAX with its rows)
+            if plan.shared:
+                child = self._cte_memo.get(id(plan.input))
+                if child is None:
+                    child = self.execute(plan.input)
+                    self._cte_memo[id(plan.input)] = child
+            else:
+                child = self.execute(plan.input)
             return ColumnBatch(plan.out_schema, child.columns, child.num_rows)
         raise NotImplementedError(
             f"query_engine_tpu_torch does not execute {type(plan).__name__} "
@@ -329,7 +345,7 @@ class QueryExecutor:
                 "aggregates yet"
             )
         for agg in plan.agg_exprs:
-            if agg.func not in _AGG_FUNCS or agg.distinct:
+            if agg.func not in _AGG_FUNCS:
                 raise NotImplementedError(
                     f"query_engine_tpu_torch does not evaluate {agg.name()} yet"
                 )
@@ -369,10 +385,12 @@ class QueryExecutor:
         items, item_of = [], {}
         slots = []  # per aggregate: its item in `items`, or None
         for agg, av in zip(plan.agg_exprs, args):
-            eligible = use_kernel and agg.func in _KERNEL_FUNCS and (
-                av is None or (av.dictionary is None
-                               and av.data.dtype != torch.bool)
-            )
+            # a DISTINCT aggregate takes the segment route with its dedup
+            # plane (the JAX package keeps it off this one too)
+            eligible = use_kernel and agg.func in _KERNEL_FUNCS \
+                and not agg.distinct and (
+                    av is None or (av.dictionary is None
+                                   and av.data.dtype != torch.bool))
             if not eligible:
                 slots.append(None)
                 continue
@@ -414,7 +432,19 @@ class QueryExecutor:
             fname = "count_star" if av is None else func.value.lower()
             data = None if av is None else av.data
             validity = None if av is None else av.validity
-            if not plan.group_exprs:
+            distinct_first = None
+            if agg.distinct and av is not None:
+                distinct_first = K.distinct_first_flags(
+                    [data], [validity], gid, batch.num_rows)
+            if plan.group_exprs or distinct_first is not None:
+                # a global DISTINCT aggregate too: its dedup plane takes the
+                # segment route, every row in segment 0
+                vals, valid = K.segment_aggregate(
+                    fname, data, validity, gid, batch.num_rows,
+                    cap if plan.group_exprs else out_cap,
+                    distinct_first=distinct_first,
+                )
+            else:
                 vals, valid = K.global_aggregate(
                     fname,
                     data if data is not None else torch.zeros(
@@ -422,10 +452,6 @@ class QueryExecutor:
                     validity if validity is not None else torch.ones(
                         cap, dtype=torch.bool, device=dev),
                     batch.num_rows, out_cap,
-                )
-            else:
-                vals, valid = K.segment_aggregate(
-                    fname, data, validity, gid, batch.num_rows, cap,
                 )
             out_d = vals[:out_cap]
             out_v = valid[:out_cap]

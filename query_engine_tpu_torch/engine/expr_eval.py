@@ -1,12 +1,18 @@
 """Vectorized expression evaluation over a ColumnBatch.
 
 The subset of `query_engine_tpu.engine.expr_eval` that the main path and
-the subquery-free TPC-H queries need: column references, literals,
-comparisons (a DATE/TIMESTAMP against a string literal parses the literal),
-+ - * /, AND/OR/NOT, unary minus, IS [NOT] NULL, numeric CASTs and the
-string-to-date/timestamp CAST, EXTRACT, CASE, [NOT] IN (list), and [NOT]
-[I]LIKE, with the JAX package's semantics. Any other expression raises
-NotImplementedError naming it.
+the 22 TPC-H queries need: column references, literals, comparisons (a
+DATE/TIMESTAMP against a string literal parses the literal), + - * /,
+AND/OR/NOT, unary minus, IS [NOT] NULL, numeric CASTs and the
+string-to-date/timestamp CAST, EXTRACT, SUBSTRING, CASE, [NOT] IN (list),
+[NOT] [I]LIKE, and the subquery forms: scalar, [NOT] IN, [NOT] EXISTS,
+ANY/ALL, and the planner's decorrelated lookups, with the JAX package's
+semantics. Any other expression raises NotImplementedError naming it.
+
+A subquery's plan runs through `subquery_exec` (the executor's `execute`),
+once per evaluation; inside a compiled program body the pipeline has run it
+beforehand and hands its result batch in through `_subplans`, so a program
+never executes a plan.
 
 Parity surface: reference crates/query-executor/src/operators.rs:13-848 —
 arithmetic with per-type dispatch (:382-507), comparisons with numeric
@@ -35,7 +41,9 @@ from query_engine_tpu_torch.core.errors import ExecutionError
 from query_engine_tpu_torch.core.types import DataType, TypeKind
 from query_engine_tpu_torch.columnar.batch import ColumnBatch, to_tensor
 from query_engine_tpu_torch.columnar.dictionary import Dictionary
+from query_engine_tpu_torch.ops import kernels as K
 from query_engine_tpu_torch.plan import logical as lp
+from query_engine_tpu_torch.plan import physical as pp
 
 
 @dataclass
@@ -100,6 +108,15 @@ def _dict_lookup_host(v: Val, fn, np_dtype, out_dtype: DataType) -> Val:
     d = v.dictionary or Dictionary.empty()
     table = np.asarray([fn(x) for x in d.values], dtype=np_dtype)
     return Val(_code_table(table, v), v.validity, out_dtype)
+
+
+def _dict_map_host(v: Val, fn, key) -> Val:
+    """A host string function applied once per dictionary value (kept on
+    the dictionary under `key`); the rows' codes are remapped into the
+    (sorted) dictionary of the results by one gather on the device."""
+    d = v.dictionary or Dictionary.empty()
+    new_dict, remap = d.map_values(fn, key)
+    return Val(_code_table(remap, v), v.validity, v.dtype, new_dict)
 
 
 def like_to_regex(pattern: str, case_insensitive: bool) -> "re.Pattern":
@@ -250,12 +267,26 @@ def builds_host_table(e: lp.LogicalExpr) -> bool:
     """True when evaluating `e` builds a table on the host and copies it to
     the device: the merged-dictionary code remap of a string comparison or
     string IN (`unify_dicts`), LIKE's per-value match table (`_eval_like`),
-    a CASE with string results (`_eval_case`), and a string cast to a date
-    that is not a literal (`_eval_cast`). A date literal (`temporal_literal`)
-    is not among them."""
+    a CASE with string results (`_eval_case`), a string cast to a date that
+    is not a literal (`_eval_cast`), SUBSTRING's per-value map
+    (`_dict_map_host`), and the code remap of an IN or ANY/ALL subquery or
+    a correlated lookup whose keys are strings. A date literal
+    (`temporal_literal`) is not among them."""
     found = []
 
     def visit(x):
+        if isinstance(x, (lp.InSubqueryExpr, lp.QuantifiedCmpExpr)):
+            if x.expr.dtype.is_dictionary or \
+                    x.plan.schema().field(0).data_type.is_dictionary:
+                found.append(x)
+        elif isinstance(x, lp.CorrelatedLookupExpr):
+            fields = x.plan.schema().fields
+            if any(k.dtype.is_dictionary or f.data_type.is_dictionary
+                   for k, f in zip(x.outer_keys, fields)):
+                found.append(x)
+        elif isinstance(x, lp.ScalarFnExpr) \
+                and x.func is lp.ScalarFn.SUBSTRING:
+            found.append(x)
         if isinstance(x, lp.BinaryExpr):
             if (x.left.dtype.is_dictionary or x.right.dtype.is_dictionary) \
                     and temporal_literal(x) is None:
@@ -290,15 +321,26 @@ def _torch_dtype(t: DataType) -> torch.dtype:
 
 
 class Evaluator:
-    """Evaluates LogicalExprs over a batch; literals are made on `device`."""
+    """Evaluates LogicalExprs over a batch; literals are made on `device`.
+    `subquery_exec` (physical plan -> ColumnBatch) runs a subquery's plan;
+    the executor supplies its own `execute`."""
 
-    def __init__(self, device="cpu", udfs=None):
+    def __init__(self, device="cpu", udfs=None, subquery_exec=None):
         self.device = torch.device(device)
         self.udfs = udfs
+        self.subquery_exec = subquery_exec
+        # per query: the rank match of an outer batch's keys against a
+        # shared (multiply referenced) subplan's keys, which several
+        # correlated lookups rooted at one shared aggregate repeat (Q21's
+        # EXISTS and MIN/MAX bounds); the Session clears it around a query
+        self._corr_match_memo = {}
         # while the compiled pipeline runs a program body: id(Literal) ->
         # 0-d tensor holding its value, so one program serves every value
         # of the literal (engine/pipeline.py)
         self._dyn_literals = None
+        # while the compiled pipeline runs a program body: id(subplan) ->
+        # the batch the pipeline materialized for it before the program ran
+        self._subplans = None
 
     # ---- public --------------------------------------------------------
     def eval(self, e: lp.LogicalExpr, batch: ColumnBatch) -> Val:
@@ -337,9 +379,11 @@ class Evaluator:
                                           device=dv.device), e.target)
             return self._eval_cast(e, batch)
         if isinstance(e, lp.ScalarFnExpr):
-            if e.func is not lp.ScalarFn.EXTRACT:
-                raise _unsupported(e)
-            return self._eval_extract(e, batch)
+            if e.func is lp.ScalarFn.EXTRACT:
+                return self._eval_extract(e, batch)
+            if e.func is lp.ScalarFn.SUBSTRING:
+                return self._eval_substring(e, batch)
+            raise _unsupported(e)
         if isinstance(e, lp.CaseExpr):
             return self._eval_case(e, batch)
         if isinstance(e, lp.InListExpr):
@@ -350,6 +394,16 @@ class Evaluator:
             return Val(data, torch.ones(cap, dtype=torch.bool,
                                         device=self.device),
                        DataType.boolean())
+        if isinstance(e, lp.ScalarSubqueryExpr):
+            return self._eval_scalar_subquery(e, batch)
+        if isinstance(e, lp.InSubqueryExpr):
+            return self._eval_in_subquery(e, batch)
+        if isinstance(e, lp.QuantifiedCmpExpr):
+            return self._eval_quantified_cmp(e, batch)
+        if isinstance(e, lp.ExistsExpr):
+            return self._eval_exists(e, batch)
+        if isinstance(e, lp.CorrelatedLookupExpr):
+            return self._eval_correlated_lookup(e, batch)
         if isinstance(e, lp.AggregateExpr):
             raise ExecutionError(
                 "aggregate expression outside aggregation context"
@@ -544,6 +598,236 @@ class Evaluator:
         else:
             raise ExecutionError(f"EXTRACT field '{field}' not supported")
         return Val(out.to(torch.int64), valid, DataType.int64())
+
+    # ---- SUBSTRING -------------------------------------------------------
+    @staticmethod
+    def _static_num(expr: lp.LogicalExpr, val: Val):
+        """A numeric argument the host needs (SUBSTRING's start and length),
+        read from the expression node when it is a (negated) literal, else
+        from the evaluated value's first row (a device read)."""
+        x, neg = expr, False
+        while isinstance(x, (lp.AliasExpr, lp.UnaryExpr)):
+            if isinstance(x, lp.UnaryExpr):
+                if x.op is not lp.UnOp.NEG:
+                    break
+                neg = not neg
+            x = x.expr
+        if isinstance(x, lp.Literal) and x.value.value is not None \
+                and not isinstance(x.value.value, str):
+            v = x.value.value
+            return -v if neg else v
+        return val.data[0].item()
+
+    def _eval_substring(self, e: lp.ScalarFnExpr, batch: ColumnBatch) -> Val:
+        """SUBSTRING(s, start[, length]), 1-based, over the dictionary on
+        the host: one slice per distinct string, one gather per row."""
+        args = [self.eval(a, batch) for a in e.args]
+        start = int(self._static_num(e.args[1], args[1]))
+        length = (int(self._static_num(e.args[2], args[2]))
+                  if len(args) > 2 else None)
+        lo = max(start - 1, 0)
+
+        def sub(s):
+            return s[lo:lo + length] if length is not None else s[lo:]
+
+        return _dict_map_host(args[0], sub, ("SUBSTRING", lo, length))
+
+    # ---- subqueries ------------------------------------------------------
+    @staticmethod
+    def _shared_root_id(p):
+        """id() of the shared (multiply referenced) physical subplan a
+        lookup's plan is rooted at, else None. Walks only the row-preserving
+        wrappers (PSubquery renames, PProjection)."""
+        while p is not None:
+            if isinstance(p, pp.PSubquery):
+                return id(p.input) if p.shared else None
+            if not isinstance(p, pp.PProjection):
+                return None
+            p = p.input
+        return None
+
+    def _run_subplan(self, plan) -> ColumnBatch:
+        """The subquery's result batch: inside a program body the one the
+        pipeline fed in, else the plan run now. A plan never runs while a
+        CUDA stream captures a graph."""
+        if self._subplans is not None:
+            sub = self._subplans.get(id(plan))
+            if sub is None:
+                raise ExecutionError("a subquery's batch was not fed to the "
+                                     "program that reads it")
+            return sub
+        if self.device.type == "cuda" and \
+                torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("a subquery plan would run inside a CUDA "
+                               "graph capture")
+        if self.subquery_exec is None:
+            raise ExecutionError("subquery execution not available here")
+        return self.subquery_exec(plan)
+
+    def _eval_scalar_subquery(self, e: lp.ScalarSubqueryExpr,
+                              batch: ColumnBatch) -> Val:
+        """The first row's value broadcast to every row; NULL when the
+        subquery returned no rows. No device read."""
+        sub = self._run_subplan(e.plan)
+        col = sub.columns[0]
+        cap = batch.capacity
+        has = K.live_mask(sub.capacity, sub.num_rows, col.data.device)[0]
+        return Val(col.data[0].expand(cap), (has & col.validity[0]).expand(cap),
+                   e.dtype, col.dictionary)
+
+    def _sub_column(self, v: Val, scol):
+        """(probe, build) planes of a value against a subquery column:
+        dictionary codes remapped onto one merged dictionary, else float64
+        when either side is a float, else int64."""
+        if v.dictionary is not None or scol.dictionary is not None:
+            sval = Val(scol.data, scol.validity, DataType.utf8(),
+                       scol.dictionary)
+            v2, s2 = unify_dicts(v, sval)
+            return v2.data.to(torch.int64), s2.data.to(torch.int64)
+        t = torch.float64 if (v.dtype.is_float or scol.dtype.is_float) \
+            else torch.int64
+        return v.data.to(t), scol.data.to(t)
+
+    def _eval_in_subquery(self, e: lp.InSubqueryExpr,
+                          batch: ColumnBatch) -> Val:
+        """x [NOT] IN (subquery), three-valued: TRUE when x is among the
+        subquery's values; NULL when x is NULL, or when x is not found and
+        the subquery holds a NULL; else FALSE. NOT IN negates the value and
+        keeps the NULLs."""
+        sub = self._run_subplan(e.plan)
+        v = self.eval(e.expr, batch)
+        scol = sub.columns[0]
+        probe, build = self._sub_column(v, scol)
+        lm = K.live_mask(sub.capacity, sub.num_rows, build.device)
+        sub_has_null = (lm & ~scol.validity).any()
+        lr, rr = K.join_ranks([(probe, v.validity)], [(build, scol.validity)],
+                              batch.num_rows, sub.num_rows)
+        found = K.rank_member(lr, rr, lm)
+        valid = v.validity & (found | ~sub_has_null)
+        return Val(~found if e.negated else found, valid, DataType.boolean())
+
+    def _eval_quantified_cmp(self, e: lp.QuantifiedCmpExpr,
+                             batch: ColumnBatch) -> Val:
+        """x op ANY|ALL (S): S reduces to the MIN and MAX of its non-NULL
+        values, with PostgreSQL's three-valued logic. x > ANY(S) <=> x >
+        MIN(S); x > ALL(S) <=> x > MAX(S); <> ANY and = ALL test both
+        extremes. ANY is TRUE when the extreme test passes, FALSE when it
+        fails with no NULL in play, else NULL; over an empty S it is FALSE
+        even for a NULL x. ALL mirrors it with TRUE and FALSE swapped, and is
+        TRUE over an empty S. (= ANY and <> ALL are planned as [NOT] IN.)"""
+        sub = self._run_subplan(e.plan)
+        v = self.eval(e.expr, batch)
+        scol = sub.columns[0]
+        svalid = scol.validity
+        if v.dictionary is not None and scol.dictionary is not None:
+            # sorted dictionaries: code order is string order
+            x, sd = self._sub_column(v, scol)
+        elif v.dictionary is not None or scol.dictionary is not None:
+            # strings against non-strings: legal only when the string side
+            # holds no value (an all-NULL column types as utf8 with an
+            # empty dictionary), so it contributes only NULLs
+            strside = v if v.dictionary is not None else scol
+            if any(s != "" for s in strside.dictionary.values):
+                raise ExecutionError(
+                    "cannot compare string and non-string in ANY/ALL")
+            if v.dictionary is not None:
+                x = torch.zeros(v.data.shape, dtype=torch.int64,
+                                device=v.data.device)
+                v = Val(v.data, torch.zeros_like(v.validity), v.dtype)
+                sd = scol.data.to(torch.int64)
+            else:
+                x = v.data.to(torch.int64)
+                sd = torch.zeros(scol.data.shape, dtype=torch.int64,
+                                 device=scol.data.device)
+                svalid = torch.zeros_like(svalid)
+        else:
+            x, sd = self._sub_column(v, scol)
+        lm = K.live_mask(sub.capacity, sub.num_rows, sd.device)
+        nn = lm & svalid
+        nonempty = lm.any()
+        has_nonnull = nn.any()
+        has_null = (lm & ~svalid).any()
+        big = (torch.finfo(sd.dtype).max if sd.is_floating_point()
+               else torch.iinfo(sd.dtype).max)
+        mn = torch.where(nn, sd, torch.full_like(sd, big)).min()
+        mx = torch.where(nn, sd, torch.full_like(sd, -big)).max()
+        O = lp.BinOp
+        if e.is_any:
+            cand = {
+                O.GT: lambda: x > mn, O.GTE: lambda: x >= mn,
+                O.LT: lambda: x < mx, O.LTE: lambda: x <= mx,
+                O.NEQ: lambda: (x != mn) | (x != mx),
+            }[e.op]()
+            true_m = v.validity & has_nonnull & cand
+            false_m = ~nonempty | (v.validity & ~has_null & has_nonnull
+                                   & ~cand)
+            return Val(true_m, true_m | false_m, DataType.boolean())
+        cand = {
+            O.GT: lambda: x > mx, O.GTE: lambda: x >= mx,
+            O.LT: lambda: x < mn, O.LTE: lambda: x <= mn,
+            O.EQ: lambda: (x == mn) & (x == mx),
+        }[e.op]()
+        true_m = ~nonempty | (v.validity & ~has_null & has_nonnull & cand)
+        false_m = v.validity & has_nonnull & ~cand
+        return Val(true_m, true_m | false_m, DataType.boolean())
+
+    def _eval_correlated_lookup(self, e: lp.CorrelatedLookupExpr,
+                                batch: ColumnBatch) -> Val:
+        """A decorrelated subquery: its grouped subplan runs once, the outer
+        batch's key expressions are rank-matched against its key columns
+        (unique per group), and the value column (or, for EXISTS, the found
+        mask) is gathered per outer row. Never one execution per row."""
+        sub = self._run_subplan(e.plan)
+        nk = len(e.outer_keys)
+        mkey = None
+        if self._subplans is None:  # eager only: a program keeps no memo
+            sid = self._shared_root_id(e.plan)
+            if sid is not None:
+                mkey = (id(batch), sid, tuple(id(k) for k in e.outer_keys))
+        hit = self._corr_match_memo.get(mkey) if mkey is not None else None
+        if hit is not None:
+            _, row, found = hit
+        else:
+            okeys, skeys = [], []
+            for i, ke in enumerate(e.outer_keys):
+                ov = self.eval(ke, batch)
+                sc = sub.columns[i]
+                sv = Val(sc.data, sc.validity, sc.dtype, sc.dictionary)
+                if ov.dictionary is not None or sv.dictionary is not None:
+                    ov, sv = unify_dicts(ov, sv)
+                okeys.append((ov.data, ov.validity))
+                skeys.append((sv.data, sv.validity))
+            lr, rr = K.join_ranks(okeys, skeys, batch.num_rows, sub.num_rows)
+            row, found = K.fk_join_right_lookup(lr, rr, batch.num_rows,
+                                                sub.num_rows)
+            if mkey is not None:
+                # the batch rides along so its id stays its own
+                self._corr_match_memo[mkey] = (batch, row, found)
+        if e.mode == "exists":
+            return Val(~found if e.negated else found,
+                       torch.ones(batch.capacity, dtype=torch.bool,
+                                  device=found.device), DataType.boolean())
+        vcol = sub.columns[nk]
+        data = vcol.data[row]
+        valid = found & vcol.validity[row]
+        if e.miss_value is not None and e.miss_value.value is not None:
+            data = torch.where(found, data, torch.full_like(
+                data, e.miss_value.value))
+            valid = valid | ~found
+        return Val(data, valid, e.dtype, vcol.dictionary)
+
+    def _eval_exists(self, e: lp.ExistsExpr, batch: ColumnBatch) -> Val:
+        """[NOT] EXISTS (uncorrelated subquery): whether it has a row, for
+        every outer row; never NULL."""
+        sub = self._run_subplan(e.plan)
+        ref = sub.columns[0].data if sub.columns else None
+        dev = ref.device if ref is not None else self.device
+        hit = K.live_mask(sub.capacity, sub.num_rows, dev)[0]
+        if e.negated:
+            hit = ~hit
+        return Val(hit.expand(batch.capacity),
+                   torch.ones(batch.capacity, dtype=torch.bool, device=dev),
+                   DataType.boolean())
 
     # ---- CASE / IN -------------------------------------------------------
     def _eval_case(self, e: lp.CaseExpr, batch: ColumnBatch) -> Val:

@@ -35,11 +35,16 @@ cached multiplicity stat of 1 on a leaf column) trace in-segment through
 the FK fast paths. Any other join is demoted to an eager leaf: the segment
 above it still compiles, with the join's result fed in as a leaf batch.
 A derived table (a subquery in FROM) is a pass-through node that renames
-its child's columns. Constructs outside the slice (outer and general-emit
-joins, DISTINCT, windows, set operations, shared CTEs and other subqueries,
-functions the evaluator lacks) raise _Unsupported and run eagerly, per
-subtree. On CUDA so do the expressions that build a table on the host
-(string comparisons, string IN, LIKE: `expr_eval.builds_host_table`); a
+its child's columns. A shared WITH query (referenced more than once) is a
+leaf boundary: the executor materializes it once per query and every
+reference reads that batch. A subquery expression's plan runs eagerly
+before the program runs or is captured, and its result batch is one more
+program input, read in the body through `Evaluator._subplans`: a program
+never runs a plan. Constructs outside the slice (outer and general-emit
+joins, DISTINCT nodes, windows, set operations, functions the evaluator
+lacks) raise _Unsupported and run eagerly, per subtree. On CUDA so do the
+expressions that build a table on the host (string comparisons, string IN,
+LIKE, SUBSTRING, string-keyed subqueries: `expr_eval.builds_host_table`); a
 date compared with a string literal is not one of them, since the parsed
 literal (`expr_eval.temporal_literal`) is a program input.
 
@@ -286,6 +291,11 @@ _TRACEABLE_BINOPS = {
 }
 
 
+# subquery expressions: their plans run before the program (_SegCtx.sub_exprs)
+_SUBQUERY_EXPRS = (lp.ScalarSubqueryExpr, lp.InSubqueryExpr, lp.ExistsExpr,
+                   lp.QuantifiedCmpExpr, lp.CorrelatedLookupExpr)
+
+
 def _expr_traceable(e: lp.LogicalExpr) -> bool:
     """Static check that a program body can evaluate the expression: the
     node kinds and operators the port's evaluator supports (JAX's rule
@@ -301,11 +311,11 @@ def _expr_traceable(e: lp.LogicalExpr) -> bool:
             if x.value.dtype.kind is TypeKind.DECIMAL128:
                 bad.append(x)
         elif isinstance(x, lp.ScalarFnExpr):
-            if x.func is not lp.ScalarFn.EXTRACT:
+            if x.func not in (lp.ScalarFn.EXTRACT, lp.ScalarFn.SUBSTRING):
                 bad.append(x)
         elif not isinstance(x, (lp.ColumnRef, lp.AliasExpr, lp.UnaryExpr,
                                 lp.CastExpr, lp.IsNullExpr, lp.CaseExpr,
-                                lp.InListExpr)):
+                                lp.InListExpr) + _SUBQUERY_EXPRS):
             bad.append(x)
 
     lp.walk_exprs(e, visit)
@@ -329,7 +339,12 @@ def _expr_key(e: lp.LogicalExpr, ctx=None):
     one program serves every value (`age > 25` and `age > 30`). A date
     literal (`d < '1995-03-15'`, `DATE '1995-01-01'`) is parsed here and
     becomes an int input the same way: a replay with another date reads the
-    new value."""
+    new value.
+
+    With a _SegCtx, a subquery expression keys only its outer computation
+    and is collected into ctx.sub_exprs: its plan runs before the program
+    and its result batch is a program input (its capacity and types key the
+    program through the entry key's sub_sigs)."""
     if isinstance(e, lp.ColumnRef):
         return ("col", e.index, str(e.dtype))
     if isinstance(e, lp.Literal):
@@ -364,7 +379,11 @@ def _expr_key(e: lp.LogicalExpr, ctx=None):
         return ("cast", str(e.target), _dyn_int(e, value, ctx) if node is e
                 else _expr_key(e.expr, ctx))
     if isinstance(e, lp.ScalarFnExpr):
-        return ("fn", e.func.value, tuple(_expr_key(a, ctx) for a in e.args))
+        # SUBSTRING's start and length are read on the host: static
+        return ("fn", e.func.value, tuple(
+            _expr_key(a, ctx if i == 0 or e.func is not lp.ScalarFn.SUBSTRING
+                      else None)
+            for i, a in enumerate(e.args)))
     if isinstance(e, lp.CaseExpr):
         return (
             "case",
@@ -382,6 +401,21 @@ def _expr_key(e: lp.LogicalExpr, ctx=None):
             "agg", e.func.value, e.distinct,
             None if e.expr is None else _expr_key(e.expr, ctx),
         )
+    if ctx is not None and isinstance(e, _SUBQUERY_EXPRS):
+        if isinstance(e, lp.ScalarSubqueryExpr):
+            key = ("ssub", str(e.dtype))
+        elif isinstance(e, lp.InSubqueryExpr):
+            key = ("insub", e.negated, _expr_key(e.expr, ctx))
+        elif isinstance(e, lp.ExistsExpr):
+            key = ("exists", e.negated)
+        elif isinstance(e, lp.QuantifiedCmpExpr):
+            key = ("qcmp", e.op.value, e.is_any, _expr_key(e.expr, ctx))
+        else:
+            key = ("corr", e.mode, e.negated,
+                   None if e.miss_value is None else repr(e.miss_value.value),
+                   tuple(_expr_key(k, ctx) for k in e.outer_keys))
+        ctx.sub_exprs.append(e)
+        return key
     raise _Unsupported(f"expr {type(e).__name__}")
 
 
@@ -416,15 +450,17 @@ _KERNEL_FUNCS = (lp.AggFunc.SUM, lp.AggFunc.COUNT, lp.AggFunc.AVG)
 
 class _SegCtx:
     """Per-analysis context: joins forced to eager boundaries, join
-    duplication checks, and dynamic-literal collection."""
+    duplication checks, dynamic-literal and subquery collection."""
 
-    __slots__ = ("forced", "checks", "dyn_vals", "dyn_exprs")
+    __slots__ = ("forced", "checks", "dyn_vals", "dyn_exprs", "sub_exprs")
 
     def __init__(self, forced):
         self.forced = forced
         self.checks = []  # (join node, left provenance, right provenance)
         self.dyn_vals = []   # (tag, python value), traversal order
         self.dyn_exprs = []  # the literal exprs (kept alive via entry.plan)
+        self.sub_exprs = []  # subquery exprs, traversal order: their plans
+        # run before the program, their batches are program inputs
 
 
 class CompiledPipeline:
@@ -492,25 +528,33 @@ class CompiledPipeline:
             if not demoted:
                 break
 
+        # subquery plans run now, before the program runs or is captured;
+        # their result batches are program inputs after the leaves
+        subs = [self._materialize_leaf(x.plan, "subplan")
+                for x in ctx.sub_exprs]
         dyn_vals = tuple(ctx.dyn_vals)
         leaf_sigs = tuple(self._leaf_sig(b) for b in leaves)
+        sub_sigs = tuple(self._leaf_sig(b) for b in subs)
         sides = tuple(res[id(j)] for j, _, _ in ctx.checks)
-        key = (key_body, leaf_sigs, sides,
+        key = (key_body, leaf_sigs, sub_sigs, sides,
                tuple(tag for tag, _ in dyn_vals))
         entry = self._cache.get(key)
+        inputs = leaves + subs
 
         if entry is None:
             entry = _Entry(plan, leaves)
             entry.leaf_ids = frozenset(map(id, leaf_nodes))
             entry.res = res
             entry.dyn_exprs = list(ctx.dyn_exprs)
+            entry.sub_exprs = list(ctx.sub_exprs)
+            entry.subs = subs
             entry.leaf_bounds = [
                 [None if (bb := _bucket_bounds(_col_bounds(c))) is None
                  or bb == ("big",) else bb for c in b.columns]
                 for b in leaves
             ]
             try:
-                out = self._first_run(entry, leaves, dyn_vals)
+                out = self._first_run(entry, inputs, dyn_vals)
             except _TRACE_ERRORS:
                 self._eager_bodies.add(key_body)
                 self.stats["fallbacks"] += 1
@@ -519,7 +563,7 @@ class CompiledPipeline:
             self.stats["compiles"] += 1
         else:
             self.stats["hits"] += 1
-            out = self._rerun(entry, leaves, dyn_vals)
+            out = self._rerun(entry, inputs, dyn_vals)
 
         datas, valids, sel, count = out
         count = self.executor._host_int(count)
@@ -549,8 +593,12 @@ class CompiledPipeline:
 
     # ---- running a program -------------------------------------------------
     def _body(self, entry, planes, n_bufs, dyn_bufs):
-        """The program: the plan segment over the leaf planes, row-count
-        tensors and literal tensors. Reads nothing from the device."""
+        """The program: the plan segment over the input planes (the leaves',
+        then the subquery batches'), row-count tensors and literal tensors.
+        Reads nothing from the device."""
+        batches = entry.leaves + entry.subs
+        bounds = entry.leaf_bounds + [[None] * len(b.columns)
+                                      for b in entry.subs]
         tables = [
             _TTable(
                 schema=b.schema,
@@ -561,20 +609,25 @@ class CompiledPipeline:
                 sel=K.live_mask(b.capacity, n),
                 capacity=b.capacity,
                 dense=True,
-                bounds=list(bounds),
+                bounds=list(bd),
             )
-            for pl, n, b, bounds in zip(planes, n_bufs, entry.leaves,
-                                        entry.leaf_bounds)
+            for pl, n, b, bd in zip(planes, n_bufs, batches, bounds)
         ]
+        n_leaves = len(entry.leaves)
         ev = self.executor.evaluator
         ev._dyn_literals = {
             id(e): v for e, v in zip(entry.dyn_exprs, dyn_bufs)
         }
+        ev._subplans = {
+            id(x.plan): _ShimBatch(t)
+            for x, t in zip(entry.sub_exprs, tables[n_leaves:])
+        }
         try:
-            t = self._trace(entry.plan, iter(tables), entry.leaf_ids,
-                            entry.res)
+            t = self._trace(entry.plan, iter(tables[:n_leaves]),
+                            entry.leaf_ids, entry.res)
         finally:
             ev._dyn_literals = None
+            ev._subplans = None
         if not entry.meta:
             entry.meta.update(
                 schema=t.schema,
@@ -586,32 +639,33 @@ class CompiledPipeline:
         return ([c.data for c in t.cols], [c.validity for c in t.cols],
                 t.sel, count)
 
-    def _inputs(self, leaves, dyn_vals):
+    def _inputs(self, batches, dyn_vals):
         dev = self.executor.device
-        planes = [[(c.data, c.validity) for c in b.columns] for b in leaves]
+        planes = [[(c.data, c.validity) for c in b.columns] for b in batches]
         n_bufs = [torch.tensor(b.num_rows, dtype=torch.int64, device=dev)
-                  for b in leaves]
+                  for b in batches]
         dyn_bufs = [torch.tensor(v, dtype=_DYN_DTYPES[tag], device=dev)
                     for tag, v in dyn_vals]
         return planes, n_bufs, dyn_bufs
 
-    def _first_run(self, entry, leaves, dyn_vals):
+    def _first_run(self, entry, batches, dyn_vals):
         """Run the body once eagerly; on CUDA, then capture it."""
-        planes, n_bufs, dyn_bufs = self._inputs(leaves, dyn_vals)
+        planes, n_bufs, dyn_bufs = self._inputs(batches, dyn_vals)
         out = self._body(entry, planes, n_bufs, dyn_bufs)
         if self._graphs:
             self._capture(entry, planes, n_bufs, dyn_bufs)
         return out
 
-    def _rerun(self, entry, leaves, dyn_vals):
+    def _rerun(self, entry, batches, dyn_vals):
         if entry.graph is None:  # CPU: run the body again
-            return self._body(entry, *self._inputs(leaves, dyn_vals))
-        planes = [[(c.data, c.validity) for c in b.columns] for b in leaves]
+            return self._body(entry, *self._inputs(batches, dyn_vals))
+        planes = [[(c.data, c.validity) for c in b.columns] for b in batches]
         if _ptrs(planes) != entry.ptrs:
-            # a leaf's planes changed (table registered anew): the graph
-            # would read the old addresses, so capture over the new ones
+            # an input's planes changed (a table registered anew, an eager
+            # leaf's or a subquery's new batch): the graph would read the
+            # old addresses, so capture over the new ones
             self._capture(entry, planes, entry.n_bufs, entry.dyn_bufs)
-        for buf, b in zip(entry.n_bufs, leaves):
+        for buf, b in zip(entry.n_bufs, batches):
             buf.fill_(b.num_rows)
         for buf, (_, v) in zip(entry.dyn_bufs, dyn_vals):
             buf.fill_(v)
@@ -657,14 +711,16 @@ class CompiledPipeline:
         """Key a child subtree; an unsupported child becomes a leaf boundary
         (executed eagerly) instead of abandoning the segment above it."""
         cp_checks, cp_dyn = len(ctx.checks), len(ctx.dyn_vals)
+        cp_sub = len(ctx.sub_exprs)
         try:
             return self._plan_key(plan, ctx)
         except _Unsupported:
             # drop state collected by the failed subtree: phantom dyn
-            # literals would misalign against the key's slots
+            # literals or subplans would misalign against the key's slots
             del ctx.checks[cp_checks:]
             del ctx.dyn_vals[cp_dyn:]
             del ctx.dyn_exprs[cp_dyn:]
+            del ctx.sub_exprs[cp_sub:]
             return ("leaf",), [plan], 0
 
     def _plan_key(self, plan, ctx):
@@ -715,8 +771,7 @@ class CompiledPipeline:
         if isinstance(plan, pp.PHashAggregate):
             if plan.mode != "single":
                 raise _Unsupported("distributed aggregate mode")
-            if any(a.func not in _AGG_FUNCS or a.distinct
-                   for a in plan.agg_exprs):
+            if any(a.func not in _AGG_FUNCS for a in plan.agg_exprs):
                 raise _Unsupported("aggregate function")
             exprs = list(plan.group_exprs) + [
                 a.expr for a in plan.agg_exprs if a.expr is not None
@@ -740,8 +795,10 @@ class CompiledPipeline:
             )
         if isinstance(plan, pp.PSubquery):
             if plan.shared:
-                # a WITH query referenced more than once: not in the slice
-                raise _Unsupported("shared CTE")
+                # a WITH query referenced more than once: a leaf boundary,
+                # so the executor materializes it ONCE and every reference
+                # (this segment, others, subquery plans) reads that batch
+                raise _Unsupported("shared CTE (materialized once)")
             # a derived table: a pass-through node that renames its child
             body, leaves, n = self._child(plan.input, ctx)
             return ("subq", tuple(plan.out_schema.names()), body), leaves, n
@@ -907,10 +964,12 @@ class CompiledPipeline:
             b = self._materialize_leaf(node)  # cheap: stored batch
         return b
 
-    def _materialize_leaf(self, node) -> ColumnBatch:
+    def _materialize_leaf(self, node, kind=None) -> ColumnBatch:
+        """An eager subtree's batch (a table scan's stored one); `kind`
+        names it in leaf_kinds, by default its node type."""
         if isinstance(node, pp.PScan):
             return self.executor._exec_scan(node)
-        self.leaf_kinds[type(node).__name__[1:]] += 1
+        self.leaf_kinds[kind or type(node).__name__[1:]] += 1
         self._leaf_depth += 1
         t0 = time.perf_counter()
         try:
@@ -1283,7 +1342,10 @@ class CompiledPipeline:
                 items.append((data, ok_mask))
 
         def eligible(agg, av):
+            # DISTINCT aggregates take the segment route with their dedup
+            # plane (as in the JAX package)
             return (use_kernel and agg.func in _KERNEL_FUNCS
+                    and not agg.distinct
                     and (av is None or (av.dictionary is None
                                         and av.data.dtype != torch.bool)))
 
@@ -1330,7 +1392,16 @@ class CompiledPipeline:
             else:
                 fname = func.value.lower()
                 data, validity, arg_dict = av.data, av.validity, av.dictionary
-            if not plan.group_exprs:
+            distinct_first = None
+            if agg.distinct and av is not None:
+                distinct_first = K.distinct_first_flags(
+                    [data], [validity], gid, sel)
+            if plan.group_exprs or distinct_first is not None:
+                vals, valid = K.segment_aggregate(
+                    fname, data, validity, gid, sel, S,
+                    distinct_first=distinct_first,
+                )
+            else:
                 vals, valid = K.global_aggregate(
                     fname,
                     data if data is not None else torch.zeros(
@@ -1338,10 +1409,6 @@ class CompiledPipeline:
                     validity if validity is not None else torch.ones(
                         cap, dtype=torch.bool, device=dev),
                     sel, S,
-                )
-            else:
-                vals, valid = K.segment_aggregate(
-                    fname, data, validity, gid, sel, S,
                 )
             out_d = vals[:S]
             out_v = valid[:S]
@@ -1379,8 +1446,8 @@ class _Entry:
     on CUDA, the captured graph with the tensors it reads and writes."""
 
     __slots__ = ("plan", "leaves", "leaf_ids", "res", "dyn_exprs",
-                 "leaf_bounds", "meta", "graph", "outputs", "planes", "ptrs",
-                 "n_bufs", "dyn_bufs")
+                 "sub_exprs", "subs", "leaf_bounds", "meta", "graph",
+                 "outputs", "planes", "ptrs", "n_bufs", "dyn_bufs")
 
     def __init__(self, plan, leaves):
         self.plan = plan
@@ -1388,6 +1455,8 @@ class _Entry:
         self.leaf_ids = frozenset()
         self.res = {}
         self.dyn_exprs = []
+        self.sub_exprs = []  # subquery exprs of `plan`, traversal order
+        self.subs = []  # their first batches (schemas, dictionary refs)
         self.leaf_bounds = []
         self.meta = {}
         self.graph = None     # torch.cuda.CUDAGraph once captured

@@ -157,6 +157,16 @@ class Session:
         ).lower(plan)
         t1 = time.perf_counter()
         self.last_timing.plan_ms += (t1 - t0) * 1e3
-        out = self.executor.execute(pplan)
+        # shared WITH batches and correlated key matches live for one query
+        # (their keys are id()s of this query's plan nodes and batches)
+        self._clear_query_memos()
+        try:
+            out = self.executor.execute(pplan)
+        finally:
+            self._clear_query_memos()
         self.last_timing.execute_ms += (time.perf_counter() - t1) * 1e3
         return out
+
+    def _clear_query_memos(self) -> None:
+        self.executor._cte_memo.clear()
+        self.executor.evaluator._corr_match_memo.clear()

@@ -602,6 +602,7 @@ def segment_aggregate(
     gid: torch.Tensor,
     num_rows,
     num_segments: int,
+    distinct_first: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One aggregate over segments. Returns (values[num_segments],
     valid[num_segments]).
@@ -614,6 +615,9 @@ def segment_aggregate(
     `group_agg.grouped_sums_counts_multi` call: one kernel launch on a
     CUDA tensor (floats in fixed point), int64 and float64 `index_add_`s
     on the CPU.
+
+    distinct_first: the dedup plane of a DISTINCT aggregate
+    (`distinct_first_flags`); only the rows it marks are aggregated.
     """
     capacity = gid.shape[0]
     device = gid.device
@@ -622,6 +626,8 @@ def segment_aggregate(
     if func != "count_star" and (data is None or validity is None):
         raise ValueError(f"aggregate {func} needs a data and validity plane")
     ok = lm if func == "count_star" else lm & validity
+    if distinct_first is not None:
+        ok = ok & distinct_first
     value = data if func in ("sum", "avg") else None
     s, cnt = group_agg.grouped_sums_counts_multi(
         [(value, ok)], gid, num_segments)[0]
@@ -704,6 +710,41 @@ def global_aggregate(
     valid = torch.zeros(out_len, dtype=torch.bool, device=device)
     valid[0] = has
     return out, valid
+
+
+def distinct_first_flags(
+    key_datas: Sequence[torch.Tensor],
+    key_valids: Sequence[torch.Tensor],
+    gid: torch.Tensor,
+    num_rows,
+) -> torch.Tensor:
+    """True for the first occurrence of each (group, value) pair among the
+    live rows: the dedup plane of DISTINCT aggregates. NULL values form one
+    value per group. One stable sort on (pad, gid), (null, key) operands:
+    pad rows sort last, so a live row is never the repeat of a pad row."""
+    capacity = gid.shape[0]
+    device = gid.device
+    pad = ~live_mask(capacity, num_rows, device)
+    # gid < 2^40: the pad flag rides above it in one operand
+    operands: List[torch.Tensor] = [(pad.to(torch.int64) << 40)
+                                    | gid.to(torch.int64)]
+    for data, valid in zip(key_datas, key_valids):
+        key, null = normalize_key(data, valid)
+        if key.dtype == torch.int32:
+            operands.append((null.to(torch.int64) << 32) | _u32_image(key))
+        else:
+            operands.append(null.to(torch.int32))
+            operands.append(key)
+    sperm = _lexsort(operands)
+    idx = torch.arange(capacity, device=device)
+    change = idx == 0
+    # equality over (gid, null, key): the pad flag only orders
+    for k in [gid.to(torch.int64)] + operands[1:]:
+        k = k[sperm]
+        change = change | ((idx > 0) & (k != torch.roll(k, 1)))
+    first = torch.zeros(capacity, dtype=torch.bool, device=device)
+    first[sperm] = change
+    return first
 
 
 # ---------------------------------------------------------------------------
@@ -886,6 +927,21 @@ def fk_join_right_lookup(
     ri = torch.where(l_ok, table[left_ranks.clamp(0, n_ranks - 1)], -1)
     matched = ri >= 0
     return torch.where(matched, ri, 0), matched
+
+
+def rank_member(lr: torch.Tensor, rr: torch.Tensor, r_live: torch.Tensor,
+                n_ranks: Optional[int] = None) -> torch.Tensor:
+    """member[i] = probe rank lr[i] occurs among the live right ranks (IN
+    subquery membership): one presence scatter over the rank space and one
+    probe gather. Negative (NULL-key) ranks are never members."""
+    cap_l = lr.shape[0]
+    cap_r = rr.shape[0]
+    if n_ranks is None:
+        n_ranks = cap_l + cap_r
+    r_ok = r_live & (rr >= 0)
+    pres = _scatter_drop(n_ranks, torch.where(r_ok, rr, n_ranks), True,
+                         False, torch.bool)
+    return (lr >= 0) & pres[lr.clamp(0, n_ranks - 1)]
 
 
 def unmatched_indices(matched: torch.Tensor, num_rows, out_capacity: int):

@@ -1,12 +1,17 @@
-"""A numpy oracle for each of the twelve queries of `queries.py`.
+"""A numpy oracle for each of the 22 queries of `queries.py`.
 
 Each oracle computes a query's rows straight from the host tables of
 `data.generate`, independently of the engine: every primary key is
 `arange`, so a join is a fancy-index lookup (partsupp's two-column key goes
 through one `searchsorted`), a GROUP BY is a `bincount` over a dense group
-code, and a string predicate is evaluated once per dictionary value. The
-rows come in the form `ColumnBatch.to_pylist()` gives them (str, int,
-float, `datetime.date`), ordered by the query's ORDER BY.
+code, and a string predicate is evaluated once per dictionary value. A
+subquery is computed once over its whole table (a per-key MIN, SUM or
+average, a membership mask) and looked up per row. The rows come in the
+form `ColumnBatch.to_pylist()` gives them (str, int, float,
+`datetime.date`), ordered by the query's ORDER BY.
+
+`margins(tables)` gives, for the queries that compare a row with an
+aggregate (Q11, Q17, Q20, Q22), how close a row came to its threshold.
 
 `compare(got, want, float_keys)` holds an engine's rows against these:
 integers, strings and dates exactly, floats at rtol 1e-9; rows whose float
@@ -303,14 +308,266 @@ def q19(T):
     return [(_global_sum(li.l_extendedprice[m] * (1 - li.l_discount[m])),)]
 
 
+def _in_region(T, name: str) -> np.ndarray:
+    """Per supplier: its nation lies in region `name`."""
+    s, n, r = T["supplier"], T["nation"], T["region"]
+    return r.is_("r_name", name)[n.n_regionkey[s.s_nationkey]]
+
+
+def _margin(x: np.ndarray, thr) -> float:
+    """Smallest relative distance of a value from its threshold (inf when
+    there is none): how close a row came to the other side."""
+    x, thr = np.asarray(x, np.float64), np.broadcast_to(
+        np.asarray(thr, np.float64), np.shape(x))
+    live = thr != 0
+    if not live.any():
+        return math.inf
+    return float(np.min(np.abs(x[live] - thr[live]) / np.abs(thr[live])))
+
+
+def q2(T):
+    p, ps, s, n = (T[x] for x in ("part", "partsupp", "supplier", "nation"))
+    eur = _in_region(T, "EUROPE")[ps.ps_suppkey]
+    cost = ps.ps_supplycost
+    mincost = np.full(p.n, np.inf)
+    np.minimum.at(mincost, ps.ps_partkey[eur], cost[eur])
+    pk = ps.ps_partkey
+    m = eur & (p.p_size[pk] == 15) \
+        & p.where("p_type", lambda v: v.endswith("TIN"))[pk] \
+        & (cost == mincost[pk])
+    sk, pk = ps.ps_suppkey[m], pk[m]
+    nat = s.s_nationkey[sk]
+    order = np.lexsort((pk, s.s_name[sk], n.n_name[nat], -s.s_acctbal[sk]))
+    order = order[:100]
+    return [(float(s.s_acctbal[sk[i]]), s.text("s_name", [s.s_name[sk[i]]])[0],
+             n.text("n_name", [n.n_name[nat[i]]])[0], int(pk[i]),
+             p.text("p_mfgr", [p.p_mfgr[pk[i]]])[0]) for i in order]
+
+
+def q4(T):
+    o, li = T["orders"], T["lineitem"]
+    late = np.zeros(o.n, dtype=bool)
+    late[li.l_orderkey[li.l_commitdate < li.l_receiptdate]] = True
+    m = (o.o_orderdate >= days(1993, 7, 1)) \
+        & (o.o_orderdate < days(1993, 10, 1)) & late
+    size = len(o._t.dicts["o_orderpriority"])
+    cnt = _count(o.o_orderpriority[m], size)
+    return [(o.text("o_orderpriority", [g])[0], int(cnt[g]))
+            for g in np.nonzero(cnt)[0]]
+
+
+def _q11_values(T, fraction=0.01):
+    ps, s, n = T["partsupp"], T["supplier"], T["nation"]
+    m = n.is_("n_name", "NATION07")[s.s_nationkey[ps.ps_suppkey]]
+    value = ps.ps_supplycost[m] * ps.ps_availqty[m]
+    pk = ps.ps_partkey[m]
+    total = _sum(pk, value, T["part"].n)
+    groups = np.nonzero(_count(pk, T["part"].n))[0]
+    return groups, total[groups], float(value.sum()) * fraction
+
+
+def q11(T, fraction=0.01):
+    groups, total, thr = _q11_values(T, fraction)
+    keep = total > thr
+    groups, total = groups[keep], total[keep]
+    order = np.argsort(-total, kind="stable")
+    return [(int(groups[i]), float(total[i])) for i in order]
+
+
+def _q15_revenue(T):
+    li = T["lineitem"]
+    m = (li.l_shipdate >= days(1996, 1, 1)) \
+        & (li.l_shipdate < days(1996, 4, 1))
+    sk = li.l_suppkey[m]
+    n = T["supplier"].n
+    return _sum(sk, li.l_extendedprice[m] * (1 - li.l_discount[m]), n), \
+        _count(sk, n) > 0
+
+
+def q15(T):
+    s = T["supplier"]
+    rev, has = _q15_revenue(T)
+    if not has.any():
+        return []
+    top = rev[has].max()
+    return [(int(k), s.text("s_name", [s.s_name[k]])[0], float(rev[k]))
+            for k in np.nonzero(has & (rev == top))[0]]
+
+
+def q16(T):
+    ps, p, s = T["partsupp"], T["part"], T["supplier"]
+    bad = s.where("s_comment", lambda v: re.search("Customer.*Complaints", v)
+                  is not None)
+    pk = ps.ps_partkey
+    m = ~p.is_("p_brand", "Brand#45")[pk] \
+        & ~p.where("p_type", lambda v: v.startswith("MEDIUM"))[pk] \
+        & np.isin(p.p_size[pk], [1, 4, 7, 10, 14, 19, 23, 36]) \
+        & ~bad[ps.ps_suppkey]
+    pk, sk = pk[m], ps.ps_suppkey[m]
+    code, size, keys = _groups(
+        (p.p_brand[pk], len(p._t.dicts["p_brand"])),
+        (p.p_type[pk], len(p._t.dicts["p_type"])), (p.p_size[pk], 51))
+    # COUNT(DISTINCT ps_suppkey): one count per distinct (group, supplier)
+    pairs = np.unique(code * s.n + sk)
+    cnt = _count(pairs // s.n, size)
+    groups = np.nonzero(cnt)[0]  # in (brand, type, size) order
+    groups = groups[np.argsort(-cnt[groups], kind="stable")][:40]
+    rows = []
+    for g in groups:
+        b, t, z = keys(int(g))
+        rows.append((p.text("p_brand", [b])[0], p.text("p_type", [t])[0],
+                     int(z), int(cnt[g])))
+    return rows
+
+
+def _q17_rows(T):
+    li, p = T["lineitem"], T["part"]
+    pk = li.l_partkey
+    avg = _sum(pk, li.l_quantity.astype(np.float64), p.n) \
+        / np.maximum(_count(pk, p.n), 1)
+    part = p.is_("p_brand", "Brand#23") & p.is_("p_container", "MED BOX")
+    return part[pk], li.l_quantity, 0.2 * avg[pk]
+
+
+def q17(T):
+    part, qty, thr = _q17_rows(T)
+    m = part & (qty < thr)
+    price = T["lineitem"].l_extendedprice[m]
+    return [(float(price.sum()) / 7.0 if len(price) else None,)]
+
+
+def q18(T):
+    c, o, li = T["customer"], T["orders"], T["lineitem"]
+    qty = _sum(li.l_orderkey, li.l_quantity.astype(np.float64), o.n)
+    big = np.nonzero(qty > 300)[0]
+    ck = o.o_custkey[big]
+    # o_totalprice DESC, o_orderdate; then the group order (c_name, ...)
+    order = np.lexsort((big, ck, c.c_name[ck], o.o_orderdate[big],
+                        -o.o_totalprice[big]))[:100]
+    return [(c.text("c_name", [c.c_name[ck[i]]])[0], int(ck[i]),
+             int(big[i]), _date(o.o_orderdate[big[i]]),
+             float(o.o_totalprice[big[i]]), int(qty[big[i]]))
+            for i in order]
+
+
+def _q20_pairs(T):
+    """partsupp rows of forest parts with their 1994 shipped quantity
+    (None where no such lineitem): (mask, availqty, 0.5 * sum)."""
+    ps, p, li = T["partsupp"], T["part"], T["lineitem"]
+    forest = p.where("p_name", lambda v: v.startswith("forest"))
+    m94 = (li.l_shipdate >= days(1994, 1, 1)) \
+        & (li.l_shipdate < days(1995, 1, 1))
+    row = _partsupp_rows(ps, li.l_partkey[m94], li.l_suppkey[m94])
+    shipped = row >= 0
+    n_ps = len(ps.ps_partkey)
+    qty = _sum(row[shipped], li.l_quantity[m94][shipped].astype(np.float64),
+               n_ps)
+    has = _count(row[shipped], n_ps) > 0
+    return forest[ps.ps_partkey] & has, ps.ps_availqty, 0.5 * qty
+
+
+def q20(T):
+    s, n, ps = T["supplier"], T["nation"], T["partsupp"]
+    m, avail, thr = _q20_pairs(T)
+    ok = np.zeros(s.n, dtype=bool)
+    ok[ps.ps_suppkey[m & (avail > thr)]] = True
+    keep = np.nonzero(ok & n.is_("n_name", "NATION03")[s.s_nationkey])[0]
+    rows = [(s.text("s_name", [s.s_name[k]])[0],
+             s.text("s_address", [s.s_address[k]])[0]) for k in keep]
+    return sorted(rows)
+
+
+def q21(T):
+    s, li, n = T["supplier"], T["lineitem"], T["nation"]
+    n_ord = T["orders"].n
+    ok, sk = li.l_orderkey, li.l_suppkey
+    late = li.l_receiptdate > li.l_commitdate
+
+    def others(rows):
+        """Per lineitem: some row of `rows` in its order has another
+        supplier (the order's suppliers are not all this one)."""
+        lo = np.full(n_ord, np.iinfo(np.int64).max)
+        hi = np.full(n_ord, np.iinfo(np.int64).min)
+        np.minimum.at(lo, ok[rows], sk[rows])
+        np.maximum.at(hi, ok[rows], sk[rows])
+        has = _count(ok[rows], n_ord)[ok] > 0
+        return has & ((lo[ok] != sk) | (hi[ok] != sk))
+
+    m = late & n.is_("n_name", "NATION04")[s.s_nationkey[sk]] \
+        & others(np.ones(li.n, dtype=bool)) & ~others(late)
+    cnt = _count(s.s_name[sk[m]], len(s._t.dicts["s_name"]))
+    names = np.nonzero(cnt)[0]  # s_name order
+    names = names[np.argsort(-cnt[names], kind="stable")][:100]
+    return [(s.text("s_name", [g])[0], int(cnt[g])) for g in names]
+
+
+_Q22_CODES = ("13", "31", "23", "29", "30", "18", "17")
+
+
+def _q22_rows(T):
+    c, o = T["customer"], T["orders"]
+    code = c.where("c_phone", lambda v: v[:2] in _Q22_CODES)
+    bal = c.c_acctbal
+    pos = code & (bal > 0.0)
+    avg = float(bal[pos].sum()) / int(pos.sum()) if pos.any() else None
+    no_orders = _count(o.o_custkey, c.n) == 0
+    return code & no_orders, bal, avg
+
+
+def q22(T):
+    c = T["customer"]
+    m, bal, avg = _q22_rows(T)
+    if avg is None:
+        return []
+    m = m & (bal > avg)
+    prefix = np.asarray([v[:2] for v in c._t.dicts["c_phone"]], dtype=object)
+    rows = []
+    for cc in sorted(set(prefix[c.c_phone[m]])):
+        sel = m & (prefix[c.c_phone] == cc)
+        rows.append((str(cc), int(sel.sum()), float(bal[sel].sum())))
+    return rows
+
+
 ORACLES: Dict[str, Callable] = {
-    "Q1": q1, "Q3": q3, "Q5": q5, "Q6": q6, "Q7": q7, "Q8": q8, "Q9": q9,
-    "Q10": q10, "Q12": q12, "Q13": q13, "Q14": q14, "Q19": q19,
+    "Q1": q1, "Q2": q2, "Q3": q3, "Q4": q4, "Q5": q5, "Q6": q6, "Q7": q7,
+    "Q8": q8, "Q9": q9, "Q10": q10, "Q11": q11, "Q12": q12, "Q13": q13,
+    "Q14": q14, "Q15": q15, "Q16": q16, "Q17": q17, "Q18": q18, "Q19": q19,
+    "Q20": q20, "Q21": q21, "Q22": q22,
 }
 
 # the result columns each query orders by that hold floats
 FLOAT_SORT_KEYS: Dict[str, Sequence[int]] = {"Q3": (1,), "Q5": (1,),
-                                             "Q10": (2,)}
+                                             "Q10": (2,), "Q11": (1,)}
+
+
+# the margins of `margins` whose threshold is a sum of floats
+FLOAT_THRESHOLDS = ("Q11", "Q11_SF1", "Q22")
+
+
+def margins(tables: Dict[str, HostTable]) -> Dict[str, float]:
+    """For each query that compares a row with an aggregate, the smallest
+    relative distance between a row's value and its threshold, in the
+    oracle's float64 arithmetic: Q11 (a part's value against 1 % of the
+    total; Q11_SF1 against 0.01 %), Q17 (a line's quantity against 0.2 x
+    its part's average), Q20
+    (availqty against 0.5 x the 1994 shipments) and Q22 (a balance against
+    the average). Where the aggregate sums floats (FLOAT_THRESHOLDS), a
+    margin near 1e-16 means a row lies within an ulp of its threshold,
+    where the card's fixed-point sums may put it on the other side; Q17's
+    and Q20's aggregates sum integers, exactly on the card, so even a tie
+    (margin 0) resolves as here."""
+    T = {k: _T(v) for k, v in tables.items()}
+    _, total, thr = _q11_values(T)
+    out = {"Q11": _margin(total, thr)}
+    _, total, thr = _q11_values(T, 0.0001)
+    out["Q11_SF1"] = _margin(total, thr)
+    part, qty, thr17 = _q17_rows(T)
+    out["Q17"] = _margin(qty[part], thr17[part])
+    m, avail, thr20 = _q20_pairs(T)
+    out["Q20"] = _margin(avail[m], thr20[m])
+    m, bal, avg = _q22_rows(T)
+    out["Q22"] = math.inf if avg is None else _margin(bal[m], avg)
+    return out
 
 
 def shifted(tables: Dict[str, HostTable]) -> Dict[str, list]:
@@ -336,6 +593,11 @@ def shifted(tables: Dict[str, HostTable]) -> Dict[str, list]:
 def run(query: str, tables: Dict[str, HostTable]) -> list:
     """The oracle's rows of one query over the tables of data.generate."""
     return ORACLES[query]({k: _T(v) for k, v in tables.items()})
+
+
+def q11_sf1(tables: Dict[str, HostTable]) -> list:
+    """The rows of `queries.Q11_SF1` (FRACTION 0.0001)."""
+    return q11({k: _T(v) for k, v in tables.items()}, 0.0001)
 
 
 def _close(a, b, rtol) -> bool:

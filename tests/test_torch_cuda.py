@@ -521,3 +521,101 @@ def test_tpch_shifted_literals_on_card(tpch_sessions, q):
     gpu.sql(tpch_queries.QUERIES[q]).to_pylist()
     got = gpu.sql(tpch_queries.SHIFTED[q]).to_pylist()
     tpch_oracle.compare(got, tpch_oracle.shifted(tables)[q])
+
+
+# one query of each subquery form, each with rows at 2^14 lineitem rows
+SUBQUERY_FORMS = {"scalar": "Q11", "IN": "Q18", "EXISTS": "Q4",
+                  "correlated value": "Q17", "shared CTE": "Q15",
+                  "COUNT(DISTINCT)": "Q16"}
+
+
+@pytest.mark.parametrize("form", list(SUBQUERY_FORMS))
+def test_subquery_form_replays_on_card(tpch_sessions, form):
+    """The first run and two warm runs of each form equal the numpy oracle;
+    the warm runs replay captured programs (a subquery's new result batch
+    is captured anew, then replayed)."""
+    tables, _, gpu = tpch_sessions
+    q = SUBQUERY_FORMS[form]
+    text = tpch_queries.QUERIES[q]
+    want = tpch_oracle.run(q, tables)
+    assert want
+    keys = tpch_oracle.FLOAT_SORT_KEYS.get(q, ())
+    tpch_oracle.compare(gpu.sql(text).to_pylist(), want, keys)
+    st = dict(gpu.executor.pipeline.stats)
+    for _ in range(2):
+        tpch_oracle.compare(gpu.sql(text).to_pylist(), want, keys)
+    after = gpu.executor.pipeline.stats
+    assert after["replays"] >= st["replays"] + 2, after
+    assert after["fallbacks"] == st["fallbacks"], after
+
+
+def test_no_subplan_runs_while_a_stream_captures(tpch_sessions):
+    """Every plan the ten subquery queries execute (the pipeline's subplans
+    and leaves, the eager evaluator's subqueries) runs outside a capture,
+    on the first run and on a warm run."""
+    tables, _, gpu = tpch_sessions
+    ex = gpu.executor
+    seen = []
+
+    def spy(fn):
+        def run(plan):
+            seen.append(torch.cuda.is_current_stream_capturing())
+            return fn(plan)
+        return run
+
+    execute, sub = ex.execute, ex.evaluator.subquery_exec
+    ex.execute, ex.evaluator.subquery_exec = spy(execute), spy(sub)
+    captures = ex.pipeline.stats["captures"]
+    try:
+        for q in tpch_queries.WITH_SUBQUERIES:
+            for _ in range(2):
+                tpch_oracle.compare(
+                    gpu.sql(tpch_queries.QUERIES[q]).to_pylist(),
+                    tpch_oracle.run(q, tables),
+                    tpch_oracle.FLOAT_SORT_KEYS.get(q, ()))
+    finally:
+        ex.execute, ex.evaluator.subquery_exec = execute, sub
+    assert seen and not any(seen), (len(seen), sum(seen))
+    assert ex.pipeline.stats["captures"] > captures
+
+
+@pytest.mark.parametrize("func", ["count", "sum", "avg"])
+@pytest.mark.parametrize("dtype", [torch.int64, torch.float64])
+def test_group_agg_with_a_dedup_plane_equals_plain(cuda_device, func, dtype):
+    """COUNT/SUM/AVG(DISTINCT) on the card: one group_agg launch over the
+    ok plane deduped by distinct_first_flags, bit for bit its plain version
+    on the same tensors, and equal to the CPU route."""
+    rng = np.random.default_rng(5)
+    n, G = (1 << 16) + 3, 700
+    vals = rng.integers(-50, 50, n)
+    data = torch.from_numpy(vals if dtype == torch.int64 else vals * 0.25)
+    valid = torch.from_numpy(rng.random(n) > 0.1)
+    gid = torch.from_numpy(rng.integers(0, G, n))
+    cpu = (data, valid, gid)
+    data, valid, gid = (t.to(cuda_device) for t in cpu)
+    first = K.distinct_first_flags([data], [valid], gid, n - 5)
+    assert first.is_cuda
+    torch.testing.assert_close(
+        first.cpu(), K.distinct_first_flags([cpu[0]], [cpu[1]], cpu[2],
+                                            n - 5), rtol=0, atol=0)
+    ok = K.live_mask(n, n - 5, cuda_device) & valid & first
+    before = group_agg.launches
+    got, has = K.segment_aggregate(func, data, valid, gid, n - 5, G,
+                                   distinct_first=first)
+    assert group_agg.launches == before + 1
+    value = data if func != "count" else None
+    (s, c), = group_agg.fixed_point([(value, ok)], gid, G,
+                                    group_agg.accumulate_plain)
+    plain = {"count": c, "sum": s,
+             "avg": s.to(torch.float64) / c.clamp(min=1)}[func]
+    assert torch.equal(got.view(torch.int64) if got.is_floating_point()
+                       else got,
+                       plain.view(torch.int64) if plain.is_floating_point()
+                       else plain)
+    want, want_has = K.segment_aggregate(
+        func, *cpu[:3], n - 5, G,
+        distinct_first=K.distinct_first_flags([cpu[0]], [cpu[1]], cpu[2],
+                                              n - 5))
+    assert torch.equal(has.cpu(), want_has)
+    torch.testing.assert_close(got.cpu()[want_has], want[want_has],
+                               rtol=1e-12, atol=0)

@@ -173,9 +173,16 @@ def test_count_column_counts_valid_values_only(compiled):
     assert rows == [(1, 1, 2, 2), (2, 0, 1, 0), (3, 1, 1, 1)]
 
 
-def test_shared_cte_still_raises():
+@pytest.mark.parametrize("compiled", [True, False],
+                         ids=["compiled", "QE_COMPILED=0"])
+def test_shared_cte_left_joined_to_itself(compiled):
+    """A WITH query referenced on both sides of a LEFT join is materialized
+    once and read by both (tests/test_torch_tpch_subqueries.py counts the
+    executions)."""
     s = Session("cpu")
-    s.register_table("a", {"k": [1, 2, 3]})
-    with pytest.raises(NotImplementedError, match="PSubquery"):
-        s.sql("WITH w AS (SELECT k FROM a) SELECT w1.k FROM w w1 "
-              "JOIN w w2 ON w1.k = w2.k").to_pylist()
+    s.executor._compiled = compiled
+    s.register_table("a", {"k": [1, 2, 3, None]})
+    rows = s.sql("WITH w AS (SELECT k FROM a WHERE k < 3 OR k IS NULL) "
+                 "SELECT w1.k, w2.k FROM w w1 LEFT JOIN w w2 "
+                 "ON w1.k = w2.k ORDER BY w1.k").to_pylist()
+    assert rows == [(1, 1), (2, 2), (None, None)]

@@ -13,9 +13,10 @@ accumulators. Checks:
   with a stacked int64 accumulator for float sums), and reaches no CPU
   accumulator;
 * on the CPU route it still equals the JAX package's `segment_aggregate`;
-* the TPC-H queries and the bench query on that route equal the numpy
-  oracle, launch the kernel in the queries that aggregate, and reach
-  `accumulate_plain` and `grouped_sums_counts_multi_plain` never.
+* the 22 TPC-H queries and the bench query on that route equal the numpy
+  oracle, launch the kernel in the queries that aggregate (the subquery
+  queries' grouped subplans and Q16's COUNT(DISTINCT) among them), and
+  reach `accumulate_plain` and `grouped_sums_counts_multi_plain` never.
 """
 
 import jax.numpy as jnp
@@ -170,7 +171,11 @@ def test_cpu_route_matches_jax(func, kind, case, G):
     np.testing.assert_allclose(pv.numpy()[ok], np.asarray(jv)[ok], rtol=1e-12)
 
 
-TPCH_AGG = ["Q1", "Q3", "Q5", "Q8", "Q9", "Q10", "Q12"]
+# the queries that count or sum over groups: every one but Q6, Q14 and Q19
+# (the ten with subqueries through their grouped subplans, Q16 through its
+# COUNT(DISTINCT))
+TPCH_AGG = ["Q1", "Q3", "Q5", "Q8", "Q9", "Q10", "Q12", "Q13",
+            *queries.WITH_SUBQUERIES]
 
 
 @pytest.fixture(scope="module")

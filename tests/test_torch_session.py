@@ -199,9 +199,8 @@ def test_nan_sort_key_sorts_last_in_both(expr, order):
 
 
 @pytest.mark.parametrize("query", [
-    "SELECT name FROM employees WHERE salary > "
-    "(SELECT AVG(salary) FROM employees)",
-    "SELECT COUNT(DISTINCT dept_id) FROM employees",
+    "SELECT name FROM employees UNION SELECT dept_name FROM departments",
+    "SELECT LENGTH(name) FROM employees",
     "SELECT name, ROW_NUMBER() OVER (ORDER BY age) FROM employees",
     "SELECT DISTINCT dept_id FROM employees",
     "SELECT UPPER(name) FROM employees",

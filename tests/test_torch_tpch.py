@@ -1,5 +1,6 @@
 """The port's TPC-H subpackage and the twelve subquery-free TPC-H queries,
-against the JAX package at `benchmarks/tpch_mini.build(1 << 11)`.
+against the JAX package at `benchmarks/tpch_mini.build(1 << 11)` (the ten
+with subqueries are held in test_torch_tpch_subqueries.py).
 
 * `tpch.data.generate` gives the tables of `tpch_mini.build`: every plane,
   validity bit and dictionary of all eight tables;
@@ -9,7 +10,7 @@ against the JAX package at `benchmarks/tpch_mini.build(1 << 11)`.
 * each numpy oracle of `tpch.oracle` gives the JAX Session's rows;
 * Q6 and Q14 with their date literals a year later, on the Session that
   already ran them, reuse its program and give the shifted oracle's rows;
-* the ten queries with subqueries still raise NotImplementedError.
+* the port's QUERIES are all 22 texts of tpch_mini, word for word.
 
 Integers, strings and dates must match exactly; floats to rtol 1e-9.
 """
@@ -24,8 +25,6 @@ from query_engine_tpu_torch.tpch import data, oracle, queries
 N_LI = 1 << 11
 TABLES = ["customer", "orders", "lineitem", "supplier", "nation", "region",
           "part", "partsupp"]
-OUTSIDE = ["Q2", "Q4", "Q11", "Q15", "Q16", "Q17", "Q18", "Q20", "Q21",
-           "Q22"]
 
 
 @pytest.fixture(scope="module")
@@ -38,7 +37,8 @@ def jax_side():
 @pytest.fixture(scope="module")
 def jax_rows(jax_side):
     js, _ = jax_side
-    return {q: js.sql(text).to_pylist() for q, text in queries.QUERIES.items()}
+    return {q: js.sql(queries.QUERIES[q]).to_pylist()
+            for q in queries.SUBQUERY_FREE}
 
 
 @pytest.fixture(scope="module")
@@ -55,7 +55,10 @@ def _session(tables, compiled=True):
 
 def test_queries_are_tpch_minis():
     assert set(queries.QUERIES) == set(oracle.ORACLES)
-    assert set(queries.QUERIES) | set(OUTSIDE) == set(tpch_mini.QUERIES)
+    assert set(queries.QUERIES) == set(tpch_mini.QUERIES)
+    assert len(queries.QUERIES) == 22
+    assert set(queries.SUBQUERY_FREE) | set(queries.WITH_SUBQUERIES) == set(
+        queries.QUERIES)
     for q, text in queries.QUERIES.items():
         assert text == tpch_mini.QUERIES[q]
 
@@ -82,7 +85,7 @@ def test_tables_equal_tpch_mini(jax_side, host_tables, name):
 
 @pytest.mark.parametrize("compiled", [True, False],
                          ids=["compiled", "QE_COMPILED=0"])
-@pytest.mark.parametrize("q", list(queries.QUERIES))
+@pytest.mark.parametrize("q", queries.SUBQUERY_FREE)
 def test_query_matches_jax(jax_rows, host_tables, q, compiled):
     s = _session(host_tables, compiled)
     got = s.sql(queries.QUERIES[q]).to_pylist()
@@ -94,7 +97,7 @@ def test_query_matches_jax(jax_rows, host_tables, q, compiled):
         assert stats["compiles"] == 0, stats
 
 
-@pytest.mark.parametrize("q", list(queries.QUERIES))
+@pytest.mark.parametrize("q", queries.SUBQUERY_FREE)
 def test_oracle_matches_jax(jax_rows, host_tables, q):
     want = jax_rows[q]
     oracle.compare(oracle.run(q, host_tables), want)
@@ -118,7 +121,7 @@ def test_oracles_see_rows_at_a_larger_size():
     """At 2^14 lineitem rows every query has rows, Q7 included; the
     oracle's rows agree with themselves under compare."""
     tables = data.generate(1 << 14)
-    for q in queries.QUERIES:
+    for q in queries.SUBQUERY_FREE:
         rows = oracle.run(q, tables)
         assert rows and all(v is not None for r in rows for v in r), q
         assert oracle.compare(rows, rows) == 0.0
@@ -166,7 +169,7 @@ def _graph_admission_session(tables):
     return s
 
 
-@pytest.mark.parametrize("q", list(queries.QUERIES))
+@pytest.mark.parametrize("q", queries.SUBQUERY_FREE)
 def test_query_under_graph_admission(host_tables, q):
     s = _graph_admission_session(host_tables)
     want = oracle.run(q, host_tables)
@@ -205,10 +208,3 @@ def test_eager_leaves_are_counted_and_timed(host_tables, q, leaves):
     assert sorted(pipe.leaf_kinds) == leaves, pipe.leaf_kinds
     assert (pipe.stats["leaf_ms"] > 0) == bool(leaves), pipe.stats
     assert pipe.stats["capture_ms"] == 0, pipe.stats  # capture stubbed
-
-
-@pytest.mark.parametrize("q", OUTSIDE)
-def test_queries_with_subqueries_raise(host_tables, q):
-    s = _session(host_tables)
-    with pytest.raises(NotImplementedError):
-        s.sql(tpch_mini.QUERIES[q]).to_pylist()
