@@ -89,6 +89,21 @@ Phase 7  builds the TPC-H tables at scale factor 1 (6,001,215 lineitem
          Prints how close a row came to its threshold in Q11, Q17, Q20 and
          Q22 (each compares a row with an aggregate, which the card sums in
          fixed point and the oracle in float64).
+Phase 8  runs the window, DISTINCT, set-operation and CROSS join queries of
+         `tpch/windows.py` (W1-W6, D1, S1-S3, X1) on phase 7's SF1 tables
+         and Session: each one first and 5 times warm, compiled, and once
+         with the compiled pipeline off (what QE_COMPILED=0 sets), every
+         run against its numpy oracle (floats within rtol 1e-9, plus, in
+         a column a float window SUM reaches, 8 * 2^-53 * sum(|x|) of the
+         summed plane times the share of that error the column carries: a
+         float window SUM is a prefix difference). Prints the warm median ms/query, host syncs, the
+         pipeline.stats change, the eager leaves, the largest error against
+         its allowance, and one profiled warm run's kernel time by
+         operator. Fails if a Window, Distinct or SetOp node runs as an
+         eager leaf of a compiled run (except the string set operations of
+         STRING_SETOPS: their dictionaries merge on the host), if a float
+         window sum differs in its bits between two warm runs, or unless
+         group_agg launched in W3 and W5 with no `index_add_` call.
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after; a kernel of the path that was not launched fails the run.
@@ -1270,7 +1285,150 @@ def phase7():
     total = sum(r["ms"] for r in out.values())
     print(f"phase 7: the 22 queries: {total:.1f} ms in all (sum of the "
           f"medians); group_agg launched in {with_agg}")
-    return out, held
+    return out, held, tables, sess
+
+
+# node types that must not run as eager leaves of a compiled run, and the
+# queries whose string set operations do (two dictionaries merge on the
+# host, which a CUDA graph cannot capture)
+TRACED_NODES = ("Window", "Distinct", "SetOp")
+STRING_SETOPS = ("S3",)
+
+
+def _float_planes(batch):
+    import torch
+
+    return [c.data[:batch.num_rows].clone().view(torch.int64)
+            for c in batch.columns if c.data.dtype == torch.float64]
+
+
+def phase8(tables, sess):
+    """The window, DISTINCT, set-operation and CROSS join queries at SF1 on
+    phase 7's tables and Session, each against its numpy oracle."""
+    import torch
+
+    from query_engine_tpu_torch.tpch import windows
+
+    t_phase = time.perf_counter()
+    pipe = sess.executor.pipeline
+    timing = ("leaf_ms", "capture_ms")
+    out = {}
+    for q, text in windows.QUERIES.items():
+        t0 = time.perf_counter()
+        want = windows.run(q, tables)
+        atol = windows.allowance(q, tables)
+        oracle_s = time.perf_counter() - t0
+        st0, syncs0 = dict(pipe.stats), sess.executor.host_syncs
+        kinds0 = collections.Counter(pipe.leaf_kinds)
+        keys0 = set(pipe._cache)
+        held = []
+        spy = IndexAddSpy()
+        reset_counts()
+        with spy.active(), group_agg_held_against_plain(held, spy):
+            t0 = time.perf_counter()
+            rows = sess.sql(text).to_pylist()
+            first_ms = (time.perf_counter() - t0) * 1e3
+        launches = read_counts()["group_agg"]
+        first = _stats_change(st0, pipe.stats, timing)
+        first_syncs = sess.executor.host_syncs - syncs0
+        try:
+            err = windows.compare(q, rows, want, atol)
+        except AssertionError as e:
+            raise CheckFailed(f"{q} at SF1 differs from the numpy oracle: "
+                              f"{e}") from None
+        check(rows, f"{q} at SF1 returned no rows")
+        walls, bits = [], []
+        st1, syncs1 = dict(pipe.stats), sess.executor.host_syncs
+        for _ in range(5):
+            t0 = time.perf_counter()
+            with spy.active():
+                batch = sess.sql(text)
+                again = batch.to_pylist()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            bits.append(_float_planes(batch))
+            if again != rows:  # else equal to the oracle as the first run
+                try:
+                    windows.compare(q, again, want, atol)
+                except AssertionError as e:
+                    raise CheckFailed(f"{q}: a warm run differs from the "
+                                      f"oracle: {e}") from None
+        if q in windows.FLOAT_SUMS:
+            check(bits[0] and all(
+                torch.equal(a, b) for run in bits[1:]
+                for a, b in zip(bits[0], run)),
+                f"{q}: a float window sum's bits differ between warm runs")
+        ms = statistics.median(walls)
+        syncs = (sess.executor.host_syncs - syncs1) / 5
+        warm = {k: v / 5
+                for k, v in _stats_change(st1, pipe.stats, timing).items()}
+        leaves = sorted(pipe.leaf_kinds - kinds0)
+        untraced = [k for k in leaves if k in TRACED_NODES
+                    and not (k == "SetOp" and q in STRING_SETOPS)]
+        check(not untraced, f"{q}: {untraced} ran as eager leaves of a "
+              "compiled run")
+        sess.executor._compiled = False  # what QE_COMPILED=0 sets
+        try:
+            t0 = time.perf_counter()
+            eager = sess.sql(text).to_pylist()
+            eager_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            sess.executor._compiled = True
+        try:
+            eager_err = windows.compare(q, eager, want, atol)
+        except AssertionError as e:
+            raise CheckFailed(f"{q}: the eager run differs from the oracle: "
+                              f"{e}") from None
+        busy, wall, names = device_ms(sess, text)
+        by_operator = {}
+        for key in set(pipe._cache) - keys0:
+            if pipe._cache[key].graph is not None:
+                _, ops = profile_program(sess, f"phase 8: {q}",
+                                         pipe._cache[key])
+                for name, ms_op in ops.items():
+                    by_operator[name] = by_operator.get(name, 0) + ms_op
+        agg_kernels = kernel_names(names, "sum_count_", "float_absmax")
+        out[q] = {"rows": len(rows), "ms": ms, "first_ms": first_ms,
+                  "syncs": syncs, "first": first, "warm": warm,
+                  "eager_leaves": leaves, "eager_ms": eager_ms,
+                  "group_agg": launches, "group_agg_kernels": agg_kernels,
+                  "index_add_calls": spy.calls,
+                  "index_add_kernels": kernel_names(names, "indexFunc"),
+                  "max_abs_err": max(err[0], eager_err[0]),
+                  "max_rel_err": max(err[1], eager_err[1]),
+                  "allowance": atol, "device_ms": busy,
+                  "by_operator_ms": by_operator}
+        allow = {c: float(f"{v:.6g}") for c, v in atol.items()}
+        exception = (" (a string set operation: its two dictionaries merge "
+                     "on the host, so on the card it is an eager leaf)"
+                     if "SetOp" in leaves else "")
+        print(f"phase 8: {q}: {len(rows)} rows == numpy oracle on the first "
+              f"and 5 warm compiled runs and the eager run (oracle "
+              f"{oracle_s:.2f} s); max abs err {out[q]['max_abs_err']:.6g} "
+              f"against the allowance by column {allow}, max rel err "
+              f"{out[q]['max_rel_err']:.3g}; {ms:.3f} ms/query median of 5 "
+              f"warm runs, {syncs:g} host syncs/query; first run "
+              f"{first_ms:.1f} ms, {first_syncs} syncs, stats {first}; warm stats per query {warm}; eager "
+              f"leaves {leaves}{exception}; eager run {eager_ms:.1f} ms; "
+              f"group_agg launches {launches} (kernels in the profiled run "
+              f"{agg_kernels}); index_add_ calls {spy.calls}; one profiled "
+              f"warm run: {busy:.3f} ms of kernel time in {wall:.3f} ms "
+              f"wall; by operator {by_operator}")
+        for c in held:
+            print(f"phase 8: {q}: group_agg == plain on the same tensors: "
+                  f"n={c['n']} G={c['groups']} {c['items']} items, max abs "
+                  f"err against float64 summation {c['max_abs_err']:.6g}")
+    for q in windows.GROUP_AGG:
+        check(out[q]["group_agg"] > 0, f"{q}: group_agg did not launch")
+        check(out[q]["group_agg_kernels"],
+              f"{q}: no group_agg kernel in its profiled warm run")
+    for q, r in out.items():
+        check(not r["index_add_calls"] and not r["index_add_kernels"],
+              f"{q}: index_add_ on the card: {r['index_add_calls']} calls, "
+              f"kernels {r['index_add_kernels']}")
+    total = sum(r["ms"] for r in out.values())
+    print(f"phase 8: {len(out)} queries: {total:.1f} ms in all (sum of the "
+          f"medians); the phase took {time.perf_counter() - t_phase:.1f} s")
+    return out
 
 
 def main():
@@ -1295,7 +1453,8 @@ def main():
         agg_launches, agg_names = phase4(tables, eager_ms)
         b = phase5(tables)
         p6_launches, p6_err, p6_times = phase6()
-        tpch, tpch_held = phase7()
+        tpch, tpch_held, sf1_tables, sf1_sess = phase7()
+        windows = phase8(sf1_tables, sf1_sess)
     except CheckFailed as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -1304,6 +1463,7 @@ def main():
     gather = g_times["planes T=1024 W=1"]
     tpch_by_query = {q: r["group_agg"] for q, r in tpch.items()}
     tpch_launches = sum(tpch_by_query.values())
+    windows_by_query = {q: r["group_agg"] for q, r in windows.items()}
     tpch_err = max((c["max_abs_err"] for calls in tpch_held.values()
                     for c in calls), default=0.0)
     print(json.dumps({"kernels": [{
@@ -1311,8 +1471,10 @@ def main():
         "route": "cuda",
         "source": "query_engine_tpu_torch/csrc/group_agg.cu",
         "replaces": "query_engine_tpu/ops/pallas/group_agg.py:74",
-        "launches": agg_launches + tpch_launches,
-        "launches_by_phase": {"4": agg_launches, "7": tpch_by_query},
+        "launches": agg_launches + tpch_launches
+        + sum(windows_by_query.values()),
+        "launches_by_phase": {"4": agg_launches, "7": tpch_by_query,
+                              "8": windows_by_query},
         "max_abs_err": max_err["plain"],
         "max_abs_err_vs_float64": {"1": max_err["float64"], "7": tpch_err},
         "ms": main_shape["ms"],

@@ -114,16 +114,36 @@ class Dictionary:
         return out
 
 
+_MERGES_KEPT = 8  # merge_many results kept on a dictionary
+
+
 def merge_many(dicts: List[Dictionary]) -> Tuple[Dictionary, List[np.ndarray]]:
-    """Sorted union of many dictionaries + a remap plane per input."""
+    """Sorted union of many dictionaries + a remap plane per input.
+
+    The last few results are kept on the first dictionary, so the same
+    merge (a UNION of the same tables, query after query) gives the same
+    merged dictionary object, and a compiled program keyed by it is found
+    again."""
     if not dicts:
         return Dictionary.empty(), []
     if all(d is dicts[0] for d in dicts):
         ident = np.arange(len(dicts[0]), dtype=np.int32)
         return dicts[0], [ident] * len(dicts)
-    union = dicts[0].values
+    first = dicts[0]
+    if first._maps is None:
+        first._maps = {}
+    key = ("merge_many",) + tuple(id(d) for d in dicts[1:])
+    kept = first._maps.get(key)
+    if kept is not None and all(a is b for a, b in zip(kept[0], dicts)):
+        return kept[1], kept[2]
+    union = first.values
     for d in dicts[1:]:
         union = np.union1d(union, d.values)
     merged = Dictionary(union)
     remaps = [np.searchsorted(union, d.values).astype(np.int32) for d in dicts]
+    merges = [k for k in first._maps
+              if isinstance(k, tuple) and k[:1] == ("merge_many",)]
+    for old in merges[:max(len(merges) - _MERGES_KEPT + 1, 0)]:
+        del first._maps[old]
+    first._maps[key] = (tuple(dicts), merged, remaps)
     return merged, remaps

@@ -2,9 +2,11 @@
 
 The counterpart of `query_engine_tpu.engine.executor.QueryExecutor`, for
 these nodes: scan, projection, filter, INNER, LEFT, RIGHT and FULL
-equi-joins (with or without a residual ON condition), grouped and global
-aggregate (DISTINCT included), sort, limit, derived tables (a subquery in
-FROM) and shared WITH queries, materialized once per query. Any other node
+equi-joins (with or without a residual ON condition), CROSS joins, grouped
+and global aggregate (DISTINCT included), sort, limit, window functions,
+DISTINCT, UNION [ALL] / INTERSECT / EXCEPT, VALUES, the empty relation,
+generate_series, derived tables (a subquery in FROM) and shared WITH
+queries, materialized once per query. Any other node (UNNEST, index scans)
 raises NotImplementedError. Subquery expressions run their plans through
 `execute` (the evaluator's `subquery_exec`).
 
@@ -32,14 +34,17 @@ from __future__ import annotations
 
 from typing import List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from query_engine_tpu_torch.core.errors import ExecutionError
-from query_engine_tpu_torch.core.schema import Field
+from query_engine_tpu_torch.core.schema import Field, Schema
 from query_engine_tpu_torch.columnar.batch import (
-    Column, ColumnBatch, padded_capacity,
+    Column, ColumnBatch, padded_capacity, to_tensor,
 )
+from query_engine_tpu_torch.columnar.dictionary import Dictionary
 from query_engine_tpu_torch.engine.expr_eval import Evaluator, Val, unify_dicts
+from query_engine_tpu_torch.engine import window as W
 from query_engine_tpu_torch.engine.pipeline import (
     CompiledPipeline, compiled_enabled,
 )
@@ -188,6 +193,18 @@ class QueryExecutor:
             else:
                 child = self.execute(plan.input)
             return ColumnBatch(plan.out_schema, child.columns, child.num_rows)
+        if isinstance(plan, pp.PWindow):
+            return self._exec_window(plan)
+        if isinstance(plan, pp.PDistinct):
+            return self._exec_distinct(plan)
+        if isinstance(plan, pp.PSetOp):
+            return self._exec_setop(plan)
+        if isinstance(plan, pp.PEmpty):
+            return self._exec_empty(plan)
+        if isinstance(plan, pp.PValues):
+            return self._exec_values(plan)
+        if isinstance(plan, pp.PGenerateSeries):
+            return self._exec_generate_series(plan)
         raise NotImplementedError(
             f"query_engine_tpu_torch does not execute {type(plan).__name__} "
             "yet"
@@ -231,11 +248,16 @@ class QueryExecutor:
     # ---- join ----------------------------------------------------------
     def _exec_join(self, plan: pp.PHashJoin) -> ColumnBatch:
         jt = plan.join_type
-        if jt not in _EQUI_JOINS or not plan.key_pairs:
+        if jt in _OUTER and not plan.key_pairs \
+                and plan.residual is not None:
             raise NotImplementedError(
-                f"query_engine_tpu_torch executes equi-joins only, not "
-                f"{jt.value} join on {len(plan.key_pairs)} keys"
+                f"query_engine_tpu_torch does not execute a {jt.value} join "
+                "without equi-keys yet"
             )
+        if jt is lp.JoinType.CROSS or not plan.key_pairs:
+            if jt is not lp.JoinType.CROSS:
+                raise ExecutionError("non-cross join requires equi-keys")
+            return self._cross_join(plan)
         left = self.execute(plan.left)
         right = self.execute(plan.right)
         # pass 1: key eval + ranks + counts; the host reads the output size
@@ -263,6 +285,16 @@ class QueryExecutor:
         if plan.residual is not None:
             out = self._filter_batch(out, plan.residual)
         return out
+
+    def _cross_join(self, plan: pp.PHashJoin) -> ColumnBatch:
+        """Every (left, right) pair, left-major."""
+        left = self.execute(plan.left)
+        right = self.execute(plan.right)
+        total = left.num_rows * right.num_rows
+        li, ri, valid = K.cross_join_indices(
+            left.num_rows, right.num_rows, padded_capacity(total), self.device)
+        return self._assemble_join(plan, left, right, li, ri, valid, valid,
+                                   total)
 
     def _outer_join(self, plan, left, right, pairs, li, ri, lmatched,
                     rmatched) -> ColumnBatch:
@@ -541,9 +573,178 @@ class QueryExecutor:
         fetch = plan.fetch if plan.fetch is not None else batch.num_rows
         return batch.slice(plan.skip, fetch)
 
+    # ---- window --------------------------------------------------------
+    def _exec_window(self, plan: pp.PWindow) -> ColumnBatch:
+        """Each window function over its OVER spec's sort (one sort per
+        distinct spec), its values scattered back to row order through the
+        inverse permutation."""
+        batch = self.execute(plan.input)
+        cap, n = batch.capacity, batch.num_rows
+        out_cols = list(batch.columns)
+        schema = plan.schema()
+        spec_cache = {}
+        for wi, wexpr in enumerate(plan.window_exprs):
+            spec_key = (
+                tuple(_expr_struct_key(p) for p in wexpr.partition_by),
+                tuple((_expr_struct_key(k.expr), k.asc,
+                       k.resolved_nulls_first()) for k in wexpr.order_by),
+            )
+            if spec_key not in spec_cache:
+                spec_cache[spec_key] = self._window_spec(wexpr, batch)
+            perm, inv, pad_sorted, seg_change, peer_change, seg = \
+                spec_cache[spec_key]
 
-_EQUI_JOINS = {lp.JoinType.INNER, lp.JoinType.LEFT, lp.JoinType.RIGHT,
-               lp.JoinType.FULL}
+            def arg(e, perm=perm):
+                v = self.evaluator.eval(e, batch)
+                return v, v.data[perm], v.validity[perm]
+
+            svals, svalid, out_dict = W.sorted_values(
+                wexpr, seg_change, peer_change, seg, pad_sorted, arg)
+            out_d = svals[inv]
+            out_v = svalid[inv] & K.live_mask(cap, n, self.device)
+            if out_dict is not None:
+                out_d = out_d.to(torch.int32)
+            f = schema.field(len(batch.columns) + wi)
+            out_cols.append(Column(out_d, out_v, f.data_type, out_dict))
+        return ColumnBatch(schema, out_cols, n)
+
+    def _window_spec(self, wexpr, batch):
+        """One OVER spec's sort: (perm, inverse perm, pad flags, segment
+        flags, peer flags, segment ids), all in window order."""
+        cap, dev = batch.capacity, self.device
+        part_vals = [self.evaluator.eval(p, batch) for p in wexpr.partition_by]
+        o_datas, o_valids, o_ascs, o_nfs = self._sort_val_keys(
+            wexpr.order_by, batch)
+        p_datas = [v.data for v in part_vals]
+        p_valids = [v.validity for v in part_vals]
+        if not (p_datas or o_datas):
+            # OVER (): a constant key keeps the live rows in input order as
+            # ONE partition
+            p_datas = [torch.zeros(cap, dtype=torch.int32, device=dev)]
+            p_valids = [torch.ones(cap, dtype=torch.bool, device=dev)]
+        perm = K.sort_permutation(
+            p_datas + o_datas, p_valids + o_valids,
+            [True] * len(p_datas) + o_ascs, [False] * len(p_datas) + o_nfs,
+            batch.num_rows)
+        pad_sorted = torch.arange(cap, device=dev) >= batch.num_rows
+        part_sorted, order_sorted = [], []
+        for d, v in zip(p_datas, p_valids):
+            key, null = K.normalize_key(d[perm], v[perm])
+            part_sorted += [null.to(torch.int32), key]
+        for d, v in zip(o_datas, o_valids):
+            key, null = K.normalize_key(d[perm], v[perm])
+            order_sorted += [null.to(torch.int32), key]
+        seg_change, peer_change, seg = K.window_segments(
+            part_sorted, order_sorted, pad_sorted)
+        inv = torch.empty_like(perm)
+        inv[perm] = torch.arange(cap, device=dev)
+        return perm, inv, pad_sorted, seg_change, peer_change, seg
+
+    # ---- distinct / set ops --------------------------------------------
+    def _exec_distinct(self, plan: pp.PDistinct) -> ColumnBatch:
+        return self._distinct_batch(self.execute(plan.input), plan.on)
+
+    def _distinct_batch(self, batch: ColumnBatch, on=None) -> ColumnBatch:
+        """The first row of each distinct key (all columns, or the ON
+        expressions), in input order; NULLs equal."""
+        if on is not None:
+            kvals = [self.evaluator.eval(e, batch) for e in on]
+            kd = [v.data for v in kvals]
+            kv = [v.validity for v in kvals]
+        else:
+            kd = [c.data for c in batch.columns]
+            kv = [c.validity for c in batch.columns]
+        cap, dev = kd[0].shape[0], kd[0].device
+        gid = torch.zeros(cap, dtype=torch.int64, device=dev)
+        first = K.distinct_first_flags(kd, kv, gid, batch.num_rows) \
+            & K.live_mask(cap, batch.num_rows, dev)
+        count = self._host_int(first.sum())
+        idx = K.compaction_indices(first, batch.num_rows,
+                                   padded_capacity(count))
+        return _take(batch, idx, count)
+
+    def _exec_setop(self, plan: pp.PSetOp) -> ColumnBatch:
+        left = self.execute(plan.left)
+        right = self.execute(plan.right)
+        right = ColumnBatch(left.schema, right.columns, right.num_rows)
+        if plan.kind in (lp.SetOpKind.UNION, lp.SetOpKind.UNION_ALL):
+            # UNION's dedup is the Distinct node the planner adds above
+            return ColumnBatch.concat([left, right])
+        # INTERSECT / EXCEPT: set semantics with NULLs equal, left deduped
+        lcols, rcols = [], []
+        for lc, rc in zip(left.columns, right.columns):
+            lval = Val(lc.data, lc.validity, lc.dtype, lc.dictionary)
+            rval = Val(rc.data, rc.validity, rc.dtype, rc.dictionary)
+            if lc.dictionary is not None or rc.dictionary is not None:
+                lval, rval = unify_dicts(lval, rval)
+            lcols.append((lval.data, lval.validity))
+            rcols.append((rval.data, rval.validity))
+        lr, rr = K.join_ranks(lcols, rcols, left.num_rows, right.num_rows,
+                              null_equal=True)
+        member = K.rank_member(lr, rr, K.live_mask(right.capacity,
+                                                   right.num_rows, self.device))
+        keep = member if plan.kind is lp.SetOpKind.INTERSECT else ~member
+        count = self._host_int(K.filter_count(keep, left.num_rows))
+        idx = K.compaction_indices(keep, left.num_rows, padded_capacity(count))
+        return self._distinct_batch(_take(left, idx, count))
+
+    # ---- leaf relations --------------------------------------------------
+    def _exec_values(self, plan: pp.PValues) -> ColumnBatch:
+        """VALUES rows: each expression evaluated over a one-row batch,
+        then the columns encoded under the node's schema."""
+        schema = plan.out_schema
+        data = {f.name: [] for f in schema}
+        one = ColumnBatch(Schema([]), [], 1)
+        for row in plan.rows:
+            for f, e in zip(schema, row):
+                v = self.evaluator.eval(e, one)
+                ok = bool(self._host_list(v.validity[:1])[0])
+                if v.dictionary is not None:
+                    code = self._host_list(v.data[:1])
+                    val = v.dictionary.decode(np.asarray(code))[0]
+                else:
+                    val = self._host_list(v.data[:1])[0]
+                data[f.name].append(val if ok else None)
+        return ColumnBatch.from_pydict(data, schema, device=self.device)
+
+    def _exec_empty(self, plan: pp.PEmpty) -> ColumnBatch:
+        """No rows, or (SELECT without FROM) one row of NULLs."""
+        if not plan.produce_one_row:
+            return ColumnBatch.empty(plan.out_schema, device=self.device)
+        cap = padded_capacity(1)
+        cols = [
+            Column(to_tensor(np.zeros(cap, f.data_type.device_dtype),
+                             self.device),
+                   torch.zeros(cap, dtype=torch.bool, device=self.device),
+                   f.data_type,
+                   Dictionary.empty() if f.data_type.is_dictionary else None)
+            for f in plan.out_schema
+        ]
+        return ColumnBatch(plan.out_schema, cols, 1)
+
+    def _exec_generate_series(self, plan: pp.PGenerateSeries) -> ColumnBatch:
+        """An int64 (or temporal) arithmetic series: an iota on the device,
+        or the planner's month-stepped values."""
+        start, stop, step = plan.start, plan.stop, plan.step
+        if plan.values is not None:  # month-stepped temporal series
+            n = len(plan.values)
+            host = np.zeros(padded_capacity(n), dtype=np.int64)
+            host[:n] = plan.values
+            data = to_tensor(host, self.device)
+        else:
+            if step > 0:
+                n = 0 if start > stop else (stop - start) // step + 1
+            else:
+                n = 0 if start < stop else (start - stop) // (-step) + 1
+            data = start + step * torch.arange(
+                padded_capacity(n), dtype=torch.int64, device=self.device)
+        col = Column(data, torch.ones(data.shape[0], dtype=torch.bool,
+                                      device=self.device),
+                     plan.out_schema.field(0).data_type, None)
+        return ColumnBatch(plan.out_schema, [col], n)
+
+
+_OUTER = {lp.JoinType.LEFT, lp.JoinType.RIGHT, lp.JoinType.FULL}
 _LEFT_OUTER = {lp.JoinType.LEFT, lp.JoinType.FULL}
 _RIGHT_OUTER = {lp.JoinType.RIGHT, lp.JoinType.FULL}
 _AGG_FUNCS = {lp.AggFunc.COUNT, lp.AggFunc.SUM, lp.AggFunc.AVG,

@@ -494,6 +494,13 @@ class Evaluator:
     def _eval_cast(self, e: lp.CastExpr, batch: ColumnBatch) -> Val:
         v = self.eval(e.expr, batch)
         t = e.target
+        if v.dtype.kind is TypeKind.NULL:  # CAST(NULL AS t): all NULL
+            cap = v.data.shape[0]
+            return Val(
+                torch.zeros(cap, dtype=torch.int32 if t.is_dictionary
+                            else _torch_dtype(t), device=v.data.device),
+                torch.zeros(cap, dtype=torch.bool, device=v.data.device), t,
+                Dictionary.empty() if t.is_dictionary else None)
         if t.is_dictionary and v.dictionary is not None:
             return Val(v.data, v.validity, t, v.dictionary)
         if t.is_temporal and v.dictionary is not None:

@@ -35,14 +35,23 @@ cached multiplicity stat of 1 on a leaf column) trace in-segment through
 the FK fast paths. Any other join is demoted to an eager leaf: the segment
 above it still compiles, with the join's result fed in as a leaf batch.
 A derived table (a subquery in FROM) is a pass-through node that renames
-its child's columns. A shared WITH query (referenced more than once) is a
-leaf boundary: the executor materializes it once per query and every
+its child's columns. Window functions, DISTINCT and set operations trace
+too, all at their input's capacity with a selection mask: a window sorts
+once per OVER spec (specs whose ORDER BY extends another's share its sort
+when the function cannot see the order within peers) and gathers its
+values back through the inverse permutation; DISTINCT and INTERSECT/EXCEPT
+keep the first row of each key (INTERSECT/EXCEPT after a rank-membership
+test against the right side); UNION [ALL] concatenates the two sides'
+planes. On CUDA a set operation over string columns is an eager leaf: its
+two dictionaries merge into a table built on the host (`unify_dicts`),
+which a graph cannot capture. A shared WITH query (referenced more than
+once) is a leaf boundary: the executor materializes it once per query and every
 reference reads that batch. A subquery expression's plan runs eagerly
 before the program runs or is captured, and its result batch is one more
 program input, read in the body through `Evaluator._subplans`: a program
-never runs a plan. Constructs outside the slice (outer and general-emit
-joins, DISTINCT nodes, windows, set operations, functions the evaluator
-lacks) raise _Unsupported and run eagerly, per subtree. On CUDA so do the
+never runs a plan. Constructs outside the slice (outer, CROSS and
+general-emit joins, VALUES, generate_series, functions the evaluator lacks)
+raise _Unsupported and run eagerly, per subtree. On CUDA so do the
 expressions that build a table on the host (string comparisons, string IN,
 LIKE, SUBSTRING, string-keyed subqueries: `expr_eval.builds_host_table`); a
 date compared with a string literal is not one of them, since the parsed
@@ -68,8 +77,9 @@ from query_engine_tpu_torch.core.types import TypeKind
 from query_engine_tpu_torch.columnar.batch import (
     Column, ColumnBatch, padded_capacity,
 )
+from query_engine_tpu_torch.engine import window as W
 from query_engine_tpu_torch.engine.expr_eval import (
-    builds_host_table, temporal_literal, unify_dicts,
+    Val, builds_host_table, temporal_literal, unify_dicts,
 )
 from query_engine_tpu_torch.ops import group_agg, small_gather
 from query_engine_tpu_torch.ops import kernels as K
@@ -315,7 +325,8 @@ def _expr_traceable(e: lp.LogicalExpr) -> bool:
                 bad.append(x)
         elif not isinstance(x, (lp.ColumnRef, lp.AliasExpr, lp.UnaryExpr,
                                 lp.CastExpr, lp.IsNullExpr, lp.CaseExpr,
-                                lp.InListExpr) + _SUBQUERY_EXPRS):
+                                lp.InListExpr, lp.WindowExpr)
+                            + _SUBQUERY_EXPRS):
             bad.append(x)
 
     lp.walk_exprs(e, visit)
@@ -401,6 +412,19 @@ def _expr_key(e: lp.LogicalExpr, ctx=None):
             "agg", e.func.value, e.distinct,
             None if e.expr is None else _expr_key(e.expr, ctx),
         )
+    if isinstance(e, lp.WindowExpr):
+        # NTILE's n, LAG/LEAD's offset and NTH_VALUE's n are read on the
+        # host while the program is built: static, so LAG(x, 1) and
+        # LAG(x, 2) are two programs
+        static = {id(a) for a in W.static_args(e)}
+        return (
+            "win", e.func.value,
+            tuple(_expr_key(a, None if id(a) in static else ctx)
+                  for a in e.args),
+            tuple(_expr_key(p, ctx) for p in e.partition_by),
+            tuple(_sort_key_key(k, ctx) for k in e.order_by),
+            repr(e.frame),
+        )
     if ctx is not None and isinstance(e, _SUBQUERY_EXPRS):
         if isinstance(e, lp.ScalarSubqueryExpr):
             key = ("ssub", str(e.dtype))
@@ -422,7 +446,8 @@ def _expr_key(e: lp.LogicalExpr, ctx=None):
 def _passes_rows(node) -> bool:
     """A node whose output columns are its input's (a subset of its rows, a
     new order, or new names): key multiplicities seen below hold above."""
-    return isinstance(node, (pp.PFilter, pp.PSort, pp.PLimit)) or (
+    return isinstance(node, (pp.PFilter, pp.PSort, pp.PLimit,
+                             pp.PDistinct)) or (
         isinstance(node, pp.PSubquery) and not node.shared)
 
 
@@ -433,7 +458,8 @@ def _sort_key_key(k: lp.SortKey, ctx=None):
 # single-input nodes a program body traces: node type -> _trace_<name>
 _OPERATORS = {pp.PFilter: "filter", pp.PProjection: "projection",
               pp.PSort: "sort", pp.PLimit: "limit",
-              pp.PHashAggregate: "aggregate"}
+              pp.PHashAggregate: "aggregate", pp.PDistinct: "distinct",
+              pp.PWindow: "window"}
 
 _DYN_DTYPES = {"b": torch.bool, "i": torch.int64, "f": torch.float64}
 
@@ -476,11 +502,14 @@ class CompiledPipeline:
         self.stats = {"compiles": 0, "hits": 0, "fallbacks": 0,
                       "joins_inlined": 0, "joins_demoted": 0,
                       "captures": 0, "replays": 0,
+                      # window sorts made and OVER specs seen, per compile
+                      "window_sorts": 0, "window_specs": 0,
                       # host-clock ms in the eager subtrees run as leaves
                       # (the outermost ones) and in captures outside them
                       "leaf_ms": 0.0, "capture_ms": 0.0}
         self.leaf_kinds = collections.Counter()  # eager leaves by node type
         self._leaf_depth = 0
+        self._compiling = False  # a program's first run (stats count once)
 
     # ---- entry -----------------------------------------------------------
     def try_execute(self, plan: pp.PhysicalPlan) -> Optional[ColumnBatch]:
@@ -651,7 +680,11 @@ class CompiledPipeline:
     def _first_run(self, entry, batches, dyn_vals):
         """Run the body once eagerly; on CUDA, then capture it."""
         planes, n_bufs, dyn_bufs = self._inputs(batches, dyn_vals)
-        out = self._body(entry, planes, n_bufs, dyn_bufs)
+        self._compiling = True
+        try:
+            out = self._body(entry, planes, n_bufs, dyn_bufs)
+        finally:
+            self._compiling = False
         if self._graphs:
             self._capture(entry, planes, n_bufs, dyn_bufs)
         return out
@@ -802,7 +835,35 @@ class CompiledPipeline:
             # a derived table: a pass-through node that renames its child
             body, leaves, n = self._child(plan.input, ctx)
             return ("subq", tuple(plan.out_schema.names()), body), leaves, n
-        # anything else: eager leaf boundary (distinct, window, set op, ...)
+        if isinstance(plan, pp.PDistinct):
+            on = plan.on
+            if on is not None and not all(self._traceable(e) for e in on):
+                raise _Unsupported("distinct exprs")
+            body, leaves, n = self._child(plan.input, ctx)
+            okey = None if on is None else tuple(_expr_key(e, ctx)
+                                                 for e in on)
+            return ("distinct", okey, body), leaves, n + 1
+        if isinstance(plan, pp.PWindow):
+            if not all(self._traceable(w) for w in plan.window_exprs):
+                raise _Unsupported("window exprs")
+            body, leaves, n = self._child(plan.input, ctx)
+            return (
+                ("window", tuple(_expr_key(w, ctx) for w in plan.window_exprs),
+                 tuple(plan.names), body),
+                leaves, n + 1,
+            )
+        if isinstance(plan, pp.PSetOp):
+            if self._graphs and any(
+                    f.data_type.is_dictionary
+                    for side in (plan.left, plan.right)
+                    for f in side.schema()):
+                # merging two dictionaries builds a host table
+                raise _Unsupported("string set operation")
+            lbody, lleaves, ln = self._child(plan.left, ctx)
+            rbody, rleaves, rn = self._child(plan.right, ctx)
+            return (("setop", plan.kind.value, lbody, rbody),
+                    lleaves + rleaves, ln + rn + 1)
+        # anything else: an eager leaf boundary (CROSS join, VALUES, ...)
         raise _Unsupported(type(plan).__name__)
 
     def _plan_key_join(self, plan: pp.PHashJoin, ctx):
@@ -898,6 +959,11 @@ class CompiledPipeline:
             if id(node) in ctx.forced or isinstance(node, pp.PScan):
                 return ("stat", node, idx)
             if _passes_rows(node):
+                node = node.input
+                continue
+            if isinstance(node, pp.PWindow):
+                if idx >= len(node.input.schema()):
+                    return None  # a window function's column
                 node = node.input
                 continue
             if isinstance(node, pp.PProjection):
@@ -1011,6 +1077,9 @@ class CompiledPipeline:
             name, op, kids = "topk", self._trace_topk, [plan.input.input]
         elif isinstance(plan, pp.PHashJoin):
             name, op, kids = "join", self._trace_join, [plan.left, plan.right]
+        elif isinstance(plan, pp.PSetOp):
+            name, op = "setop", self._trace_setop
+            kids = [plan.left, plan.right]
         elif type(plan) in _OPERATORS:
             name = _OPERATORS[type(plan)]
             op = getattr(self, f"_trace_{name}")
@@ -1199,6 +1268,162 @@ class CompiledPipeline:
             t.schema, cols, K.live_mask(t.capacity, n_live), t.capacity,
             True, t.bounds,
         )
+
+    # ---- window / distinct / set operations ------------------------------
+    def _trace_window(self, plan: pp.PWindow, t: _TTable, res) -> _TTable:
+        """Each window function over its OVER spec's sort, at the input's
+        capacity; the selection mask passes through.
+
+        Shared sorts: specs with the same PARTITION BY whose ORDER BY is a
+        prefix of another spec's take that spec's permutation when the
+        function cannot see the order within peers (W.order_independent);
+        each keeps its own segment and peer flags."""
+        ev = self.executor.evaluator
+        shim = _ShimBatch(t)
+        cap, sel = t.capacity, t.sel
+        schema = plan.schema()
+        out_cols = list(t.cols)
+
+        def spec_key(w):
+            return (tuple(str(_expr_key(p)) for p in w.partition_by),
+                    tuple((str(_expr_key(k.expr)), k.asc,
+                           k.resolved_nulls_first()) for k in w.order_by))
+
+        spec_keys = [spec_key(w) for w in plan.window_exprs]
+        spec_exprs = {}  # spec key -> a window expr carrying those keys
+        for w, sk in zip(plan.window_exprs, spec_keys):
+            spec_exprs.setdefault(sk, w)
+        sorts, segments, inverses = {}, {}, {}
+        for wi, (w, (pk, okeys)) in enumerate(zip(plan.window_exprs,
+                                                  spec_keys)):
+            hk = (pk, okeys)
+            if W.order_independent(w):
+                for pk2, ok2 in spec_exprs:
+                    if pk2 == pk and len(ok2) > len(hk[1]) \
+                            and ok2[:len(okeys)] == okeys:
+                        hk = (pk2, ok2)
+            if hk not in sorts:
+                sorts[hk] = self._window_sort(spec_exprs[hk], t, shim)
+            perm, pad_sorted, parts, orders = sorts[hk]
+            n_own = len(w.order_by)
+            if (hk, n_own) not in segments:
+                segments[(hk, n_own)] = K.window_segments(
+                    parts, [p for pair in orders[:n_own] for p in pair],
+                    pad_sorted)
+            seg_change, peer_change, seg = segments[(hk, n_own)]
+
+            def arg(e, perm=perm):
+                """The argument in window order, packed when bounded."""
+                v = ev.eval(e, shim)
+                b = _proj_bounds(e, t)
+                if not (b is not None and len(b) == 2):
+                    b = ((0, max(len(v.dictionary), 1))
+                         if v.dictionary is not None else None)
+                (d,), (ok,) = K.gather_columns_packed(
+                    [v.data], [v.validity], [b], perm)
+                return v, d, ok
+
+            svals, svalid, out_dict = W.sorted_values(
+                w, seg_change, peer_change, seg, pad_sorted, arg)
+            if hk not in inverses:
+                inv = torch.empty_like(perm)
+                inv[perm] = torch.arange(cap, device=perm.device)
+                inverses[hk] = inv
+            # back to row order: the rank family's values (1..cap) pack
+            rb = (0, cap + 1) if w.func in W.RANKS else None
+            (out_d,), (out_v,) = K.gather_columns_packed(
+                [svals], [svalid], [rb], inverses[hk])
+            if out_dict is not None:
+                out_d = out_d.to(torch.int32)
+            f = schema.field(len(t.cols) + wi)
+            out_cols.append(Column(out_d, out_v & sel, f.data_type, out_dict))
+        if self._compiling:
+            self.stats["window_sorts"] += len(sorts)
+            self.stats["window_specs"] += len(set(spec_keys))
+        return _TTable(schema, out_cols, sel, cap, t.dense,
+                       t.bounds + [None] * len(plan.window_exprs))
+
+    def _window_sort(self, w, t: _TTable, shim):
+        """One OVER spec's sort: (perm, pad flags in window order, the
+        normalized partition key planes, one [null, key] pair per ORDER BY
+        key). The key planes go through the permutation in one packed
+        gather (bare columns carry bounds; validity bits always pack)."""
+        ev = self.executor.evaluator
+        part_vals = [ev.eval(p, shim) for p in w.partition_by]
+        o_vals = [ev.eval(k.expr, shim) for k in w.order_by]
+        key_exprs = list(w.partition_by) + [k.expr for k in w.order_by]
+        kb = _key_ranges(key_exprs, part_vals + o_vals, t)
+        datas = [v.data for v in part_vals + o_vals]
+        valids = [v.validity for v in part_vals + o_vals]
+        n_part = len(part_vals)
+        if not key_exprs:
+            # OVER (): a constant key keeps the live rows in input order
+            datas = [torch.zeros(t.capacity, dtype=torch.int32,
+                                 device=t.sel.device)]
+            valids = [torch.ones(t.capacity, dtype=torch.bool,
+                                 device=t.sel.device)]
+            kb, n_part = [(0, 1)], 1
+        ascs = [True] * n_part + [k.asc for k in w.order_by]
+        nfs = [False] * n_part + [k.resolved_nulls_first()
+                                  for k in w.order_by]
+        perm = K.sort_permutation(datas, valids, ascs, nfs, t.sel, ranges=kb)
+        g_d, g_v = K.gather_columns_packed(datas, valids, kb, perm)
+        norm = [K.normalize_key(d, v) for d, v in zip(g_d, g_v)]
+        parts = [p for key, null in norm[:n_part]
+                 for p in (null.to(torch.int32), key)]
+        orders = [[null.to(torch.int32), key] for key, null in norm[n_part:]]
+        return perm, ~t.sel[perm], parts, orders
+
+    def _trace_distinct(self, plan: pp.PDistinct, t: _TTable, res
+                        ) -> _TTable:
+        if plan.on is not None:
+            kvals = [self.executor.evaluator.eval(e, _ShimBatch(t))
+                     for e in plan.on]
+            datas = [v.data for v in kvals]
+            valids = [v.validity for v in kvals]
+        else:
+            datas = [c.data for c in t.cols]
+            valids = [c.validity for c in t.cols]
+        gid = torch.zeros(t.capacity, dtype=torch.int64, device=t.sel.device)
+        first = K.distinct_first_flags(datas, valids, gid, t.sel)
+        return _TTable(t.schema, t.cols, t.sel & first, t.capacity, False,
+                       t.bounds)
+
+    def _trace_setop(self, plan: pp.PSetOp, lt: _TTable, rt: _TTable,
+                     res) -> _TTable:
+        """UNION [ALL]: the two sides' planes concatenated (UNION's dedup is
+        the Distinct node the planner adds above). INTERSECT / EXCEPT: the
+        left rows whose key tuple does (does not) occur among the right's,
+        NULLs equal, then the first of each key."""
+        lvals, rvals = [], []
+        for lc, rc in zip(lt.cols, rt.cols):
+            lv = Val(lc.data, lc.validity, lc.dtype, lc.dictionary)
+            rv = Val(rc.data, rc.validity, rc.dtype, rc.dictionary)
+            if lc.dictionary is not None or rc.dictionary is not None:
+                lv, rv = unify_dicts(lv, rv)
+            lvals.append(lv)
+            rvals.append(rv)
+        if plan.kind in (lp.SetOpKind.UNION, lp.SetOpKind.UNION_ALL):
+            cols = [
+                Column(torch.cat([lv.data, rv.data]),
+                       torch.cat([lv.validity, rv.validity]), lc.dtype,
+                       lv.dictionary)
+                for lv, rv, lc in zip(lvals, rvals, lt.cols)
+            ]
+            return _TTable(lt.schema, cols, torch.cat([lt.sel, rt.sel]),
+                           lt.capacity + rt.capacity, False,
+                           [None] * len(cols))
+        lr, rr = K.join_ranks([(v.data, v.validity) for v in lvals],
+                              [(v.data, v.validity) for v in rvals],
+                              lt.sel, rt.sel, null_equal=True)
+        member = K.rank_member(lr, rr, K.live_mask(rt.capacity, rt.sel))
+        keep = member if plan.kind is lp.SetOpKind.INTERSECT else ~member
+        sel = lt.sel & keep
+        gid = torch.zeros(lt.capacity, dtype=torch.int64, device=sel.device)
+        first = K.distinct_first_flags([v.data for v in lvals],
+                                       [v.validity for v in lvals], gid, sel)
+        return _TTable(lt.schema, lt.cols, sel & first, lt.capacity, False,
+                       lt.bounds)
 
     # ---- aggregate ---------------------------------------------------------
     def _trace_aggregate(self, plan: pp.PHashAggregate, t: _TTable,

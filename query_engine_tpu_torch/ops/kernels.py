@@ -35,6 +35,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from query_engine_tpu_torch.core.errors import ExecutionError
 from query_engine_tpu_torch.ops import group_agg, small_gather
 
 _I32_MIN = int(np.iinfo(np.int32).min)
@@ -957,17 +958,479 @@ def unmatched_indices(matched: torch.Tensor, num_rows, out_capacity: int):
 # ---------------------------------------------------------------------------
 
 
+# torch.cummax/cummin of a 1-D CUDA tensor is one thread block's scan, so
+# positions come from a prefix count, a scatter and a gather instead, and
+# value scans from row scans (`_cummax`)
+
+
+def _run_ids(flags: torch.Tensor) -> torch.Tensor:
+    """Per row, the number of flagged rows at or before it: its run's
+    number from 1 (0 before the first flag)."""
+    return torch.cumsum(flags.to(torch.int64), 0)
+
+
 def _seg_start_pos(seg_change: torch.Tensor) -> torch.Tensor:
-    """Index of the first row of each row's segment."""
-    idx = torch.arange(seg_change.shape[0], device=seg_change.device)
-    return torch.cummax(torch.where(seg_change, idx, 0), 0).values
+    """Index of the first row of each row's segment (0 before the first
+    flag)."""
+    capacity = seg_change.shape[0]
+    idx = torch.arange(capacity, device=seg_change.device)
+    run = _run_ids(seg_change)
+    starts = _scatter_drop(capacity + 1, torch.where(seg_change, run, -1),
+                           idx, 0, torch.int64)
+    return starts[run]
 
 
 def _seg_end_pos(seg_change: torch.Tensor) -> torch.Tensor:
     """Index of the last row of each row's segment."""
     capacity = seg_change.shape[0]
     idx = torch.arange(capacity, device=seg_change.device)
-    nxt = torch.roll(seg_change, -1)
-    nxt[capacity - 1] = True
-    ends = torch.where(nxt, idx, capacity - 1)
-    return torch.flip(torch.cummin(torch.flip(ends, (0,)), 0).values, (0,))
+    # no host scalar stored into a device tensor: a CUDA graph captures this
+    nxt = torch.roll(seg_change, -1) | (idx == capacity - 1)
+    run = _run_ids(seg_change)
+    ends = _scatter_drop(capacity + 1, torch.where(nxt, run, -1), idx, 0,
+                         torch.int64)
+    return ends[run]
+
+
+def _block_scan(x: torch.Tensor, scan, combine, pad, row: int
+                ) -> torch.Tensor:
+    """Inclusive scan of a 1-D plane in a fixed order: each row of x viewed
+    as [-1, row] is scanned by itself (torch's per-row scan, `scan(X)` over
+    dim 1), then the rows' last elements are scanned the same way,
+    recursively, and combined into the rows after them. `pad` is the
+    scan's neutral element."""
+    n = x.shape[0]
+    if n <= row:  # two rows: torch scans a 2-D tensor row by row
+        return scan(torch.stack([x, torch.full_like(x, pad)]))[0]
+    nb = -(-n // row)
+    xp = torch.cat([x, x.new_full((nb * row - n,), pad)]) \
+        if nb * row != n else x
+    within = scan(xp.view(nb, row))
+    tops = _block_scan(within[:, -1].contiguous(), scan, combine, pad, row)
+    before = torch.cat([tops.new_full((1,), pad), tops[:-1]])
+    return combine(within, before[:, None]).reshape(-1)[:n]
+
+
+def _cummax(x: torch.Tensor, row: int = 1024) -> torch.Tensor:
+    """Running maximum of a 1-D integer plane."""
+    return _block_scan(x, lambda X: torch.cummax(X, 1).values, torch.maximum,
+                       torch.iinfo(x.dtype).min, row)
+
+
+# ---------------------------------------------------------------------------
+# CROSS joins
+# ---------------------------------------------------------------------------
+
+
+def cross_join_indices(n_left: int, n_right: int, out_capacity: int,
+                       device="cpu"):
+    """CROSS join index planes, left-major (the reference's take-based
+    repetition, executor.rs:437-498): (left idx, right idx, valid)."""
+    t = torch.arange(out_capacity, device=device)
+    total = n_left * n_right
+    li = t // max(n_right, 1)
+    ri = t % max(n_right, 1)
+    valid = t < total
+    return torch.where(valid, li, 0), torch.where(valid, ri, 0), valid
+
+
+# ---------------------------------------------------------------------------
+# window functions (over rows already in window order; the caller sorts and
+# scatters the results back through the inverse permutation)
+#
+# Frame descriptors: ("partition",) | ("range_current",) | ("rows", s, e)
+# with s/e = None for UNBOUNDED and an int row offset (0 = CURRENT ROW) |
+# ("range_off", s, e): value distances over the single ORDER BY key.
+# ---------------------------------------------------------------------------
+
+
+def window_segments(part_sorted: Sequence[torch.Tensor],
+                    order_sorted: Sequence[torch.Tensor],
+                    pad_sorted: torch.Tensor):
+    """Over key planes already in window order: the segment (partition)
+    start flags, the peer (order key change) start flags and the segment
+    id of each row. Pad rows form one trailing segment."""
+    capacity = pad_sorted.shape[0]
+    idx = torch.arange(capacity, device=pad_sorted.device)
+    seg_change = idx == 0
+    for k in part_sorted:
+        seg_change = seg_change | ((idx > 0) & (k != torch.roll(k, 1)))
+    seg_change = seg_change | (pad_sorted & ~torch.roll(pad_sorted, 1))
+    peer_change = seg_change
+    for k in order_sorted:
+        peer_change = peer_change | ((idx > 0) & (k != torch.roll(k, 1)))
+    seg = torch.cumsum(seg_change.to(torch.int64), 0) - 1
+    return seg_change, peer_change, seg
+
+
+def row_number_sorted(seg_change: torch.Tensor) -> torch.Tensor:
+    idx = torch.arange(seg_change.shape[0], device=seg_change.device)
+    return idx - _seg_start_pos(seg_change) + 1
+
+
+def rank_sorted(seg_change: torch.Tensor, peer_change: torch.Tensor
+                ) -> torch.Tensor:
+    return _seg_start_pos(peer_change) - _seg_start_pos(seg_change) + 1
+
+
+def dense_rank_sorted(seg_change: torch.Tensor, peer_change: torch.Tensor
+                      ) -> torch.Tensor:
+    peers = _run_ids(peer_change)
+    # peers only grow: its value at the segment's first row (0 before it)
+    at_seg_start = torch.where(_run_ids(seg_change) > 0,
+                               peers[_seg_start_pos(seg_change)], 0)
+    return peers - at_seg_start + 1
+
+
+def ntile_sorted(seg_change: torch.Tensor, n_tiles: int,
+                 pad_sorted: torch.Tensor) -> torch.Tensor:
+    """PG NTILE: q = count // n, r = count % n; the first r buckets get
+    q + 1 rows. `n_tiles` is a host int (a literal of the query)."""
+    rn = row_number_sorted(seg_change) - 1  # 0-based
+    count = _seg_end_pos(seg_change) - _seg_start_pos(seg_change) + 1
+    count = torch.where(pad_sorted, 1, count)
+    n = max(int(n_tiles), 1)
+    q = count // n
+    r = count % n
+    big = r * (q + 1)
+    bucket = torch.where(
+        rn < big,
+        rn // (q + 1).clamp(min=1),
+        r + torch.where(q > 0, (rn - big) // q.clamp(min=1), 0),
+    )
+    return bucket + 1
+
+
+def percent_rank_sorted(seg_change: torch.Tensor, peer_change: torch.Tensor
+                        ) -> torch.Tensor:
+    """PG PERCENT_RANK = (rank - 1) / (count - 1); 0 for 1-row partitions."""
+    rank = rank_sorted(seg_change, peer_change)
+    count = (_seg_end_pos(seg_change) - _seg_start_pos(seg_change)
+             + 1).to(torch.float64)
+    return torch.where(
+        count > 1,
+        (rank - 1).to(torch.float64) / (count - 1.0).clamp(min=1.0),
+        0.0,
+    )
+
+
+def cume_dist_sorted(seg_change: torch.Tensor, peer_change: torch.Tensor
+                     ) -> torch.Tensor:
+    """PG CUME_DIST = (rows <= the current one, tie peers included) /
+    count: the last tie peer's position gives the numerator (a peer run
+    never crosses a segment boundary)."""
+    start = _seg_start_pos(seg_change)
+    count = (_seg_end_pos(seg_change) - start + 1).to(torch.float64)
+    peers_thru = (_seg_end_pos(peer_change) - start + 1).to(torch.float64)
+    return peers_thru / count.clamp(min=1.0)
+
+
+def _row_scan(x: torch.Tensor, row: int = 4096) -> torch.Tensor:
+    """Inclusive prefix sum in a fixed order (`_block_scan`)."""
+    return _block_scan(x, lambda X: torch.cumsum(X, 1), torch.add, 0, row)
+
+
+def _prefix_sum(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix sum of a 1-D plane with the same bits on every run.
+    torch.cumsum of a 1-D float CUDA tensor is one device-wide scan whose
+    partial sums combine in an order set by when blocks finish, so float
+    planes take _row_scan; integers (exact in any order) take
+    torch.cumsum."""
+    return _row_scan(x) if x.is_floating_point() else torch.cumsum(x, 0)
+
+
+def _extreme_plane(vals: torch.Tensor, ok: torch.Tensor, is_min: bool):
+    """(values widened to float64 or int64 with non-ok rows set to the
+    neutral element, the neutral element)."""
+    if vals.is_floating_point():
+        neutral = float("inf") if is_min else float("-inf")
+        x = vals.to(torch.float64)
+    else:
+        neutral = _I64_MAX if is_min else _I64_MIN
+        x = vals.to(torch.int64)
+    return torch.where(ok, x, torch.full_like(x, neutral)), neutral
+
+
+def _running_extreme(x: torch.Tensor, ok: torch.Tensor, seg: torch.Tensor,
+                     is_min: bool, neutral, key=None) -> torch.Tensor:
+    """Running min/max of the ok rows of x within segments (`seg`
+    nondecreasing ids); rows with no ok row yet in their segment get
+    `neutral`. The values go to their positions in one stable sort by
+    `key` (x itself when None), and ONE int64 cummax runs over
+    (segment id << 34) | (nan << 33) | (ok << 32) | position: segment ids
+    only grow along the plane, so the maximum resets at each boundary and
+    any ok row beats the rows before it that are not; MIN takes the
+    complemented position. The position maps back to its value. When x
+    orders itself, a NaN holds from its row to its segment's end, as
+    minimum/maximum pass NaN on; a `key` (float32's orderable image) ranks
+    a NaN where its image lies."""
+    cap = x.shape[0]
+    dev = x.device
+    order = torch.sort(x if key is None else key, stable=True).indices
+    sv = x[order]
+    pos = torch.empty_like(order)
+    pos[order] = torch.arange(cap, device=dev)
+    if is_min:
+        pos = (cap - 1) - pos
+    flags = ok.to(torch.int64) << 32
+    if key is None and x.is_floating_point():
+        flags = flags | ((ok & torch.isnan(x)).to(torch.int64) << 33)
+    enc = (seg.to(torch.int64) << 34) | torch.where(ok, flags | pos, 0)
+    m = _cummax(enc)
+    seen = ((m >> 32) & 1) != 0
+    p = m & 0xFFFFFFFF
+    if is_min:
+        p = (cap - 1) - p
+    got = sv[p.clamp(0, cap - 1)]
+    return torch.where(seen, got, torch.full_like(got, neutral))
+
+
+def _segment_running_extreme(vals: torch.Tensor, ok: torch.Tensor,
+                             seg_change: torch.Tensor, is_min: bool
+                             ) -> torch.Tensor:
+    """Running MIN/MAX within segments, float64 for float values and int64
+    otherwise; the neutral element (+-inf, INT64_MAX/MIN) before a
+    segment's first ok row. float32 values rank by their orderable image
+    (NaN above +inf, or below -inf when its sign is set; -0 below +0);
+    wider floats pass NaN on."""
+    x, neutral = _extreme_plane(vals, ok, is_min)
+    seg = torch.cumsum(seg_change.to(torch.int64), 0) - 1
+    key = _f32_orderable_bits(vals) if vals.dtype == torch.float32 else None
+    return _running_extreme(x, ok, seg, is_min, neutral, key)
+
+
+def _segment_running_extreme_rev(x: torch.Tensor, ok: torch.Tensor,
+                                 seg_change: torch.Tensor, is_min: bool,
+                                 neutral) -> torch.Tensor:
+    """The reverse running extreme: over [row, its segment's end]."""
+    seg = torch.cumsum(seg_change.to(torch.int64), 0) - 1
+    seg_f = seg[-1] - torch.flip(seg, (0,))  # nondecreasing again
+    out = _running_extreme(torch.flip(x, (0,)), torch.flip(ok, (0,)), seg_f,
+                           is_min, neutral)
+    return torch.flip(out, (0,))
+
+
+def range_off_order_plane(kd: torch.Tensor, kok: torch.Tensor, asc: bool,
+                          nulls_first: bool):
+    """Normalize a sorted ORDER BY key plane for a value-distance frame:
+    DESC negates (offsets then apply uniformly as [k - s, k + e]); NULL
+    keys get a sentinel at the end of the segment they occupy in window
+    order, so the joint sort reproduces window-order positions exactly.
+    Shared by the eager executor and the compiled pipeline."""
+    if not asc:
+        kd = -kd
+    if kd.is_floating_point():
+        s_lo, s_hi = float("-inf"), float("inf")
+    else:
+        info = torch.iinfo(kd.dtype)
+        s_lo, s_hi = info.min // 2, info.max // 2
+    sent = s_lo if nulls_first else s_hi
+    return torch.where(kok, kd, torch.full_like(kd, sent)), kok
+
+
+def _range_off_bounds(okey, okey_ok, seg_change, peer_change, pad_sorted,
+                      s_off, e_off):
+    """Per-row [lo, hi] POSITIONS for a value-distance frame (RANGE BETWEEN
+    s_off PRECEDING AND e_off FOLLOWING) over rows in window order. `okey`
+    is the single ORDER BY key in sorted order, nondecreasing within each
+    segment (DESC pre-negated). The bounds `okey - s_off` and
+    `okey + e_off` are computed in the key's own dtype.
+
+    One joint stable sort of (segment, key, tag) over the data rows and one
+    probe per bounded side (tag 0 sorts before equal data keys, tag 2
+    after): the count of data rows before a probe's slot is its boundary
+    position. Rows with a NULL order key frame their NULL peer group (PG).
+    """
+    cap = okey.shape[0]
+    dev = okey.device
+    idx = torch.arange(cap, device=dev)
+    seg = torch.cumsum(seg_change.to(torch.int64), 0) - 1
+    seg = torch.where(pad_sorted, cap, seg)
+    segs, keys, tags, ids = [seg], [okey], [torch.ones_like(seg)], [idx]
+    if s_off is not None:
+        segs.append(seg)
+        keys.append(okey - s_off)
+        tags.append(torch.zeros_like(seg))  # before equal keys
+        ids.append(idx)
+    if e_off is not None:
+        segs.append(seg)
+        keys.append(okey + e_off)
+        tags.append(torch.full_like(seg, 2))  # after equal keys
+        ids.append(idx)
+    tag = torch.cat(tags)
+    sperm = _lexsort([torch.cat(segs), torch.cat(keys), tag])
+    stag = tag[sperm]
+    sid = torch.cat(ids)[sperm]
+    is_data = (stag == 1).to(torch.int64)
+    data_before = torch.cumsum(is_data, 0) - is_data
+    seg_start = _seg_start_pos(seg_change)
+    seg_end = _seg_end_pos(seg_change)
+    if s_off is not None:
+        lo = _scatter_drop(cap, torch.where(stag == 0, sid, -1), data_before,
+                           0, torch.int64)
+        lo = torch.maximum(lo, seg_start)
+    else:
+        lo = seg_start
+    if e_off is not None:
+        hi = _scatter_drop(cap, torch.where(stag == 2, sid, -1), data_before,
+                           0, torch.int64) - 1
+        hi = torch.minimum(hi, seg_end)
+    else:
+        hi = seg_end
+    # NULL order keys: the frame is the row's NULL peer group
+    lo = torch.where(okey_ok, lo, _seg_start_pos(peer_change))
+    hi = torch.where(okey_ok, hi, _seg_end_pos(peer_change))
+    return lo, hi
+
+
+def window_frame_bounds(frame, seg_change, peer_change, pad_sorted,
+                        order_plane=None):
+    """Per-row frame [lo, hi] POSITIONS in window order for any frame
+    descriptor; shared by the aggregate windows and the positional value
+    functions (FIRST_VALUE / LAST_VALUE / NTH_VALUE read lo / hi /
+    lo + n - 1). An empty frame has hi < lo."""
+    idx = torch.arange(seg_change.shape[0], device=seg_change.device)
+    seg_start = _seg_start_pos(seg_change)
+    seg_end = _seg_end_pos(seg_change)
+    kind = frame[0]
+    if kind == "partition":
+        return seg_start, seg_end
+    if kind == "range_current":
+        return seg_start, _seg_end_pos(peer_change)
+    if kind == "range_off":
+        okey, okey_ok = order_plane
+        return _range_off_bounds(okey, okey_ok, seg_change, peer_change,
+                                 pad_sorted, frame[1], frame[2])
+    _, s_off, e_off = frame
+    lo = seg_start if s_off is None else torch.maximum(idx - s_off, seg_start)
+    hi = seg_end if e_off is None else torch.minimum(idx + e_off, seg_end)
+    return lo, hi
+
+
+def window_aggregate_sorted(
+    func: str,
+    vals: Optional[torch.Tensor],
+    ok: Optional[torch.Tensor],
+    seg_change: torch.Tensor,
+    peer_change: torch.Tensor,
+    pad_sorted: torch.Tensor,
+    frame,
+    order_plane=None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """COUNT(*)/COUNT/SUM/AVG/MIN/MAX over a frame, for rows in window
+    order. Returns (values, valid) in window order.
+
+    func: count_star | count | sum | avg | min | max; vals/ok: the argument
+    in window order (None for count_star); frame: a frame descriptor;
+    order_plane: ("range_off" only) (key, key valid) in window order, DESC
+    pre-negated (range_off_order_plane).
+
+    COUNT and SUM are prefix differences, P[hi] - P[lo - 1] of one prefix
+    sum over the plane (two gathers; `_prefix_sum`, the same bits on every
+    run). MIN/MAX: a per-segment reduce for the
+    whole partition, a running extreme read at the frame's end for an
+    unbounded start (at its start for an unbounded end), and the van
+    Herk/Gil-Werman block decomposition for bounded ROWS frames.
+    """
+    cap = seg_change.shape[0]
+    dev = seg_change.device
+    idx = torch.arange(cap, device=dev)
+    live = ~pad_sorted
+    ok_live = live if (ok is None or vals is None) else (ok & live)
+    kind = frame[0]
+    lo, hi = window_frame_bounds(frame, seg_change, peer_change, pad_sorted,
+                                 order_plane)
+    empty = hi < lo
+    lo_c = lo.clamp(0, cap - 1)
+    hi_c = hi.clamp(0, cap - 1)
+    lo_prev = (lo - 1).clamp(0, cap - 1)
+
+    def frame_range(P):
+        before = torch.where(lo > 0, P[lo_prev], torch.zeros_like(P))
+        return P[hi_c] - before
+
+    cnt = torch.where(
+        empty, 0, frame_range(torch.cumsum(ok_live.to(torch.int64), 0)))
+    if func in ("count", "count_star"):
+        return cnt, torch.ones(cap, dtype=torch.bool, device=dev)
+    if vals is None:
+        raise ValueError(f"window aggregate {func} needs a value plane")
+    if func in ("sum", "avg"):
+        acc = torch.float64 if vals.is_floating_point() else torch.int64
+        x = torch.where(ok_live, vals.to(acc), torch.zeros((), dtype=acc,
+                                                           device=dev))
+        ssum = torch.where(empty, torch.zeros((), dtype=acc, device=dev),
+                           frame_range(_prefix_sum(x)))
+        if func == "avg":
+            return (ssum.to(torch.float64)
+                    / cnt.clamp(min=1).to(torch.float64), cnt > 0)
+        return ssum, cnt > 0
+    if func not in ("min", "max"):
+        raise ValueError(f"unknown window aggregate {func}")
+    is_min = func == "min"
+    whole = kind == "partition" or (
+        kind == "rows" and frame[1] is None and frame[2] is None)
+    if whole:
+        seg = torch.cumsum(seg_change.to(torch.int64), 0) - 1
+        per_seg = _segment_extreme(vals, ok_live, seg, cap, is_min)
+        return per_seg[seg], cnt > 0
+    if kind == "range_current" or frame[1] is None:
+        # unbounded start: the running extreme, read at the frame's end
+        run = _segment_running_extreme(vals, ok_live, seg_change, is_min)
+        return run[hi_c], cnt > 0
+    x, neutral = _extreme_plane(vals, ok_live, is_min)
+    if kind == "range_off":
+        if frame[2] is None:
+            # unbounded end: the reverse running extreme, read at the start
+            rev = _segment_running_extreme_rev(x, ok_live, seg_change,
+                                               is_min, neutral)
+            return rev[lo_c], cnt > 0
+        raise ExecutionError(
+            "MIN/MAX over a bounded RANGE offset frame is not supported")
+    # bounded ROWS start: van Herk / Gil-Werman block decomposition for the
+    # interior windows; the running and reverse running extremes cover the
+    # frames clamped at a segment edge
+    s_off, e_off = frame[1], frame[2]
+    run = _segment_running_extreme(vals, ok_live, seg_change, is_min)
+    rev = _segment_running_extreme_rev(x, ok_live, seg_change, is_min,
+                                       neutral)
+    if e_off is None:  # frame = [max(i - s, seg_start), seg_end]
+        return rev[lo_c], cnt > 0
+    pick = torch.minimum if is_min else torch.maximum
+    red = torch.cummin if is_min else torch.cummax
+    k = s_off + e_off + 1
+    nb = -(-cap // k)
+    xp = torch.cat([x, torch.full((nb * k - cap,), neutral, dtype=x.dtype,
+                                  device=dev)])
+    X = xp.reshape(nb, k)
+    pref = red(X, 1).values.reshape(-1)
+    suff = torch.flip(red(torch.flip(X, (1,)), 1).values, (1,)).reshape(-1)
+    # the window of size k ending at j: pick(suff[j - k + 1], pref[j]);
+    # both read only positions inside [j - k + 1, j], so an interior window
+    # never reads across a segment boundary
+    start_pos = (hi_c - k + 1).clamp(0, cap - 1)
+    vh = pick(suff[start_pos], pref[hi_c])
+    start_clamped = (idx - s_off) < lo
+    end_clamped = (idx + e_off) > hi
+    out = torch.where(start_clamped, run[hi_c],
+                      torch.where(end_clamped, rev[lo_c], vh))
+    return out, cnt > 0
+
+
+def shift_in_segment(values: torch.Tensor, valid: torch.Tensor,
+                     seg: torch.Tensor, offset: int):
+    """LAG (offset > 0) / LEAD (offset < 0) within segments: a constant
+    shift (torch.roll); a source outside the segment gives NULL."""
+    capacity = values.shape[0]
+    idx = torch.arange(capacity, device=values.device)
+    src = idx - offset
+    in_range = (src >= 0) & (src < capacity)
+    same_seg = in_range & (torch.roll(seg, offset) == seg)
+    out = torch.where(same_seg, torch.roll(values, offset),
+                      torch.zeros_like(values))
+    return out, same_seg & torch.roll(valid, offset)
+
+
+def value_at(values: torch.Tensor, valid: torch.Tensor, pos: torch.Tensor):
+    pos_c = pos.clamp(0, values.shape[0] - 1)
+    return values[pos_c], valid[pos_c]
