@@ -104,6 +104,22 @@ Phase 8  runs the window, DISTINCT, set-operation and CROSS join queries of
          STRING_SETOPS: their dictionaries merge on the host), if a float
          window sum differs in its bits between two warm runs, or unless
          group_agg launched in W3 and W5 with no `index_add_` call.
+Phase 9  runs the statistics, GROUPING(), scalar-function, regex and
+         INTERVAL queries of `tpch/scalar.py` (F1-F6: STDDEV/VAR/CORR/REGR
+         over lineitem, DATE_TRUNC/ROUND/ABS/% over orders, a CUBE with
+         GROUPING(), UPPER(SPLIT_PART())/LENGTH/`~` over part, the numeric
+         functions over customer, and Q1 with its date bound written as an
+         INTERVAL) on phase 7's SF1 tables and Session, as phase 8 does:
+         first, 5 warm and one eager run each, every one equal to its numpy
+         oracle (floats to rtol 1e-9). Prints per query the rows, the warm
+         median, host syncs, stats, eager leaves, group_agg launches, each
+         float column's largest relative error, F1's cancellation factors,
+         and one profiled warm run's kernel ms by operator; each group_agg
+         call of a first run is held against the plain versions. Fails
+         unless group_agg launched in F1, F2, F3, F5 and F6 and shows in
+         their profiled warm runs, if `index_add_` runs, if F1-F3, F5 or F6
+         runs an eager leaf or captures again on a warm run, or if F4 runs
+         an eager leaf outside STRING_FN_LEAVES.
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after; a kernel of the path that was not launched fails the run.
@@ -1431,6 +1447,141 @@ def phase8(tables, sess):
     return out
 
 
+# the query whose filter and GROUP BY build host tables on purpose (a
+# regex match table, UPPER(SPLIT_PART()) and LENGTH once per dictionary
+# value), and the eager leaves it may run: its aggregate with its input
+STRING_FN_LEAVES = {"F4": ("HashAggregate",)}
+
+
+def phase9(tables, sess):
+    """The statistics, GROUPING(), scalar-function, regex and INTERVAL
+    queries of tpch/scalar.py at SF1 on phase 7's tables and Session, each
+    against its numpy oracle."""
+    from query_engine_tpu_torch.tpch import scalar
+
+    t_phase = time.perf_counter()
+    pipe = sess.executor.pipeline
+    timing = ("leaf_ms", "capture_ms")
+    fac = scalar.cancellation(tables)
+    print("phase 9: F1's cancellation factors by group (sum(x^2) / m2 for "
+          "sd and vq, |sum(xy)| / |c2| for r, b, a): "
+          + "; ".join(f"{g} " + ", ".join(f"{k} {v:.4g}" for k, v in f.items())
+                      for g, f in fac.items()))
+    margin = scalar.f2_round_margin(tables)
+    print(f"phase 9: F2's ROUND(AVG, 2) is {margin:.3g} of a rounding step "
+          "from its nearest tie")
+    out = {}
+    for q, text in scalar.QUERIES.items():
+        t0 = time.perf_counter()
+        want = scalar.run(q, tables)
+        oracle_s = time.perf_counter() - t0
+        st0, syncs0 = dict(pipe.stats), sess.executor.host_syncs
+        kinds0 = collections.Counter(pipe.leaf_kinds)
+        keys0 = set(pipe._cache)
+        held = []
+        spy = IndexAddSpy()
+        reset_counts()
+        with spy.active(), group_agg_held_against_plain(held, spy):
+            t0 = time.perf_counter()
+            batch = sess.sql(text)
+            rows = batch.to_pylist()
+            first_ms = (time.perf_counter() - t0) * 1e3
+        launches = read_counts()["group_agg"]
+        first = _stats_change(st0, pipe.stats, timing)
+        first_syncs = sess.executor.host_syncs - syncs0
+        names_out = batch.schema.names()
+
+        def held_to_oracle(got, run):
+            try:
+                scalar.compare(q, got, want)
+            except AssertionError as e:
+                raise CheckFailed(f"{q} at SF1: {run} differs from the numpy "
+                                  f"oracle: {e}") from None
+            return scalar.float_errors(got, want)
+
+        errs = [held_to_oracle(rows, "the first run")]
+        check(rows, f"{q} at SF1 returned no rows")
+        walls = []
+        st1, syncs1 = dict(pipe.stats), sess.executor.host_syncs
+        for i in range(5):
+            t0 = time.perf_counter()
+            with spy.active():
+                again = sess.sql(text).to_pylist()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            errs.append(held_to_oracle(again, f"warm run {i + 1}"))
+        ms = statistics.median(walls)
+        syncs = (sess.executor.host_syncs - syncs1) / 5
+        warm = {k: v / 5
+                for k, v in _stats_change(st1, pipe.stats, timing).items()}
+        leaves = sorted(pipe.leaf_kinds - kinds0)
+        allowed = STRING_FN_LEAVES.get(q, ())
+        check(all(k in allowed for k in leaves),
+              f"{q}: {leaves} ran as eager leaves of a compiled run")
+        if q in scalar.GROUP_AGG:
+            check(not warm.get("captures"),
+                  f"{q}: a warm run captured again ({warm})")
+        sess.executor._compiled = False  # what QE_COMPILED=0 sets
+        try:
+            t0 = time.perf_counter()
+            eager = sess.sql(text).to_pylist()
+            eager_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            sess.executor._compiled = True
+        errs.append(held_to_oracle(eager, "the eager run"))
+        busy, wall, names = device_ms(sess, text)
+        by_operator = {}
+        for key in set(pipe._cache) - keys0:
+            if pipe._cache[key].graph is not None:
+                _, ops = profile_program(sess, f"phase 9: {q}",
+                                         pipe._cache[key])
+                for name, ms_op in ops.items():
+                    by_operator[name] = by_operator.get(name, 0) + ms_op
+        agg_kernels = kernel_names(names, "sum_count_", "float_absmax")
+        col_err = {}
+        for e in errs:
+            for c, v in e.items():
+                col_err[names_out[c]] = max(col_err.get(names_out[c], 0.0), v)
+        out[q] = {"rows": len(rows), "ms": ms, "first_ms": first_ms,
+                  "syncs": syncs, "first": first, "warm": warm,
+                  "eager_leaves": leaves, "eager_ms": eager_ms,
+                  "group_agg": launches, "group_agg_kernels": agg_kernels,
+                  "index_add_calls": spy.calls,
+                  "index_add_kernels": kernel_names(names, "indexFunc"),
+                  "max_rel_err": col_err, "device_ms": busy,
+                  "by_operator_ms": by_operator}
+        errs_s = {c: float(f"{v:.3g}") for c, v in col_err.items()}
+        exception = (" (its string functions build host tables: eager leaves "
+                     "by design)" if leaves else "")
+        print(f"phase 9: {q}: {len(rows)} rows == numpy oracle on the first "
+              f"and 5 warm compiled runs and the eager run (oracle "
+              f"{oracle_s:.2f} s); largest relative error by float column "
+              f"{errs_s}; {ms:.3f} ms/query median of 5 warm runs, "
+              f"{syncs:g} host syncs/query; first run {first_ms:.1f} ms, "
+              f"{first_syncs} syncs, stats {first}; warm stats per query "
+              f"{warm}; eager leaves {leaves}{exception}; eager run "
+              f"{eager_ms:.1f} ms; group_agg launches {launches} (kernels in "
+              f"the profiled run {agg_kernels}); index_add_ calls "
+              f"{spy.calls}; one profiled warm run: {busy:.3f} ms of kernel "
+              f"time in {wall:.3f} ms wall; by operator {by_operator}")
+        print(f"phase 9: {q}: rows {rows if len(rows) <= 32 else rows[:8]}")
+        for c in held:
+            print(f"phase 9: {q}: group_agg == plain on the same tensors: "
+                  f"n={c['n']} G={c['groups']} {c['items']} items, max abs "
+                  f"err against float64 summation {c['max_abs_err']:.6g}")
+    for q in scalar.GROUP_AGG:
+        check(out[q]["group_agg"] > 0, f"{q}: group_agg did not launch")
+        check(out[q]["group_agg_kernels"],
+              f"{q}: no group_agg kernel in its profiled warm run")
+    for q, r in out.items():
+        check(not r["index_add_calls"] and not r["index_add_kernels"],
+              f"{q}: index_add_ on the card: {r['index_add_calls']} calls, "
+              f"kernels {r['index_add_kernels']}")
+    total = sum(r["ms"] for r in out.values())
+    print(f"phase 9: {len(out)} queries: {total:.1f} ms in all (sum of the "
+          f"medians); the phase took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main():
     import torch
 
@@ -1455,6 +1606,7 @@ def main():
         p6_launches, p6_err, p6_times = phase6()
         tpch, tpch_held, sf1_tables, sf1_sess = phase7()
         windows = phase8(sf1_tables, sf1_sess)
+        scalar_fns = phase9(sf1_tables, sf1_sess)
     except CheckFailed as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -1464,6 +1616,7 @@ def main():
     tpch_by_query = {q: r["group_agg"] for q, r in tpch.items()}
     tpch_launches = sum(tpch_by_query.values())
     windows_by_query = {q: r["group_agg"] for q, r in windows.items()}
+    scalar_by_query = {q: r["group_agg"] for q, r in scalar_fns.items()}
     tpch_err = max((c["max_abs_err"] for calls in tpch_held.values()
                     for c in calls), default=0.0)
     print(json.dumps({"kernels": [{
@@ -1472,9 +1625,9 @@ def main():
         "source": "query_engine_tpu_torch/csrc/group_agg.cu",
         "replaces": "query_engine_tpu/ops/pallas/group_agg.py:74",
         "launches": agg_launches + tpch_launches
-        + sum(windows_by_query.values()),
+        + sum(windows_by_query.values()) + sum(scalar_by_query.values()),
         "launches_by_phase": {"4": agg_launches, "7": tpch_by_query,
-                              "8": windows_by_query},
+                              "8": windows_by_query, "9": scalar_by_query},
         "max_abs_err": max_err["plain"],
         "max_abs_err_vs_float64": {"1": max_err["float64"], "7": tpch_err},
         "ms": main_shape["ms"],

@@ -115,7 +115,7 @@ class QueryExecutor:
     # segment path)
     _MXU_AGG_MAX_GROUPS = 32768
 
-    def __init__(self, device="cpu", udfs=None):
+    def __init__(self, device, udfs=None):
         self.device = torch.device(device)
         self.udfs = udfs
         self.evaluator = Evaluator(self.device, udfs=udfs,
@@ -408,7 +408,8 @@ class QueryExecutor:
 
         lm = K.live_mask(cap, batch.num_rows, dev)
         args = [
-            None if agg.expr is None else self.evaluator.eval(agg.expr, batch)
+            None if agg.expr is None
+            else self.evaluator.eval_agg_arg(agg, batch)
             for agg in plan.agg_exprs
         ]
         # SUM/COUNT/AVG over dense bounded groups: one group_agg call for
@@ -426,7 +427,9 @@ class QueryExecutor:
             if not eligible:
                 slots.append(None)
                 continue
-            key = "__star" if av is None else _expr_struct_key(agg.expr)
+            # AVG over a DECIMAL sums descaled values: not SUM's item
+            key = "__star" if av is None else (_expr_struct_key(agg.expr),
+                                               str(av.dtype))
             if key not in item_of:
                 item_of[key] = len(items)
                 if av is None:

@@ -1,13 +1,16 @@
 """Vectorized expression evaluation over a ColumnBatch.
 
-The subset of `query_engine_tpu.engine.expr_eval` that the main path and
-the 22 TPC-H queries need: column references, literals, comparisons (a
-DATE/TIMESTAMP against a string literal parses the literal), + - * /,
-AND/OR/NOT, unary minus, IS [NOT] NULL, numeric CASTs and the
-string-to-date/timestamp CAST, EXTRACT, SUBSTRING, CASE, [NOT] IN (list),
-[NOT] [I]LIKE, and the subquery forms: scalar, [NOT] IN, [NOT] EXISTS,
-ANY/ALL, and the planner's decorrelated lookups, with the JAX package's
-semantics. Any other expression raises NotImplementedError naming it.
+The counterpart of `query_engine_tpu.engine.expr_eval`, with the JAX
+package's semantics: column references, literals, comparisons (a
+DATE/TIMESTAMP against a string literal parses the literal), + - * / %,
+decimal arithmetic at PostgreSQL's scales, AND/OR/NOT, unary minus, IS [NOT]
+NULL, INTERVAL arithmetic, CASTs, CASE, [NOT] IN (list), [NOT] [I]LIKE, the
+regex operators ~ ~* !~ !~* and [NOT] SIMILAR TO, ||, the JSON operators
+-> ->> #> #>>, @@, the scalar functions (math, strings, regexes, dates, JSON,
+text search, COALESCE/NULLIF/GREATEST/LEAST), UDF calls, and the subquery
+forms: scalar, [NOT] IN, [NOT] EXISTS, ANY/ALL, and the planner's
+decorrelated lookups. STRING_TO_ARRAY, ARRAY_TO_STRING and ARRAY_LENGTH,
+which make or read LIST columns, raise NotImplementedError.
 
 A subquery's plan runs through `subquery_exec` (the executor's `execute`),
 once per evaluation; inside a compiled program body the pipeline has run it
@@ -16,12 +19,15 @@ never executes a plan.
 
 Parity surface: reference crates/query-executor/src/operators.rs:13-848 —
 arithmetic with per-type dispatch (:382-507), comparisons with numeric
-coercion (:509-538,616-675), and/or/not (:539-570), literal broadcast
-(:322-347).
+coercion (:509-538,616-675), and/or/not (:539-570), `@@` full-text match
+(:571-611), literal broadcast (:322-347), scalar functions (:64-319).
 
 Every result is (data plane, validity plane, optional host dictionary) on
-the batch's device. Strings compare through a merged sorted dictionary, so
-code order is string order.
+the batch's device. Numeric and date work is torch ops on the device;
+string transforms run once per *dictionary value* on the host and reach the
+rows through one gather by code (`builds_host_table` names the expressions
+that build such a table). Strings compare through a merged sorted
+dictionary, so code order is string order.
 
 Null semantics: SQL three-valued logic. Comparisons with NULL are NULL;
 AND/OR follow Kleene logic; predicates treat NULL as false at filter time.
@@ -30,9 +36,11 @@ AND/OR follow Kleene logic; predicates treat NULL as false at filter time.
 from __future__ import annotations
 
 import datetime
+import json as _json
+import math
 import re
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -110,14 +118,163 @@ def _dict_lookup_host(v: Val, fn, np_dtype, out_dtype: DataType) -> Val:
     return Val(_code_table(table, v), v.validity, out_dtype)
 
 
-def _dict_map_host(v: Val, fn, key) -> Val:
+def _dict_map_host(v: Val, fn, key=None, out_dtype: DataType = None) -> Val:
     """A host string function applied once per dictionary value (kept on
-    the dictionary under `key`); the rows' codes are remapped into the
-    (sorted) dictionary of the results by one gather on the device."""
+    the dictionary under `key`, when given); the rows' codes are remapped
+    into the (sorted) dictionary of the results by one gather on the
+    device."""
     d = v.dictionary or Dictionary.empty()
     new_dict, remap = d.map_values(fn, key)
-    return Val(_code_table(remap, v), v.validity, v.dtype, new_dict)
+    return Val(_code_table(remap, v), v.validity, out_dtype or v.dtype,
+               new_dict)
 
+
+def _dict_map_host_nullable(v: Val, fn, out_dtype: DataType = None) -> Val:
+    """Like _dict_map_host, but fn may return None: the row goes NULL (JSON
+    extraction of a missing field, a malformed document, ...)."""
+    d = v.dictionary or Dictionary.empty()
+    outs = [fn(x) for x in d.values]
+    null = np.asarray([o is None for o in outs], dtype=bool)
+    new_dict, codes = Dictionary.from_values(
+        ["" if o is None else o for o in outs])
+    return Val(_code_table(codes, v), v.validity & ~_code_table(null, v),
+               out_dtype or v.dtype, new_dict)
+
+
+def _all_null_val(capacity: int, dtype: DataType, device) -> Val:
+    """All-NULL column of the given type (strict functions over a NULL
+    input)."""
+    if dtype.is_dictionary or dtype.kind is TypeKind.UTF8:
+        d, _ = Dictionary.from_values([""])
+        return Val(torch.zeros(capacity, dtype=torch.int32, device=device),
+                   torch.zeros(capacity, dtype=torch.bool, device=device),
+                   DataType.utf8(), d)
+    return Val(torch.zeros(capacity, dtype=torch.int64, device=device),
+               torch.zeros(capacity, dtype=torch.bool, device=device), dtype)
+
+
+def exact_div(x: torch.Tensor, c: float) -> torch.Tensor:
+    """x / c correctly rounded on every device. On CUDA torch divides by a
+    Python number as a multiplication by its reciprocal, which can miss the
+    last bit (ROUND(-1.375, 2) would give -1.3800000000000001); a divisor
+    on the device divides."""
+    return x / torch.full((), c, dtype=x.dtype, device=x.device)
+
+
+def _sign(x: torch.Tensor) -> torch.Tensor:
+    """jnp.sign's values: NaN stays NaN and a zero keeps its sign, where
+    torch.sign gives +0 for both."""
+    if not x.is_floating_point():
+        return torch.sign(x)
+    return torch.where(torch.isnan(x) | (x == 0), x, torch.sign(x))
+
+
+# ---- JSON (PostgreSQL -> / ->> / #> / #>> over one document) ----------------
+
+def static_json_key(node):
+    """Literal (or negated numeric literal) key of a JSON operator, else
+    None."""
+    if isinstance(node, lp.Literal):
+        return node.value.value
+    if isinstance(node, lp.UnaryExpr) and node.op is lp.UnOp.NEG and \
+            isinstance(node.expr, lp.Literal) and \
+            isinstance(node.expr.value.value, (int, float)):
+        return -node.expr.value.value
+    return None
+
+
+_JSON_MISSING = object()
+
+
+def _json_step(doc, key):
+    if isinstance(doc, dict):
+        return doc.get(str(key), _JSON_MISSING)
+    if isinstance(doc, list):
+        try:
+            i = int(key)
+        except (TypeError, ValueError):
+            return _JSON_MISSING
+        if -len(doc) <= i < len(doc):
+            return doc[i]  # negative indexes wrap from the end (PG)
+        return _JSON_MISSING
+    return _JSON_MISSING
+
+
+def _json_extract(s: str, keys, as_text: bool):
+    """The value at `keys` in document `s`: its JSON text, or with
+    `as_text` a string unquoted and a JSON null as SQL NULL. A malformed
+    document gives NULL (PostgreSQL raises; NULL keeps the vectorized path
+    total, as division by zero does)."""
+    try:
+        doc = _json.loads(s)
+    except Exception:  # noqa: BLE001
+        return None
+    for k in keys:
+        doc = _json_step(doc, k)
+        if doc is _JSON_MISSING:
+            return None
+    if as_text:
+        if doc is None:
+            return None
+        if isinstance(doc, str):
+            return doc
+        if isinstance(doc, bool):
+            return "true" if doc else "false"
+    return _json.dumps(doc)
+
+
+def _json_array_length(s: str):
+    try:
+        doc = _json.loads(s)
+    except Exception:  # noqa: BLE001
+        return None
+    return len(doc) if isinstance(doc, list) else None  # PG errors -> NULL
+
+
+def _json_typeof(s: str):
+    try:
+        doc = _json.loads(s)
+    except Exception:  # noqa: BLE001
+        return None
+    if doc is None:
+        return "null"
+    if isinstance(doc, bool):
+        return "boolean"
+    if isinstance(doc, (int, float)):
+        return "number"
+    if isinstance(doc, str):
+        return "string"
+    return "array" if isinstance(doc, list) else "object"
+
+
+# ---- text search (reference operators.rs:261-315, 571-611) ------------------
+
+def _tokenize_tsvector(s: str) -> str:
+    """to_tsvector: split on non-alphanumerics, sort (before lowercasing),
+    drop consecutive duplicates, lowercase, join with spaces."""
+    tokens = sorted(w for w in re.split(r"[^0-9A-Za-z]+", s) if w)
+    dedup = []
+    for t in tokens:
+        if not dedup or dedup[-1] != t:
+            dedup.append(t)
+    return " ".join(t.lower() for t in dedup)
+
+
+def _normalize_tsquery(s: str) -> str:
+    return " ".join(t if t in ("&", "|", "!") else t.lower()
+                    for t in s.split())
+
+
+def _ts_match(doc: str, query: str) -> bool:
+    """@@: every term of the query that is not an operator and not
+    !-prefixed appears among the document's whitespace tokens."""
+    doc_tokens = set(doc.split())
+    terms = [t for t in query.split()
+             if t not in ("&", "|") and not t.startswith("!")]
+    return all(t in doc_tokens for t in terms)
+
+
+# ---- patterns ---------------------------------------------------------------
 
 def like_to_regex(pattern: str, case_insensitive: bool) -> "re.Pattern":
     """SQL LIKE pattern -> anchored regex: % any run, _ one character,
@@ -132,6 +289,41 @@ def like_to_regex(pattern: str, case_insensitive: bool) -> "re.Pattern":
             out.append(re.escape(ch))
     return re.compile("^" + "".join(out) + "$",
                       re.IGNORECASE if case_insensitive else 0)
+
+
+def _similar_to_regex(pattern: str) -> str:
+    """SQL SIMILAR TO pattern -> Python regex source. It keeps the regex
+    metacharacters | * + ? {m,n} ( ) [ ... ], adds the % and _ wildcards,
+    and takes . ^ $ literally; % and _ inside a bracket class stay literal
+    (PostgreSQL 9.7.2)."""
+    out = []
+    i, n = 0, len(pattern)
+    in_class = False
+    while i < n:
+        ch = pattern[i]
+        if in_class:
+            out.append(ch)
+            if ch == "\\" and i + 1 < n:
+                out.append(pattern[i + 1])
+                i += 1
+            elif ch == "]":
+                in_class = False
+        elif ch == "\\" and i + 1 < n:
+            out.append(re.escape(pattern[i + 1]))  # an escaped literal
+            i += 1
+        elif ch == "%":
+            out.append(".*")
+        elif ch == "_":
+            out.append(".")
+        elif ch in ".^$":
+            out.append("\\" + ch)
+        elif ch == "[":
+            out.append(ch)
+            in_class = True
+        else:
+            out.append(ch)
+        i += 1
+    return "".join(out)
 
 
 _EPOCH_DATE = datetime.date(1970, 1, 1)
@@ -211,8 +403,59 @@ def _temporal_split(v: Val):
     return days, data - days * _US_DAY
 
 
-_LIKE_OPS = {lp.BinOp.LIKE: (False, False), lp.BinOp.NOT_LIKE: (False, True),
-             lp.BinOp.ILIKE: (True, False), lp.BinOp.NOT_ILIKE: (True, True)}
+def _temporal_join(days: torch.Tensor, tod: torch.Tensor, like: Val) -> Val:
+    """(days, microseconds into the day) back into `like`'s lane."""
+    k = like.dtype.kind
+    if k is TypeKind.DATE32:
+        return days.to(torch.int32)
+    if k is TypeKind.DATE64:
+        return days * 86_400_000 + tod // 1000
+    return days * _US_DAY + tod
+
+
+# ---- decimals: an int64 lane scaled by 10^scale -----------------------------
+
+def _dec_scale(t: DataType) -> int:
+    return t.params[1] if t.params else 0
+
+
+def _descale(v: Val) -> Val:
+    """Decimal scaled-int plane -> float64 value plane."""
+    return Val(exact_div(v.data.to(torch.float64), 10.0 ** _dec_scale(v.dtype)),
+               v.validity, DataType.float64())
+
+
+def _coerce_decimals(op, l: Val, r: Val) -> Tuple[Val, Val]:
+    """Scale-aware decimal arithmetic and comparison. Division or a float
+    operand descales to float64; otherwise both sides become int64 planes
+    at the result's scale (the larger for + - % and comparisons; untouched
+    for *, whose scales add), so the integer path computes the scaled
+    plane."""
+    l_dec = l.dtype.kind is TypeKind.DECIMAL128
+    r_dec = r.dtype.kind is TypeKind.DECIMAL128
+    if not (l_dec or r_dec):
+        return l, r
+    if op is lp.BinOp.DIV or l.dtype.is_float or r.dtype.is_float:
+        return (_descale(l) if l_dec else l), (_descale(r) if r_dec else r)
+    s1 = _dec_scale(l.dtype) if l_dec else 0
+    s2 = _dec_scale(r.dtype) if r_dec else 0
+    if op is lp.BinOp.MUL:
+        tgt1, tgt2 = s1, s2
+    else:
+        tgt1 = tgt2 = max(s1, s2)
+
+    def rescale(v, frm, to):
+        d = v.data.to(torch.int64)
+        if to > frm:
+            d = d * (10 ** (to - frm))
+        return Val(d, v.validity, DataType.int64())
+
+    return rescale(l, s1, tgt1), rescale(r, s2, tgt2)
+
+
+_LIKE_OPS = {lp.BinOp.LIKE, lp.BinOp.NOT_LIKE, lp.BinOp.ILIKE,
+             lp.BinOp.NOT_ILIKE}
+_PATTERN_OPS = _LIKE_OPS | lp._REGEX_OPS
 
 
 # the type of a program input literal, by the dtype of its tensor
@@ -222,7 +465,8 @@ _DYN_TYPES = {
     torch.float64: DataType.float64,
 }
 
-_ARITH = {lp.BinOp.ADD, lp.BinOp.SUB, lp.BinOp.MUL, lp.BinOp.DIV}
+_ARITH = {lp.BinOp.ADD, lp.BinOp.SUB, lp.BinOp.MUL, lp.BinOp.DIV,
+          lp.BinOp.MOD}
 _CMP = {
     lp.BinOp.EQ: torch.eq,
     lp.BinOp.NEQ: torch.ne,
@@ -232,12 +476,21 @@ _CMP = {
     lp.BinOp.GTE: torch.ge,
 }
 
-# CAST targets the subset evaluates: fixed-width numbers and booleans
-_NUMERIC_KINDS = {
-    TypeKind.BOOLEAN, TypeKind.INT8, TypeKind.INT16, TypeKind.INT32,
-    TypeKind.INT64, TypeKind.UINT8, TypeKind.UINT16, TypeKind.UINT32,
-    TypeKind.UINT64, TypeKind.FLOAT32, TypeKind.FLOAT64,
-}
+_F = lp.ScalarFn
+# functions over LIST values (they go with ARRAY_AGG and UNNEST)
+LIST_FNS = {_F.STRING_TO_ARRAY, _F.ARRAY_TO_STRING, _F.ARRAY_LENGTH}
+# functions that run once per dictionary value on the host (their first
+# argument's dictionary), or build one table per row (CONCAT)
+_HOST_FNS = {
+    _F.UPPER, _F.LOWER, _F.TRIM, _F.LENGTH, _F.REPLACE, _F.SUBSTRING,
+    _F.CONCAT, _F.LEFT, _F.RIGHT, _F.LPAD, _F.RPAD, _F.REVERSE, _F.INITCAP,
+    _F.SPLIT_PART, _F.REPEAT, _F.LTRIM, _F.RTRIM, _F.STRPOS, _F.STARTS_WITH,
+    _F.REGEXP_REPLACE, _F.REGEXP_LIKE, _F.REGEXP_SUBSTR, _F.REGEXP_COUNT,
+    _F.JSON_EXTRACT_PATH, _F.JSON_EXTRACT_PATH_TEXT, _F.JSON_ARRAY_LENGTH,
+    _F.JSON_TYPEOF, _F.TO_TSVECTOR, _F.TO_TSQUERY,
+} | LIST_FNS
+# functions that merge their arguments' dictionaries when one is a string
+_MERGING_FNS = {_F.COALESCE, _F.NULLIF, _F.GREATEST, _F.LEAST}
 
 
 def temporal_literal(
@@ -265,13 +518,16 @@ def temporal_literal(
 
 def builds_host_table(e: lp.LogicalExpr) -> bool:
     """True when evaluating `e` builds a table on the host and copies it to
-    the device: the merged-dictionary code remap of a string comparison or
-    string IN (`unify_dicts`), LIKE's per-value match table (`_eval_like`),
-    a CASE with string results (`_eval_case`), a string cast to a date that
-    is not a literal (`_eval_cast`), SUBSTRING's per-value map
-    (`_dict_map_host`), and the code remap of an IN or ANY/ALL subquery or
-    a correlated lookup whose keys are strings. A date literal
-    (`temporal_literal`) is not among them."""
+    the device: the merged-dictionary code remap of a string comparison,
+    string IN, or a COALESCE/NULLIF/GREATEST/LEAST over strings
+    (`unify_dicts`); the per-value match table of LIKE, the regex operators,
+    SIMILAR TO and @@; a CASE with string results (`_eval_case`); the
+    per-value maps and lookups of the string, regex, JSON and text-search
+    functions and of the JSON operators; CONCAT and || (one string per
+    row); a cast between strings and other types that is not a date
+    literal (`_eval_cast`); a UDF call; and the code remap of an IN or
+    ANY/ALL subquery or a correlated lookup whose keys are strings. A date
+    literal (`temporal_literal`) is not among them."""
     found = []
 
     def visit(x):
@@ -284,12 +540,16 @@ def builds_host_table(e: lp.LogicalExpr) -> bool:
             if any(k.dtype.is_dictionary or f.data_type.is_dictionary
                    for k, f in zip(x.outer_keys, fields)):
                 found.append(x)
-        elif isinstance(x, lp.ScalarFnExpr) \
-                and x.func is lp.ScalarFn.SUBSTRING:
+        elif isinstance(x, lp.ScalarFnExpr):
+            if x.func in _HOST_FNS or (x.func in _MERGING_FNS and any(
+                    a.dtype.is_dictionary for a in x.args)):
+                found.append(x)
+        elif isinstance(x, lp.UdfExpr):
             found.append(x)
-        if isinstance(x, lp.BinaryExpr):
-            if (x.left.dtype.is_dictionary or x.right.dtype.is_dictionary) \
-                    and temporal_literal(x) is None:
+        elif isinstance(x, lp.BinaryExpr):
+            if x.op is lp.BinOp.CONCAT or (
+                    (x.left.dtype.is_dictionary or x.right.dtype.is_dictionary)
+                    and temporal_literal(x) is None):
                 found.append(x)
         elif isinstance(x, lp.InListExpr):
             if x.expr.dtype.is_dictionary or any(
@@ -299,7 +559,8 @@ def builds_host_table(e: lp.LogicalExpr) -> bool:
             if x.dtype.is_dictionary:
                 found.append(x)
         elif isinstance(x, lp.CastExpr):
-            if x.target.is_temporal and x.expr.dtype.is_dictionary \
+            if x.target.is_dictionary != x.expr.dtype.is_dictionary \
+                    and x.expr.dtype.kind is not TypeKind.NULL \
                     and temporal_literal(x) is None:
                 found.append(x)
 
@@ -317,15 +578,25 @@ def _unsupported(e: lp.LogicalExpr) -> NotImplementedError:
 def _torch_dtype(t: DataType) -> torch.dtype:
     """Torch dtype of a type's plane, as columnar.batch.to_tensor makes it
     (unsigned planes wider than 8 bits ride as int64)."""
-    return to_tensor(np.zeros(0, dtype=t.device_dtype), "cpu").dtype
+    np_t = np.dtype(t.device_dtype)
+    if np_t in (np.uint16, np.uint32, np.uint64):
+        return torch.int64
+    return torch.from_numpy(np.zeros(0, dtype=np_t)).dtype
+
+
+def _f64(v: Val):
+    """(float64 values, validity) of a numeric or decimal value."""
+    x = _descale(v) if v.dtype.kind is TypeKind.DECIMAL128 else v
+    return x.data.to(torch.float64), x.validity
 
 
 class Evaluator:
     """Evaluates LogicalExprs over a batch; literals are made on `device`.
     `subquery_exec` (physical plan -> ColumnBatch) runs a subquery's plan;
-    the executor supplies its own `execute`."""
+    the executor supplies its own `execute`. `udfs` is the Session's
+    UdfRegistry."""
 
-    def __init__(self, device="cpu", udfs=None, subquery_exec=None):
+    def __init__(self, device, udfs=None, subquery_exec=None):
         self.device = torch.device(device)
         self.udfs = udfs
         self.subquery_exec = subquery_exec
@@ -379,11 +650,9 @@ class Evaluator:
                                           device=dv.device), e.target)
             return self._eval_cast(e, batch)
         if isinstance(e, lp.ScalarFnExpr):
-            if e.func is lp.ScalarFn.EXTRACT:
-                return self._eval_extract(e, batch)
-            if e.func is lp.ScalarFn.SUBSTRING:
-                return self._eval_substring(e, batch)
-            raise _unsupported(e)
+            return self._eval_scalar_fn(e, batch)
+        if isinstance(e, lp.UdfExpr):
+            return self._eval_udf(e, batch)
         if isinstance(e, lp.CaseExpr):
             return self._eval_case(e, batch)
         if isinstance(e, lp.InListExpr):
@@ -408,7 +677,15 @@ class Evaluator:
             raise ExecutionError(
                 "aggregate expression outside aggregation context"
             )
-        raise _unsupported(e)
+        raise ExecutionError(f"cannot evaluate {type(e).__name__}")
+
+    def eval_agg_arg(self, agg: lp.AggregateExpr, batch: ColumnBatch) -> Val:
+        """An aggregate's argument; AVG of a DECIMAL averages its values,
+        not its scaled integers."""
+        av = self.eval(agg.expr, batch)
+        if agg.func is lp.AggFunc.AVG and av.dtype.kind is TypeKind.DECIMAL128:
+            return _descale(av)
+        return av
 
     def eval_predicate_mask(self, e: lp.LogicalExpr, batch: ColumnBatch):
         """Predicate -> boolean mask; NULL -> excluded (SQL WHERE)."""
@@ -434,15 +711,22 @@ class Evaluator:
                     r.validity & rd
                 )
             return Val(data, valid, DataType.boolean())
-        if op in _LIKE_OPS:
-            return self._eval_like(e, batch)
-        if op not in _CMP and op not in _ARITH:
-            raise _unsupported(e)
+        if op in (lp.BinOp.ADD, lp.BinOp.SUB) and (
+                isinstance(e.left, lp.IntervalLiteral)
+                or isinstance(e.right, lp.IntervalLiteral)):
+            return self._eval_temporal_interval(e, batch)
 
         l = self.eval(e.left, batch)
         r = self.eval(e.right, batch)
-        if TypeKind.DECIMAL128 in (l.dtype.kind, r.dtype.kind):
-            raise _unsupported(e)  # decimal scaling
+        if op is lp.BinOp.TS_MATCH:
+            return self._eval_ts_match(l, r)
+        if op in _PATTERN_OPS:
+            return self._eval_like(op, l, r)
+        if op is lp.BinOp.CONCAT:
+            return self._eval_concat([l, r], batch)
+        if op in lp._JSON_OPS:
+            return self._eval_json_get(e, l, op)
+
         valid = l.validity & r.validity
         # temporal column vs string literal: parse the literal as a date or
         # timestamp, so WHERE d > '2024-01-01' compares days with days
@@ -452,6 +736,7 @@ class Evaluator:
             raise ExecutionError(
                 f"cannot compare a {l.dtype if l.dtype.is_temporal else r.dtype}"
                 f" value with a string that is not a date: {e.name()}")
+        l, r = _coerce_decimals(op, l, r)
         if l.dictionary is not None or r.dictionary is not None:
             # string comparison via merged sorted dictionary -> code compare
             if op not in _CMP:
@@ -476,6 +761,16 @@ class Evaluator:
             data = ld - rd
         elif op is lp.BinOp.MUL:
             data = ld * rd
+        elif op is lp.BinOp.MOD:
+            # a zero divisor gives NULL; the floored modulo (torch's and
+            # jnp's %), then moved toward zero: SQL's sign follows the
+            # dividend
+            zero = rd == 0
+            safe_r = torch.where(zero, torch.ones_like(rd), rd)
+            data = torch.remainder(ld, safe_r)
+            data = torch.where((data != 0) & (_sign(data) != _sign(ld)),
+                               data - safe_r, data)
+            valid = valid & ~zero
         elif not ld.is_floating_point():  # DIV on integers
             # SQL integer division truncates toward zero (Arrow/PG);
             # div-by-zero yields NULL (PG raises; NULL keeps the
@@ -490,6 +785,143 @@ class Evaluator:
             valid = valid & ~zero
         return Val(data, valid, e.dtype)
 
+    def _eval_temporal_interval(self, e: lp.BinaryExpr, batch) -> Val:
+        """date/timestamp +/- INTERVAL literal. Months are calendar months
+        that clamp the day of the month (Jan 31 + 1 month = Feb 28/29, as in
+        PostgreSQL); days and sub-day microseconds add directly."""
+        if isinstance(e.right, lp.IntervalLiteral):
+            tv = self.eval(e.left, batch)
+            iv = e.right
+            sign = 1 if e.op is lp.BinOp.ADD else -1
+        else:
+            if e.op is lp.BinOp.SUB:
+                raise ExecutionError(
+                    "cannot subtract a timestamp from an interval")
+            tv = self.eval(e.right, batch)
+            iv = e.left
+            sign = 1
+        if not tv.dtype.is_temporal:
+            raise ExecutionError(
+                f"interval arithmetic needs a date/timestamp, got {tv.dtype}"
+            )
+        if tv.dtype.kind is TypeKind.DATE32 and iv.micros:
+            raise ExecutionError(
+                "date +/- sub-day interval: cast the date to TIMESTAMP first"
+            )
+        days, tod = _temporal_split(tv)
+        m, d, us = iv.months * sign, iv.days * sign, iv.micros * sign
+        if m:
+            y, mo, dd = _civil_from_days(days)
+            t = y * 12 + (mo - 1) + m
+            y2 = t // 12
+            mo2 = t % 12 + 1
+            nxt_y = torch.where(mo2 == 12, y2 + 1, y2)
+            nxt_m = torch.where(mo2 == 12, torch.ones_like(mo2), mo2 + 1)
+            one = torch.ones_like(y2)
+            dim = _days_from_civil(nxt_y, nxt_m, one) - _days_from_civil(
+                y2, mo2, one)
+            days = _days_from_civil(y2, mo2, torch.minimum(dd, dim))
+        days = days + d
+        tod = tod + us
+        extra = tod // _US_DAY
+        days = days + extra
+        tod = tod - extra * _US_DAY
+        return Val(_temporal_join(days, tod, tv), tv.validity, tv.dtype)
+
+    def _eval_json_get(self, e: lp.BinaryExpr, l: Val, op) -> Val:
+        """-> / ->> / #> / #>>: one json.loads per distinct document, one
+        gather per row. The key must be a literal, so the extraction table
+        depends on the dictionary alone."""
+        key = static_json_key(e.right)
+        if key is None:
+            raise ExecutionError(
+                f"the right side of {op.value} must be a non-null string or "
+                "integer literal")
+        if l.dictionary is None:
+            raise ExecutionError(
+                f"operator {op.value} requires a json (string) left operand")
+        if op in (lp.BinOp.JSON_PATH, lp.BinOp.JSON_PATH_TEXT):
+            keys = [p.strip().strip('"')
+                    for p in str(key).strip().lstrip("{").rstrip("}").split(",")
+                    if p.strip() != ""]
+        else:
+            keys = [key]
+        as_text = op in (lp.BinOp.JSON_GET_TEXT, lp.BinOp.JSON_PATH_TEXT)
+        return _dict_map_host_nullable(
+            l, lambda s: _json_extract(s, keys, as_text), DataType.utf8())
+
+    def _eval_ts_match(self, l: Val, r: Val) -> Val:
+        """doc @@ query: one match per document value when the query is one
+        value (a literal), else one per row on the host."""
+        if l.dictionary is None or r.dictionary is None:
+            raise ExecutionError("@@ requires string operands")
+        dl, dr = l.dictionary, r.dictionary
+        if len(dr) == 1:
+            q = dr.values[0]
+            table = np.asarray([_ts_match(doc, q) for doc in dl.values],
+                               dtype=bool)
+            data = _code_table(table, l)
+        else:
+            docs = dl.decode(l.data.cpu().numpy())
+            queries = dr.decode(r.data.cpu().numpy())
+            data = to_tensor(np.asarray(
+                [_ts_match(d, q) for d, q in zip(docs, queries)], dtype=bool),
+                l.data.device)
+        return Val(data, l.validity & r.validity, DataType.boolean())
+
+    # ---- LIKE / regex / SIMILAR TO ---------------------------------------
+    def _eval_like(self, op: lp.BinOp, l: Val, r: Val) -> Val:
+        """[NOT] [I]LIKE, the POSIX operators (~ ~* !~ !~*, an unanchored
+        search) and [NOT] SIMILAR TO against a literal pattern: one regex
+        match per dictionary value on the host, then a gather by code on the
+        device."""
+        B = lp.BinOp
+        if l.dictionary is None or r.dictionary is None \
+                or len(r.dictionary) != 1:
+            raise ExecutionError(
+                f"{op.value} requires a string column and a literal pattern"
+            )
+        pat = r.dictionary.values[0]
+        ci = op in (B.ILIKE, B.NOT_ILIKE, B.REGEX_IMATCH, B.NOT_REGEX_IMATCH)
+        neg = op in (B.NOT_LIKE, B.NOT_ILIKE, B.NOT_REGEX_MATCH,
+                     B.NOT_REGEX_IMATCH, B.NOT_SIMILAR_TO)
+        flags = re.IGNORECASE if ci else 0
+        if op in _LIKE_OPS:
+            match = like_to_regex(pat, ci).match
+        elif op in (B.SIMILAR_TO, B.NOT_SIMILAR_TO):
+            match = re.compile("^(?:" + _similar_to_regex(pat) + ")$",
+                               flags).match
+        else:
+            match = re.compile(pat, flags).search
+        table = np.asarray([bool(match(x)) for x in l.dictionary.values],
+                           dtype=bool)
+        data = _code_table(table, l)
+        if neg:
+            data = ~data
+        return Val(data, l.validity & r.validity, DataType.boolean())
+
+    def _eval_concat(self, vals: List[Val], batch: ColumnBatch) -> Val:
+        """String concatenation, one string per row on the host (the
+        dictionaries' cross product would explode); NULL when a part is."""
+        parts = []
+        valid = torch.ones(batch.capacity, dtype=torch.bool,
+                           device=self.device)
+        for v in vals:
+            host = v.data.cpu().numpy()
+            if v.dictionary is not None:
+                parts.append(v.dictionary.decode(host))
+            elif v.data.is_floating_point():
+                parts.append(np.asarray([repr(float(x)) for x in host],
+                                        dtype=object))
+            else:
+                parts.append(host.astype(str).astype(object))
+            valid = valid & v.validity
+        out = parts[0]
+        for p in parts[1:]:
+            out = np.char.add(out.astype(str), p.astype(str)).astype(object)
+        d, codes = Dictionary.from_values(list(out))
+        return Val(to_tensor(codes, self.device), valid, DataType.utf8(), d)
+
     # ---- cast ----------------------------------------------------------
     def _eval_cast(self, e: lp.CastExpr, batch: ColumnBatch) -> Val:
         v = self.eval(e.expr, batch)
@@ -501,48 +933,357 @@ class Evaluator:
                             else _torch_dtype(t), device=v.data.device),
                 torch.zeros(cap, dtype=torch.bool, device=v.data.device), t,
                 Dictionary.empty() if t.is_dictionary else None)
-        if t.is_dictionary and v.dictionary is not None:
-            return Val(v.data, v.validity, t, v.dictionary)
-        if t.is_temporal and v.dictionary is not None:
-            # string -> date/timestamp: one ISO parse per dictionary value;
-            # a string that does not parse gives NULL
-            sentinel = np.iinfo(np.int64).min
+        if t.is_dictionary:
+            if v.dictionary is not None:
+                return Val(v.data, v.validity, t, v.dictionary)
+            # a number, boolean or date to a string: stringified on the host
+            host = v.data.cpu().numpy()
+            if v.dtype.is_float:
+                strs = [repr(float(x)) for x in host]
+            elif v.dtype.kind is TypeKind.BOOLEAN:
+                strs = ["true" if x else "false" for x in host]
+            else:
+                strs = [str(int(x)) for x in host]
+            d, codes = Dictionary.from_values(strs)
+            return Val(to_tensor(codes, self.device), v.validity, t, d)
+        if v.dictionary is not None:
+            if t.is_temporal:
+                # string -> date/timestamp: one ISO parse per dictionary
+                # value; a string that does not parse gives NULL
+                sentinel = np.iinfo(np.int64).min
 
+                def parse_t(s):
+                    p = parse_temporal(s, t.kind)
+                    return sentinel if p is None else p
+
+                tv = _dict_lookup_host(v, parse_t, np.int64, t)
+                bad = tv.data == sentinel
+                return Val(tv.data.to(_torch_dtype(t)), tv.validity & ~bad, t)
+
+            # string -> number: one parse per dictionary value; a string
+            # that does not parse gives NULL
             def parse(s):
-                p = parse_temporal(s, t.kind)
-                return sentinel if p is None else p
+                try:
+                    return float(s)
+                except ValueError:
+                    return np.nan
 
-            tv = _dict_lookup_host(v, parse, np.int64, t)
-            bad = tv.data == sentinel
-            return Val(tv.data.to(_torch_dtype(t)), tv.validity & ~bad, t)
-        if (t.kind not in _NUMERIC_KINDS or v.dictionary is not None
-                or v.dtype.kind is TypeKind.DECIMAL128):
-            raise _unsupported(e)
+            fv = _dict_lookup_host(v, parse, np.float64, DataType.float64())
+            bad = torch.isnan(fv.data)
+            if t.is_float:
+                return Val(fv.data, fv.validity & ~bad, t)
+            return Val(fv.data.to(torch.int64), fv.validity & ~bad, t)
         if t.kind is TypeKind.BOOLEAN:
             return Val(v.data.to(torch.bool), v.validity, t)
+        if t.kind is TypeKind.DECIMAL128 and t.params:
+            src = (_descale(v).data if v.dtype.kind is TypeKind.DECIMAL128
+                   else v.data.to(torch.float64))
+            # the reference's jnp.round: half to even
+            scaled = torch.round(src * (10 ** t.params[1]))
+            return Val(scaled.to(torch.int64), v.validity, t)
+        if v.dtype.kind is TypeKind.DECIMAL128:
+            f = _descale(v)
+            if t.is_float:
+                return Val(f.data.to(_torch_dtype(t)), v.validity, t)
+            # to an integer: half away from zero, as ROUND
+            d = _sign(f.data) * torch.floor(torch.abs(f.data) + 0.5)
+            return Val(d.to(_torch_dtype(t)), v.validity, t)
         return Val(v.data.to(_torch_dtype(t)), v.validity, t)
 
-    # ---- LIKE ------------------------------------------------------------
-    def _eval_like(self, e: lp.BinaryExpr, batch: ColumnBatch) -> Val:
-        """[NOT] [I]LIKE against a literal pattern: one regex match per
-        dictionary value on the host, then a gather by code on the device."""
-        l = self.eval(e.left, batch)
-        r = self.eval(e.right, batch)
-        if l.dictionary is None or r.dictionary is None \
-                or len(r.dictionary) != 1:
-            raise ExecutionError(
-                f"{e.op.value} requires a string column and a literal pattern"
-            )
-        ci, neg = _LIKE_OPS[e.op]
-        rx = like_to_regex(r.dictionary.values[0], ci)
-        table = np.asarray([bool(rx.match(x)) for x in l.dictionary.values],
-                           dtype=bool)
-        data = _code_table(table, l)
-        if neg:
-            data = ~data
-        return Val(data, l.validity & r.validity, DataType.boolean())
+    # ---- scalar functions ----------------------------------------------
+    def _eval_scalar_fn(self, e: lp.ScalarFnExpr, batch: ColumnBatch) -> Val:
+        f = e.func
+        if f is _F.EXTRACT:
+            return self._eval_extract(e, batch)
+        if f in LIST_FNS:
+            raise _unsupported(e)  # LIST columns: with ARRAY_AGG and UNNEST
+        args = [self.eval(a, batch) for a in e.args]
+        if f is _F.UPPER:
+            return _dict_map_host(args[0], str.upper, "UPPER")
+        if f is _F.LOWER:
+            return _dict_map_host(args[0], str.lower, "LOWER")
+        if f is _F.TRIM:
+            return _dict_map_host(args[0], str.strip, "TRIM")
+        if f is _F.LENGTH:
+            # the reference's byte length (s.len() in Rust)
+            return _dict_lookup_host(
+                args[0], lambda s: len(s.encode("utf-8")), np.int64,
+                DataType.int64())
+        if f is _F.REPLACE:
+            frm = self._literal_str(args[1], "REPLACE")
+            to = self._literal_str(args[2], "REPLACE")
+            return _dict_map_host(args[0], lambda s: s.replace(frm, to),
+                                  ("REPLACE", frm, to))
+        if f is _F.SUBSTRING:
+            start = int(self._static_num(e.args[1], args[1], "SUBSTRING"))
+            length = (int(self._static_num(e.args[2], args[2], "SUBSTRING"))
+                      if len(args) > 2 else None)
+            lo = max(start - 1, 0)  # SQL is 1-based
 
-    # ---- EXTRACT ---------------------------------------------------------
+            def sub(s):
+                return s[lo:lo + length] if length is not None else s[lo:]
+
+            return _dict_map_host(args[0], sub, ("SUBSTRING", lo, length))
+        if f is _F.CONCAT:
+            return self._eval_concat(args, batch)
+        if f is _F.ABS:
+            v = args[0]
+            return Val(torch.abs(v.data), v.validity, v.dtype)
+        if f in (_F.CEIL, _F.FLOOR, _F.SQRT):
+            x, valid = _f64(args[0])
+            fn = {_F.CEIL: torch.ceil, _F.FLOOR: torch.floor,
+                  _F.SQRT: torch.sqrt}[f]
+            if f is _F.SQRT:
+                valid = valid & (x >= 0)
+            return Val(fn(x), valid, DataType.float64())
+        if f is _F.ROUND:
+            x, valid = _f64(args[0])
+            # half away from zero (PG/Arrow), not torch.round's half to even
+            if len(args) > 1:
+                m = 10.0 ** int(self._static_num(e.args[1], args[1], "ROUND"))
+                out = exact_div(_sign(x) * torch.floor(torch.abs(x) * m + 0.5),
+                                m)
+            else:
+                out = _sign(x) * torch.floor(torch.abs(x) + 0.5)
+            return Val(out, valid, DataType.float64())
+        if f is _F.POWER:
+            a, b = args
+            out = torch.pow(a.data.to(torch.float64), b.data.to(torch.float64))
+            return Val(out, a.validity & b.validity, DataType.float64())
+        if f is _F.COALESCE:
+            return self._eval_coalesce(args)
+        if f is _F.NULLIF:
+            a, b = args
+            if a.dictionary is not None or b.dictionary is not None:
+                a2, b2 = unify_dicts(a, b)
+                eq = (a2.data == b2.data) & a.validity & b.validity
+                return Val(a2.data, a.validity & ~eq, a.dtype, a2.dictionary)
+            eq = (a.data == b.data) & a.validity & b.validity
+            return Val(a.data, a.validity & ~eq, a.dtype, a.dictionary)
+        if f is _F.DATE_TRUNC:
+            return self._eval_date_trunc(args)
+        if f in (_F.JSON_EXTRACT_PATH, _F.JSON_EXTRACT_PATH_TEXT):
+            # the function form of #> / #>>; no path elements = the
+            # document reparsed (PG)
+            keys = [static_json_key(a) for a in e.args[1:]]
+            if any(k is None for k in keys):
+                raise ExecutionError(
+                    f"{f.value} path elements must be string or integer "
+                    "literals")
+            if args[0].dtype.kind is TypeKind.NULL:
+                return _all_null_val(args[0].capacity, DataType.utf8(),
+                                     self.device)
+            if args[0].dictionary is None:
+                raise ExecutionError(
+                    f"{f.value} requires a json (string) first argument")
+            as_text = f is _F.JSON_EXTRACT_PATH_TEXT
+            return _dict_map_host_nullable(
+                args[0], lambda s: _json_extract(s, keys, as_text),
+                DataType.utf8())
+        if f in (_F.JSON_ARRAY_LENGTH, _F.JSON_TYPEOF):
+            v = args[0]
+            if v.dtype.kind is TypeKind.NULL:
+                # strict functions: NULL input -> NULL output (PG)
+                return _all_null_val(
+                    v.capacity, DataType.int64() if f is _F.JSON_ARRAY_LENGTH
+                    else DataType.utf8(), self.device)
+            if v.dictionary is None:
+                raise ExecutionError(
+                    f"{f.value} requires a json (string) argument")
+            if f is _F.JSON_TYPEOF:
+                return _dict_map_host_nullable(v, _json_typeof,
+                                               DataType.utf8())
+            outs = [_json_array_length(x) for x in v.dictionary.values]
+            table = np.asarray([0 if o is None else o for o in outs],
+                               np.int64)
+            null = np.asarray([o is None for o in outs], bool)
+            return Val(_code_table(table, v),
+                       v.validity & ~_code_table(null, v), DataType.int64())
+        if f is _F.TO_TSVECTOR:
+            return _dict_map_host(args[0], _tokenize_tsvector, "TO_TSVECTOR",
+                                  DataType(TypeKind.TSVECTOR))
+        if f is _F.TO_TSQUERY:
+            return _dict_map_host(args[0], _normalize_tsquery, "TO_TSQUERY",
+                                  DataType(TypeKind.TSQUERY))
+        out = self._eval_math_fn(e, f, args)
+        if out is None:
+            out = self._eval_string_fn(e, f, args)
+        if out is not None:
+            return out
+        raise ExecutionError(f"scalar function {f.value} not implemented")
+
+    # unary math: (torch function, domain-validity function or None)
+    _MATH_UNARY = {
+        _F.EXP: (torch.exp, None),
+        _F.LN: (torch.log, lambda x: x > 0),
+        _F.LOG10: (lambda x: exact_div(torch.log(x), math.log(10.0)),
+                   lambda x: x > 0),
+        _F.SIGN: (_sign, None),
+        _F.SIN: (torch.sin, None),
+        _F.COS: (torch.cos, None),
+        _F.TAN: (torch.tan, None),
+        _F.ASIN: (torch.asin, lambda x: torch.abs(x) <= 1),
+        _F.ACOS: (torch.acos, lambda x: torch.abs(x) <= 1),
+        _F.ATAN: (torch.atan, None),
+        _F.DEGREES: (torch.rad2deg, None),
+        _F.RADIANS: (torch.deg2rad, None),
+    }
+
+    def _eval_math_fn(self, e, f, args) -> Optional[Val]:
+        """The math functions, on the device in float64. A value outside a
+        function's domain (LN of a non-positive, ASIN outside [-1, 1]) gives
+        NULL rather than NaN."""
+        if f in self._MATH_UNARY:
+            fn, dom = self._MATH_UNARY[f]
+            x, ok = _f64(args[0])
+            if dom is not None:
+                ok = ok & dom(x)
+            return Val(fn(x), ok, DataType.float64())
+        if f is _F.LOG:
+            if len(args) == 1:  # PG: LOG(x) = log10
+                x, ok = _f64(args[0])
+                return Val(exact_div(torch.log(x), math.log(10.0)),
+                           ok & (x > 0),
+                           DataType.float64())
+            b, bok = _f64(args[0])
+            x, xok = _f64(args[1])
+            ok = bok & xok & (x > 0) & (b > 0) & (b != 1.0)
+            return Val(torch.log(x) / torch.log(b), ok, DataType.float64())
+        if f is _F.ATAN2:
+            y, yok = _f64(args[0])
+            x, xok = _f64(args[1])
+            return Val(torch.atan2(y, x), yok & xok, DataType.float64())
+        if f is _F.TRUNC:
+            x, ok = _f64(args[0])
+            if len(args) > 1:
+                m = 10.0 ** int(self._static_num(e.args[1], args[1], "TRUNC"))
+                return Val(exact_div(torch.trunc(x * m), m), ok,
+                           DataType.float64())
+            return Val(torch.trunc(x), ok, DataType.float64())
+        if f in (_F.GREATEST, _F.LEAST):
+            # PG: a NULL argument is ignored; NULL only when all are NULL
+            if any(a.dictionary is not None for a in args):
+                raise ExecutionError(f"{f.value} over strings not supported")
+            pick_hi = f is _F.GREATEST
+            acc, ok = args[0].data, args[0].validity
+            for a in args[1:]:
+                better = (a.data > acc) if pick_hi else (a.data < acc)
+                take = a.validity & (better | ~ok)
+                acc = torch.where(take, a.data, acc)
+                ok = ok | a.validity
+            dt = next((a.dtype for a in args
+                       if a.dtype.kind is not TypeKind.NULL), args[0].dtype)
+            return Val(acc, ok, dt)
+        return None
+
+    def _eval_string_fn(self, e, f, args) -> Optional[Val]:
+        """The string functions: once per dictionary value on the host, one
+        gather per row on the device."""
+        if f in (_F.LEFT, _F.RIGHT):
+            # PG: a negative n drops |n| characters from the other end, as
+            # Python slicing does (RIGHT(s, 0) is the one special case)
+            n = int(self._static_num(e.args[1], args[1], f.value))
+            if f is _F.LEFT:
+                cut = lambda s: s[:n]  # noqa: E731
+            else:
+                cut = lambda s: "" if n == 0 else s[-n:]  # noqa: E731
+            return _dict_map_host(args[0], cut, (f.value, n))
+        if f in (_F.LPAD, _F.RPAD):
+            ln = int(self._static_num(e.args[1], args[1], f.value))
+            fill = (self._literal_str(args[2], f.value)
+                    if len(args) > 2 else " ")
+            left = f is _F.LPAD
+
+            def pad(s):
+                if len(s) >= ln:
+                    return s[:ln]
+                if not fill:
+                    return s
+                need = ln - len(s)
+                p = (fill * (need // len(fill) + 1))[:need]
+                return p + s if left else s + p
+
+            return _dict_map_host(args[0], pad, (f.value, ln, fill))
+        if f is _F.REVERSE:
+            return _dict_map_host(args[0], lambda s: s[::-1], "REVERSE")
+        if f is _F.INITCAP:
+            def initcap(s):
+                return re.sub(
+                    r"[A-Za-z0-9]+",
+                    lambda m: m.group(0)[:1].upper() + m.group(0)[1:].lower(),
+                    s)
+
+            return _dict_map_host(args[0], initcap, "INITCAP")
+        if f is _F.SPLIT_PART:
+            delim = self._literal_str(args[1], "SPLIT_PART")
+            n = int(self._static_num(e.args[2], args[2], "SPLIT_PART"))
+            if n == 0:
+                raise ExecutionError("SPLIT_PART field position must not be 0")
+
+            def part(s):
+                parts = s.split(delim) if delim else [s]
+                i = n - 1 if n > 0 else len(parts) + n
+                return parts[i] if 0 <= i < len(parts) else ""
+
+            return _dict_map_host(args[0], part, ("SPLIT_PART", delim, n))
+        if f is _F.REPEAT:
+            n = int(self._static_num(e.args[1], args[1], "REPEAT"))
+            return _dict_map_host(args[0], lambda s: s * max(n, 0),
+                                  ("REPEAT", n))
+        if f in (_F.LTRIM, _F.RTRIM):
+            chars = (self._literal_str(args[1], f.value)
+                     if len(args) > 1 else None)
+            fn = str.lstrip if f is _F.LTRIM else str.rstrip
+            return _dict_map_host(args[0], lambda s: fn(s, chars),
+                                  (f.value, chars))
+        if f is _F.STRPOS:
+            sub = self._literal_str(args[1], "STRPOS")
+            return _dict_lookup_host(args[0], lambda s: s.find(sub) + 1,
+                                     np.int64, DataType.int64())
+        if f is _F.STARTS_WITH:
+            pre = self._literal_str(args[1], "STARTS_WITH")
+            return _dict_lookup_host(args[0], lambda s: s.startswith(pre),
+                                     np.bool_, DataType.boolean())
+        if f in (_F.REGEXP_REPLACE, _F.REGEXP_LIKE, _F.REGEXP_SUBSTR,
+                 _F.REGEXP_COUNT):
+            return self._eval_regexp_fn(f, args)
+        return None
+
+    def _eval_regexp_fn(self, f, args) -> Val:
+        """PostgreSQL's regexp_* functions. The pattern and flags must be
+        literals; the regex runs once per distinct dictionary value on the
+        host, and each row gets its result by one gather on the device."""
+        pat = self._literal_str(args[1], f.value)
+        # a trailing flags argument: 'g' replaces all, 'i' folds case
+        fi = 3 if f is _F.REGEXP_REPLACE else 2
+        flags_s = (self._literal_str(args[fi], f.value)
+                   if len(args) > fi else "")
+        unknown = set(flags_s) - set("gi")
+        if unknown:
+            raise ExecutionError(
+                f"{f.value}: unsupported regex flag(s) {sorted(unknown)}")
+        rx = re.compile(pat, re.IGNORECASE if "i" in flags_s else 0)
+        if f is _F.REGEXP_REPLACE:
+            repl_raw = self._literal_str(args[2], f.value)
+            # PG replacement escapes: \1..\9 group references, \& the whole
+            # match, \\ a backslash -> Python re.sub syntax
+            repl = re.sub(r"\\&", r"\\g<0>", repl_raw)
+            count = 0 if "g" in flags_s else 1
+            return _dict_map_host(args[0],
+                                  lambda s: rx.sub(repl, s, count=count),
+                                  (f.value, pat, flags_s, repl_raw))
+        if f is _F.REGEXP_LIKE:
+            return _dict_lookup_host(args[0], lambda s: bool(rx.search(s)),
+                                     np.bool_, DataType.boolean())
+        if f is _F.REGEXP_COUNT:
+            return _dict_lookup_host(args[0], lambda s: len(rx.findall(s)),
+                                     np.int64, DataType.int64())
+        # REGEXP_SUBSTR: the first match, NULL where the pattern never matches
+        return _dict_map_host_nullable(
+            args[0], lambda s: (lambda m: m.group(0) if m else None)(
+                rx.search(s)))
+
+    # ---- EXTRACT / DATE_TRUNC --------------------------------------------
     def _eval_extract(self, e: lp.ScalarFnExpr, batch: ColumnBatch) -> Val:
         """EXTRACT(field FROM temporal), with PostgreSQL's fields: dow
         0=Sunday..6, isodow 1=Monday..7, week the ISO 8601 week; second and
@@ -593,10 +1334,12 @@ class Evaluator:
         elif field == "minute":
             out = (tod // 60_000_000) % 60
         elif field == "second":
-            return Val((tod % 60_000_000).to(torch.float64) / 1e6, valid,
+            return Val(exact_div((tod % 60_000_000).to(torch.float64), 1e6),
+                       valid,
                        DataType.float64())
         elif field == "epoch":
-            sec = days.to(torch.float64) * 86400.0 + tod.to(torch.float64) / 1e6
+            sec = days.to(torch.float64) * 86400.0 + exact_div(
+                tod.to(torch.float64), 1e6)
             return Val(sec, valid, DataType.float64())
         elif field == "milliseconds":
             out = tod % 60_000_000 // 1000
@@ -606,12 +1349,78 @@ class Evaluator:
             raise ExecutionError(f"EXTRACT field '{field}' not supported")
         return Val(out.to(torch.int64), valid, DataType.int64())
 
-    # ---- SUBSTRING -------------------------------------------------------
+    def _eval_date_trunc(self, args: List[Val]) -> Val:
+        """DATE_TRUNC(unit, temporal); the result keeps the argument's type
+        (PostgreSQL widens a date to a timestamp; the reference keeps the
+        column device-native)."""
+        unit = self._literal_str(args[0], "DATE_TRUNC").lower()
+        v = args[1]
+        if not v.dtype.is_temporal:
+            raise ExecutionError(
+                f"DATE_TRUNC needs a date/timestamp argument, got {v.dtype}"
+            )
+        days, tod = _temporal_split(v)
+        valid = args[0].validity & v.validity
+        if unit == "microseconds":
+            pass
+        elif unit == "milliseconds":
+            tod = tod - tod % 1000
+        elif unit == "second":
+            tod = tod - tod % 1_000_000
+        elif unit == "minute":
+            tod = tod - tod % 60_000_000
+        elif unit == "hour":
+            tod = tod - tod % 3_600_000_000
+        elif unit == "day":
+            tod = torch.zeros_like(tod)
+        elif unit == "week":
+            days = days - (days + 3) % 7  # back to Monday
+            tod = torch.zeros_like(tod)
+        elif unit in ("month", "quarter", "year"):
+            y, m, _ = _civil_from_days(days)
+            if unit == "quarter":
+                m = ((m - 1) // 3) * 3 + 1
+            elif unit == "year":
+                m = torch.ones_like(m)
+            days = _days_from_civil(y, m, torch.ones_like(m))
+            tod = torch.zeros_like(tod)
+        else:
+            raise ExecutionError(f"DATE_TRUNC unit '{unit}' not supported")
+        return Val(_temporal_join(days, tod, v), valid, v.dtype)
+
+    def _eval_coalesce(self, args: List[Val]) -> Val:
+        """The first non-NULL argument per row; strings through a merged
+        dictionary, numbers in float64 when any argument is a float."""
+        if any(a.dictionary is not None for a in args):
+            out = args[0]
+            for nxt in args[1:]:
+                o2, n2 = unify_dicts(out, nxt)
+                data = torch.where(out.validity, o2.data, n2.data)
+                out = Val(data, out.validity | nxt.validity, out.dtype,
+                          o2.dictionary)
+            return out
+        is_float = any(a.dtype.is_float for a in args)
+        cast = torch.float64 if is_float else torch.int64
+        data, valid = args[0].data.to(cast), args[0].validity
+        for nxt in args[1:]:
+            data = torch.where(valid, data, nxt.data.to(cast))
+            valid = valid | nxt.validity
+        return Val(data, valid,
+                   DataType.float64() if is_float else args[0].dtype)
+
+    # ---- static arguments ------------------------------------------------
     @staticmethod
-    def _static_num(expr: lp.LogicalExpr, val: Val):
-        """A numeric argument the host needs (SUBSTRING's start and length),
-        read from the expression node when it is a (negated) literal, else
-        from the evaluated value's first row (a device read)."""
+    def _literal_str(v: Val, fn: str) -> str:
+        if v.dictionary is None or len(v.dictionary) != 1:
+            raise ExecutionError(f"{fn} requires a string literal argument")
+        return v.dictionary.values[0]
+
+    def _static_num(self, expr: lp.LogicalExpr, val: Val, fn: str):
+        """A numeric argument the host needs (SUBSTRING's start and length,
+        ROUND's digits, ...), read from the expression node when it is a
+        (negated) literal, else from the evaluated value's first row: a
+        device read, which a program body does not make (it raises, and the
+        program runs eagerly)."""
         x, neg = expr, False
         while isinstance(x, (lp.AliasExpr, lp.UnaryExpr)):
             if isinstance(x, lp.UnaryExpr):
@@ -623,21 +1432,21 @@ class Evaluator:
                 and not isinstance(x.value.value, str):
             v = x.value.value
             return -v if neg else v
+        if self._dyn_literals is not None:
+            raise ExecutionError(f"{fn} needs a literal argument inside a "
+                                 "compiled program")
         return val.data[0].item()
 
-    def _eval_substring(self, e: lp.ScalarFnExpr, batch: ColumnBatch) -> Val:
-        """SUBSTRING(s, start[, length]), 1-based, over the dictionary on
-        the host: one slice per distinct string, one gather per row."""
+    # ---- UDF -------------------------------------------------------------
+    def _eval_udf(self, e: lp.UdfExpr, batch: ColumnBatch) -> Val:
+        """A registered UDF over whole columns: it receives each argument's
+        (data, validity) planes and returns the result's pair."""
+        udf = self.udfs.get(e.fn_name) if self.udfs is not None else None
+        if udf is None:
+            raise ExecutionError(f"unknown function '{e.fn_name}'")
         args = [self.eval(a, batch) for a in e.args]
-        start = int(self._static_num(e.args[1], args[1]))
-        length = (int(self._static_num(e.args[2], args[2]))
-                  if len(args) > 2 else None)
-        lo = max(start - 1, 0)
-
-        def sub(s):
-            return s[lo:lo + length] if length is not None else s[lo:]
-
-        return _dict_map_host(args[0], sub, ("SUBSTRING", lo, length))
+        data, validity = udf.invoke([(a.data, a.validity) for a in args])
+        return Val(data, validity, udf.signature.return_type)
 
     # ---- subqueries ------------------------------------------------------
     @staticmethod

@@ -42,20 +42,28 @@ when the function cannot see the order within peers) and gathers its
 values back through the inverse permutation; DISTINCT and INTERSECT/EXCEPT
 keep the first row of each key (INTERSECT/EXCEPT after a rank-membership
 test against the right side); UNION [ALL] concatenates the two sides'
-planes. On CUDA a set operation over string columns is an eager leaf: its
-two dictionaries merge into a table built on the host (`unify_dicts`),
-which a graph cannot capture. A shared WITH query (referenced more than
-once) is a leaf boundary: the executor materializes it once per query and every
-reference reads that batch. A subquery expression's plan runs eagerly
-before the program runs or is captured, and its result batch is one more
-program input, read in the body through `Evaluator._subplans`: a program
-never runs a plan. Constructs outside the slice (outer, CROSS and
-general-emit joins, VALUES, generate_series, functions the evaluator lacks)
-raise _Unsupported and run eagerly, per subtree. On CUDA so do the
-expressions that build a table on the host (string comparisons, string IN,
-LIKE, SUBSTRING, string-keyed subqueries: `expr_eval.builds_host_table`); a
-date compared with a string literal is not one of them, since the parsed
-literal (`expr_eval.temporal_literal`) is a program input.
+planes. On CUDA a set operation over string columns is an eager leaf when
+its two dictionaries merge into a table built on the host (`unify_dicts`),
+which a graph cannot capture; a grouping set's UNION ALL, whose string keys
+come from one table's column or are NULL, shares one dictionary and stays
+in the program (`_setop_shares_dicts`). A shared WITH query (referenced
+more than once) is a leaf boundary: the executor materializes it once per
+query and every reference reads that batch. A subquery expression's plan
+runs eagerly before the program runs or is captured, and its result batch
+is one more program input, read in the body through
+`Evaluator._subplans`: a program never runs a plan. Constructs outside the
+slice (outer, CROSS and general-emit joins, VALUES, generate_series, UDF
+calls, || and the expressions `_expr_traceable` keeps out) raise
+_Unsupported and run eagerly, per subtree. On CUDA so do the expressions
+that build a table on the host (string comparisons, string IN, LIKE and
+the regex operators, the string, regex and JSON functions, string casts,
+string-keyed subqueries: `expr_eval.builds_host_table`); a date compared
+with a string literal is not one of them, since the parsed literal
+(`expr_eval.temporal_literal`) is a program input, and neither are the
+numeric and date functions (%, ROUND, SQRT, COALESCE, DATE_TRUNC, INTERVAL
+arithmetic, decimals). An argument the host reads while the program is
+built (ROUND's digits, SUBSTRING's start, a JSON key) keys the program by
+value (`_static_operands`).
 
 The eager executor is the semantics oracle (tests/test_torch_pipeline.py).
 """
@@ -79,7 +87,8 @@ from query_engine_tpu_torch.columnar.batch import (
 )
 from query_engine_tpu_torch.engine import window as W
 from query_engine_tpu_torch.engine.expr_eval import (
-    Val, builds_host_table, temporal_literal, unify_dicts,
+    LIST_FNS, Val, builds_host_table, static_json_key,
+    temporal_literal, unify_dicts,
 )
 from query_engine_tpu_torch.ops import group_agg, small_gather
 from query_engine_tpu_torch.ops import kernels as K
@@ -292,45 +301,94 @@ class _ShimBatch:
 # expression admission + structural keys
 # ---------------------------------------------------------------------------
 
-# operators the port's evaluator computes (engine/expr_eval.py)
+# operators a program body may hold: every operator the evaluator computes
+# but ||, which builds one string per row on the host
 _TRACEABLE_BINOPS = {
     lp.BinOp.AND, lp.BinOp.OR, lp.BinOp.EQ, lp.BinOp.NEQ, lp.BinOp.LT,
     lp.BinOp.LTE, lp.BinOp.GT, lp.BinOp.GTE, lp.BinOp.ADD, lp.BinOp.SUB,
-    lp.BinOp.MUL, lp.BinOp.DIV, lp.BinOp.LIKE, lp.BinOp.NOT_LIKE,
-    lp.BinOp.ILIKE, lp.BinOp.NOT_ILIKE,
-}
+    lp.BinOp.MUL, lp.BinOp.DIV, lp.BinOp.MOD, lp.BinOp.LIKE,
+    lp.BinOp.NOT_LIKE, lp.BinOp.ILIKE, lp.BinOp.NOT_ILIKE,
+    lp.BinOp.TS_MATCH,
+} | lp._REGEX_OPS | lp._JSON_OPS
 
 
 # subquery expressions: their plans run before the program (_SegCtx.sub_exprs)
 _SUBQUERY_EXPRS = (lp.ScalarSubqueryExpr, lp.InSubqueryExpr, lp.ExistsExpr,
                    lp.QuantifiedCmpExpr, lp.CorrelatedLookupExpr)
 
+_JSON_PATH_FNS = (lp.ScalarFn.JSON_EXTRACT_PATH,
+                  lp.ScalarFn.JSON_EXTRACT_PATH_TEXT)
+
 
 def _expr_traceable(e: lp.LogicalExpr) -> bool:
     """Static check that a program body can evaluate the expression: the
-    node kinds and operators the port's evaluator supports (JAX's rule
-    rejects host work — UDFs, string building — which the port's evaluator
-    does not have at all)."""
+    node kinds the port's evaluator computes, less what the JAX package's
+    rule keeps out of a program because it needs host work per row or per
+    call: UDF calls, CONCAT and ||, a number cast to a string, a JSON key
+    or path that is not a literal, @@ against a query that is not a
+    literal, and the LIST functions. (On CUDA the pipeline also keeps out
+    whatever builds a host table: `expr_eval.builds_host_table`.)"""
     bad = []
 
     def visit(x):
         if isinstance(x, lp.BinaryExpr):
             if x.op not in _TRACEABLE_BINOPS:
                 bad.append(x)
-        elif isinstance(x, lp.Literal):
-            if x.value.dtype.kind is TypeKind.DECIMAL128:
+            elif x.op in lp._JSON_OPS and static_json_key(x.right) is None:
                 bad.append(x)
+            elif x.op is lp.BinOp.TS_MATCH:
+                r = x.right
+                if isinstance(r, lp.ScalarFnExpr) \
+                        and r.func is lp.ScalarFn.TO_TSQUERY and r.args:
+                    r = r.args[0]
+                if not isinstance(r, lp.Literal):
+                    bad.append(x)
         elif isinstance(x, lp.ScalarFnExpr):
-            if x.func not in (lp.ScalarFn.EXTRACT, lp.ScalarFn.SUBSTRING):
+            if x.func is lp.ScalarFn.CONCAT or x.func in LIST_FNS:
                 bad.append(x)
-        elif not isinstance(x, (lp.ColumnRef, lp.AliasExpr, lp.UnaryExpr,
-                                lp.CastExpr, lp.IsNullExpr, lp.CaseExpr,
-                                lp.InListExpr, lp.WindowExpr)
+            elif x.func in _JSON_PATH_FNS and any(
+                    static_json_key(a) is None for a in x.args[1:]):
+                bad.append(x)
+        elif isinstance(x, lp.CastExpr):
+            # CAST(NULL AS VARCHAR), a grouping set's padding, makes no
+            # string
+            if x.target.is_dictionary and not x.expr.dtype.is_dictionary \
+                    and x.expr.dtype.kind is not TypeKind.NULL:
+                bad.append(x)
+        elif not isinstance(x, (lp.ColumnRef, lp.Literal, lp.IntervalLiteral,
+                                lp.AliasExpr, lp.UnaryExpr, lp.IsNullExpr,
+                                lp.CaseExpr, lp.InListExpr, lp.WindowExpr)
                             + _SUBQUERY_EXPRS):
-            bad.append(x)
+            bad.append(x)  # a UDF call among them
 
     lp.walk_exprs(e, visit)
     return not bad
+
+
+# functions whose arguments after the first are read on the host while the
+# program is built (expr_eval's _static_num, _literal_str, static_json_key)
+_HOST_READ_ARGS = {
+    lp.ScalarFn.SUBSTRING, lp.ScalarFn.ROUND, lp.ScalarFn.TRUNC,
+    lp.ScalarFn.LEFT, lp.ScalarFn.RIGHT, lp.ScalarFn.LPAD, lp.ScalarFn.RPAD,
+    lp.ScalarFn.SPLIT_PART, lp.ScalarFn.REPEAT,
+} | set(_JSON_PATH_FNS)
+
+
+def _static_operands(e: lp.LogicalExpr):
+    """The operands of `e` that a program bakes in (the JAX package's
+    `_mark_static_literals`): ROUND's and TRUNC's digits, the lengths of
+    LEFT, RIGHT, LPAD, RPAD and REPEAT, SUBSTRING's start and length,
+    SPLIT_PART's field, the JSON keys and paths, and a window function's
+    NTILE n, LAG/LEAD offset and NTH_VALUE n. They key the program by
+    value, so `ROUND(x, 2)` and `ROUND(x, 3)` are two programs; any other
+    number literal is a program input."""
+    if isinstance(e, lp.WindowExpr):
+        return W.static_args(e)
+    if isinstance(e, lp.ScalarFnExpr) and e.func in _HOST_READ_ARGS:
+        return e.args[1:]
+    if isinstance(e, lp.BinaryExpr) and e.op in lp._JSON_OPS:
+        return [e.right]
+    return []
 
 
 def _dyn_int(e, value: int, ctx):
@@ -375,14 +433,18 @@ def _expr_key(e: lp.LogicalExpr, ctx=None):
             ctx.dyn_exprs.append(e)
             return ("dynlit", tag)
         return ("lit", str(e.value.dtype), repr(v))
+    if isinstance(e, lp.IntervalLiteral):
+        return ("ival", e.months, e.days, e.micros)
     if isinstance(e, lp.AliasExpr):
         # alias names land in the output schema -> they are part of the key
         return ("as", e.alias, _expr_key(e.expr, ctx))
     # the date literal this node parses (the literal or the cast), if any
     node, value = (ctx is not None and temporal_literal(e)) or (None, None)
+    static = {id(a) for a in _static_operands(e)}
     if isinstance(e, lp.BinaryExpr):
         return ("bin", e.op.value, *(
-            _dyn_int(x, value, ctx) if x is node else _expr_key(x, ctx)
+            _dyn_int(x, value, ctx) if x is node
+            else _expr_key(x, None if id(x) in static else ctx)
             for x in (e.left, e.right)))
     if isinstance(e, lp.UnaryExpr):
         return ("un", e.op.value, _expr_key(e.expr, ctx))
@@ -390,11 +452,8 @@ def _expr_key(e: lp.LogicalExpr, ctx=None):
         return ("cast", str(e.target), _dyn_int(e, value, ctx) if node is e
                 else _expr_key(e.expr, ctx))
     if isinstance(e, lp.ScalarFnExpr):
-        # SUBSTRING's start and length are read on the host: static
         return ("fn", e.func.value, tuple(
-            _expr_key(a, ctx if i == 0 or e.func is not lp.ScalarFn.SUBSTRING
-                      else None)
-            for i, a in enumerate(e.args)))
+            _expr_key(a, None if id(a) in static else ctx) for a in e.args))
     if isinstance(e, lp.CaseExpr):
         return (
             "case",
@@ -413,10 +472,6 @@ def _expr_key(e: lp.LogicalExpr, ctx=None):
             None if e.expr is None else _expr_key(e.expr, ctx),
         )
     if isinstance(e, lp.WindowExpr):
-        # NTILE's n, LAG/LEAD's offset and NTH_VALUE's n are read on the
-        # host while the program is built: static, so LAG(x, 1) and
-        # LAG(x, 2) are two programs
-        static = {id(a) for a in W.static_args(e)}
         return (
             "win", e.func.value,
             tuple(_expr_key(a, None if id(a) in static else ctx)
@@ -441,6 +496,89 @@ def _expr_key(e: lp.LogicalExpr, ctx=None):
         ctx.sub_exprs.append(e)
         return key
     raise _Unsupported(f"expr {type(e).__name__}")
+
+
+_NULL_ORIGIN = ("null",)
+
+
+def _dict_origin(plan, i: int):
+    """Where column i of `plan` takes its dictionary from, known from the
+    plan alone: ("scan", source, column) for a stored table's column passed
+    on unchanged (through renames, filters, sorts, limits, DISTINCT, group
+    keys and UNION ALL), _NULL_ORIGIN for a NULL (a grouping set's padding,
+    which holds no value), else None."""
+    while True:
+        if isinstance(plan, pp.PScan):
+            col = i if plan.projection is None else plan.projection[i]
+            return ("scan", id(plan.source), col)
+        if isinstance(plan, pp.PProjection):
+            e = plan.exprs[i]
+            # a string or a NULL cast to a string keeps its dictionary
+            while isinstance(e, lp.AliasExpr) or (
+                    isinstance(e, lp.CastExpr)
+                    and (e.expr.dtype.is_dictionary
+                         or e.expr.dtype.kind is TypeKind.NULL)):
+                e = e.expr
+            if isinstance(e, lp.Literal) and e.value.value is None:
+                return _NULL_ORIGIN
+            if not isinstance(e, lp.ColumnRef):
+                return None
+            plan, i = plan.input, e.index
+        elif isinstance(plan, pp.PHashAggregate):
+            if i >= len(plan.group_exprs) \
+                    or not isinstance(plan.group_exprs[i], lp.ColumnRef):
+                return None
+            plan, i = plan.input, plan.group_exprs[i].index
+        elif isinstance(plan, pp.PSetOp):
+            return _union_origin(plan.kind, _dict_origin(plan.left, i),
+                                 _dict_origin(plan.right, i))
+        elif _passes_rows(plan):
+            plan = plan.input
+        else:
+            return None
+
+
+def _union_origin(kind, a, b):
+    """The origin of a set operation's column from its sides' (None when
+    the sides' dictionaries would have to merge)."""
+    if a is None or b is None:
+        return None
+    if a == b:
+        return a
+    if kind in (lp.SetOpKind.UNION, lp.SetOpKind.UNION_ALL) \
+            and _NULL_ORIGIN in (a, b):
+        return b if a == _NULL_ORIGIN else a
+    return None
+
+
+def _setop_shares_dicts(plan: pp.PSetOp) -> bool:
+    """True when every string column of the set operation takes both
+    sides' values from one dictionary, or one side holds only NULLs (a
+    CUBE's or ROLLUP's UNION ALL of aggregates over one table): no host
+    table merges them (`_shared_dicts`)."""
+    return all(
+        _union_origin(plan.kind, _dict_origin(plan.left, i),
+                      _dict_origin(plan.right, i)) is not None
+        for i, f in enumerate(plan.left.schema())
+        if f.data_type.is_dictionary
+        or plan.right.schema().field(i).data_type.is_dictionary)
+
+
+def _shared_dicts(kind, lv: Val, rv: Val):
+    """The two sides of a set operation's string column on one dictionary
+    without a host table, when one serves both: the same dictionary, or
+    (UNION [ALL]) a side that holds only NULLs takes the other's. Else
+    None."""
+    ld, rd = lv.dictionary, rv.dictionary
+    if ld is rd:
+        return lv, rv
+    if kind not in (lp.SetOpKind.UNION, lp.SetOpKind.UNION_ALL):
+        return None
+    if rd is None or len(rd) == 0:
+        return lv, Val(rv.data.to(lv.data.dtype), rv.validity, rv.dtype, ld)
+    if ld is None or len(ld) == 0:
+        return Val(lv.data.to(rv.data.dtype), lv.validity, lv.dtype, rd), rv
+    return None
 
 
 def _passes_rows(node) -> bool:
@@ -853,10 +991,7 @@ class CompiledPipeline:
                 leaves, n + 1,
             )
         if isinstance(plan, pp.PSetOp):
-            if self._graphs and any(
-                    f.data_type.is_dictionary
-                    for side in (plan.left, plan.right)
-                    for f in side.schema()):
+            if self._graphs and not _setop_shares_dicts(plan):
                 # merging two dictionaries builds a host table
                 raise _Unsupported("string set operation")
             lbody, lleaves, ln = self._child(plan.left, ctx)
@@ -1400,7 +1535,14 @@ class CompiledPipeline:
             lv = Val(lc.data, lc.validity, lc.dtype, lc.dictionary)
             rv = Val(rc.data, rc.validity, rc.dtype, rc.dictionary)
             if lc.dictionary is not None or rc.dictionary is not None:
-                lv, rv = unify_dicts(lv, rv)
+                shared = _shared_dicts(plan.kind, lv, rv)
+                if shared is not None:
+                    lv, rv = shared
+                elif self._graphs:
+                    # _setop_shares_dicts expected one dictionary
+                    raise _Unsupported("a set operation merges dictionaries")
+                else:
+                    lv, rv = unify_dicts(lv, rv)
             lvals.append(lv)
             rvals.append(rv)
         if plan.kind in (lp.SetOpKind.UNION, lp.SetOpKind.UNION_ALL):
@@ -1553,7 +1695,7 @@ class CompiledPipeline:
 
         use_kernel = ex._mxu_agg_enabled(kernel_bound)
         agg_evals = [
-            None if agg.expr is None else ev.eval(agg.expr, shim)
+            None if agg.expr is None else ev.eval_agg_arg(agg, shim)
             for agg in plan.agg_exprs
         ]
 
@@ -1583,7 +1725,9 @@ class CompiledPipeline:
                 else:
                     vals = (av.data if av.data.is_floating_point()
                             else av.data.to(torch.int64))
-                    collect(vals, sel & av.validity, str(_expr_key(agg.expr)))
+                    # AVG over a DECIMAL sums descaled values: not SUM's
+                    collect(vals, sel & av.validity,
+                            (str(_expr_key(agg.expr)), str(av.dtype)))
             if bucket_mode:
                 collect(None, sel, "__star")
         results = []
@@ -1598,7 +1742,8 @@ class CompiledPipeline:
             f = schema.field(fi)
             fi += 1
             if eligible(agg, av):
-                key = "__star" if av is None else str(_expr_key(agg.expr))
+                key = "__star" if av is None else (str(_expr_key(agg.expr)),
+                                                   str(av.dtype))
                 sums, counts = results[item_of[key]]
                 if func is lp.AggFunc.COUNT:
                     out_d = counts[:S]

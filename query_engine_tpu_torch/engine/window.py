@@ -20,6 +20,7 @@ import torch
 
 from query_engine_tpu_torch.core.errors import ExecutionError
 from query_engine_tpu_torch.core.types import TypeKind
+from query_engine_tpu_torch.engine.expr_eval import exact_div
 from query_engine_tpu_torch.ops import kernels as K
 from query_engine_tpu_torch.plan import logical as lp
 
@@ -177,9 +178,9 @@ def sorted_values(w: lp.WindowExpr, seg_change, peer_change, seg, pad_sorted,
         if w.args:
             av, vals, vok = arg(w.args[0])
             if av.dtype.kind is TypeKind.DECIMAL128 and fn is lp.WindowFn.AVG:
-                raise NotImplementedError(
-                    "query_engine_tpu_torch does not evaluate AVG over "
-                    "DECIMAL yet")
+                # the mean of the values, not of their scaled integers
+                vals = exact_div(vals.to(torch.float64),
+                                 10.0 ** av.dtype.params[1])
             if fn in (lp.WindowFn.MIN, lp.WindowFn.MAX):
                 out_dict = av.dictionary
             fname = fn.value.lower()

@@ -6,8 +6,8 @@ a date or timestamp against a string literal (both ways round), CAST and
 DATE '...', dates before 1970, 29 February and NULL dates, every EXTRACT
 field the JAX evaluator supports, CASE (searched and simple, with and
 without ELSE, NULL conditions, string results), IN and NOT IN with NULL in
-the list and in the column, and LIKE, NOT LIKE, ILIKE and NOT ILIKE with %,
-_ and an empty pattern. Rows must be identical and in the same order;
+the list and in the column, LIKE, NOT LIKE, ILIKE and NOT ILIKE with %, _
+and an empty pattern, UPPER and `~`. Rows must be identical and in the same order;
 floats compare exactly too, since both packages compute them with the same
 float64 operations.
 """
@@ -143,10 +143,16 @@ def test_extract_in_group_by_and_filter(sessions):
 
 
 def test_other_scalar_functions_still_raise(sessions):
+    """UPPER, which raised before the port had the string functions, gives
+    the JAX Session's rows; the functions over LIST values, which the port
+    does not have yet, still raise."""
+    got = _check(sessions, "SELECT id, UPPER(s), LOWER(ds) FROM t "
+                           "ORDER BY id")
+    assert [r[1] for r in got[:4]] == ["ABC", "A_C", "", "ABC"]
     _, compiled, eager = sessions
     for s in (compiled, eager):
-        with pytest.raises(NotImplementedError, match="UPPER|upper"):
-            s.sql("SELECT UPPER(s) FROM t").to_pylist()
+        with pytest.raises(NotImplementedError, match="STRING_TO_ARRAY"):
+            s.sql("SELECT STRING_TO_ARRAY(s, '_') FROM t").to_pylist()
 
 
 CASE_CASES = [
@@ -237,7 +243,17 @@ def test_like_rows(sessions):
 
 
 def test_regex_match_still_raises(sessions):
-    _, compiled, eager = sessions
+    """`s ~ 'a.c'`, which raised before the port had the regex operators,
+    gives the JAX Session's rows; a pattern that is not a literal raises
+    ExecutionError in both packages."""
+    assert _check(sessions, "SELECT id FROM t WHERE s ~ 'a.c' "
+                            "ORDER BY id") == [(0,), (1,), (7,)]
+    js, compiled, eager = sessions
+    from query_engine_tpu.core.errors import ExecutionError as JError
+    from query_engine_tpu_torch.core.errors import ExecutionError
+
+    with pytest.raises(JError):
+        js.sql("SELECT id FROM t WHERE s ~ ds").to_pylist()
     for s in (compiled, eager):
-        with pytest.raises(NotImplementedError):
-            s.sql("SELECT id FROM t WHERE s ~ 'a.c'").to_pylist()
+        with pytest.raises(ExecutionError):
+            s.sql("SELECT id FROM t WHERE s ~ ds").to_pylist()

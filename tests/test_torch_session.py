@@ -201,6 +201,18 @@ def test_nan_sort_key_sorts_last_in_both(expr, order):
 @pytest.mark.parametrize("query", [
     "SELECT LENGTH(name) FROM employees",
     "SELECT UPPER(name) FROM employees",
+])
+def test_string_functions_match_jax(csv_pair, query):
+    """LENGTH and UPPER, which raised before the port had the string
+    functions, give the JAX Session's rows."""
+    js, ts = csv_pair
+    want = js.sql(query).to_pylist()
+    assert len(want) == 6
+    assert ts.sql(query).to_pylist() == want
+
+
+@pytest.mark.parametrize("query", [
+    "SELECT STRING_TO_ARRAY(name, 'a') FROM employees",
     "INSERT INTO employees VALUES (7, 'Gus', 40, 1, 101)",
 ])
 def test_outside_the_slice_raises(csv_pair, query):
@@ -327,3 +339,17 @@ def test_session_defaults_to_the_card(monkeypatch):
     assert s.device.type == "cpu"
     s.register_table("t", {"x": [1, 2, 3]})
     assert s.sql("SELECT SUM(x) FROM t").to_pylist() == [(6,)]
+
+
+def test_executor_and_evaluator_need_a_device():
+    """The device is explicit everywhere: QueryExecutor and Evaluator take
+    no default (a Session passes its own, the card unless asked for the
+    CPU)."""
+    from query_engine_tpu_torch.engine.executor import QueryExecutor
+    from query_engine_tpu_torch.engine.expr_eval import Evaluator
+
+    with pytest.raises(TypeError):
+        QueryExecutor()
+    with pytest.raises(TypeError):
+        Evaluator()
+    assert QueryExecutor("cpu").device == Evaluator("cpu").device

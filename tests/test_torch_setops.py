@@ -15,11 +15,6 @@ JAX package raises, the port raises the same error class. Two parser
 behaviours that both packages share are held as they are: a chain
 `a UNION b UNION ALL c` gives `a UNION ALL c`, and an ORDER BY after
 `a EXCEPT b` binds to b's SELECT.
-
-A case whose expressions the port's evaluator lacks raises
-NotImplementedError in the port (`PORT_LACKS`):
-  * `i % 3` (test_generate_series.py::test_join_and_group): the modulo
-    operator.
 """
 
 import os
@@ -123,6 +118,8 @@ CASES = [
              " TIMESTAMP '2024-01-01 03:00:00', INTERVAL '90 minutes')"),
     ("none", "SELECT * FROM GENERATE_SERIES(DATE '2024-03-01', "
              "DATE '2024-01-01', INTERVAL '-1 month')"),
+    ("none", "SELECT i % 3 AS m, COUNT(*) AS c FROM GENERATE_SERIES(1, 999) "
+             "g(i) GROUP BY i % 3 ORDER BY m"),
     ("none", "SELECT EXTRACT(month FROM d) AS m, COUNT(*) AS c "
              "FROM GENERATE_SERIES(DATE '2024-01-01', DATE '2024-03-31', "
              "INTERVAL '1 day') g(d) GROUP BY EXTRACT(month FROM d) "
@@ -169,12 +166,6 @@ RAISING = [
             "departments ORDER BY name"),
 ]
 
-PORT_LACKS = [
-    ("none", "SELECT i % 3 AS m, COUNT(*) AS c FROM GENERATE_SERIES(1, 999) "
-             "g(i) GROUP BY i % 3 ORDER BY m"),
-]
-
-
 def _run(s, sql):
     try:
         return s.sql(sql).to_pylist()
@@ -185,12 +176,11 @@ def _run(s, sql):
 @pytest.fixture(scope="module")
 def jax_results():
     out = {}
-    for fixture in {f for f, _ in CASES + RAISING + PORT_LACKS}:
+    for fixture in {f for f, _ in CASES + RAISING}:
         js = JSession()
         _register(js, fixture, True)
         out.update({(fixture, sql): _run(js, sql)
-                    for f, sql in CASES + RAISING + PORT_LACKS
-                    if f == fixture})
+                    for f, sql in CASES + RAISING if f == fixture})
     return out
 
 
@@ -239,15 +229,6 @@ def test_case_raises_as_in_jax(jax_results, fixture, sql, mode, monkeypatch):
     want = jax_results[(fixture, sql)]
     assert isinstance(want, str) and want != "NotImplementedError", want
     assert _run(_session(fixture, mode, monkeypatch), sql) == want
-
-
-@pytest.mark.parametrize("mode", MODES)
-@pytest.mark.parametrize("fixture,sql", PORT_LACKS)
-def test_expression_the_port_lacks_raises(jax_results, fixture, sql, mode,
-                                          monkeypatch):
-    assert not isinstance(jax_results[(fixture, sql)], str)
-    with pytest.raises(NotImplementedError):
-        _session(fixture, mode, monkeypatch).sql(sql)
 
 
 def test_integer_set_operations_trace_under_graphs(monkeypatch):

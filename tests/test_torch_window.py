@@ -11,11 +11,6 @@ pipeline admitting nodes as on CUDA
 order: integers and strings exactly, floats to rtol 1e-9. Where the JAX
 package raises, the port raises the same error class.
 
-A case whose expressions the port's evaluator lacks raises
-NotImplementedError in the port (`PORT_LACKS`):
-  * `id % 2 = 0` (test_window_aggregates.py::test_compiled_matches_eager):
-    the modulo operator.
-
 Also: window specs whose ORDER BY extends another's share its sort where
 the function cannot see the order within peers. Every window function over
 strings, +-inf and int64 is in tests/test_torch_window_functions.py.
@@ -148,6 +143,10 @@ CASES = [
               "BETWEEN 4 PRECEDING AND 4 FOLLOWING) AS r FROM e ORDER BY id"),
     ("range", "SELECT id, SUM(v) OVER (ORDER BY v RANGE BETWEEN 4 PRECEDING "
               "AND 4 FOLLOWING) AS r FROM e ORDER BY id"),
+    # test_window_aggregates.py::test_compiled_matches_eager
+    ("agg", "SELECT id, SUM(v) OVER (PARTITION BY g ORDER BY id) AS r, "
+            "MAX(v) OVER (PARTITION BY g) AS m FROM t WHERE id % 2 = 0 "
+            "ORDER BY id"),
     # tests/test_e2e_queries.py and tests/test_edge_cases.py
     ("csv", "SELECT name, dept_id, ROW_NUMBER() OVER (PARTITION BY dept_id "
             "ORDER BY salary DESC) AS rn, RANK() OVER (ORDER BY salary DESC)"
@@ -173,14 +172,6 @@ RAISING = [
             "1 PRECEDING) FROM t"),
 ]
 
-# the port's evaluator lacks an expression of these (module docstring)
-PORT_LACKS = [
-    ("agg", "SELECT id, SUM(v) OVER (PARTITION BY g ORDER BY id) AS r, "
-            "MAX(v) OVER (PARTITION BY g) AS m FROM t WHERE id % 2 = 0 "
-            "ORDER BY id"),
-]
-
-
 def _run(s, sql):
     try:
         return s.sql(sql).to_pylist()
@@ -191,12 +182,11 @@ def _run(s, sql):
 @pytest.fixture(scope="module")
 def jax_results():
     out = {}
-    for fixture in {f for f, _ in CASES + RAISING + PORT_LACKS}:
+    for fixture in {f for f, _ in CASES + RAISING}:
         js = JSession()
         _register(js, fixture)
         out.update({(fixture, sql): _run(js, sql)
-                    for f, sql in CASES + RAISING + PORT_LACKS
-                    if f == fixture})
+                    for f, sql in CASES + RAISING if f == fixture})
     return out
 
 
@@ -236,14 +226,6 @@ def test_window_case_raises_as_in_jax(jax_results, fixture, sql, mode):
     want = jax_results[(fixture, sql)]
     assert want == "ExecutionError", want
     assert _run(_session(fixture, mode), sql) == want
-
-
-@pytest.mark.parametrize("mode", MODES)
-@pytest.mark.parametrize("fixture,sql", PORT_LACKS)
-def test_expression_the_port_lacks_raises(jax_results, fixture, sql, mode):
-    assert not isinstance(jax_results[(fixture, sql)], str)
-    with pytest.raises(NotImplementedError):
-        _session(fixture, mode).sql(sql)
 
 
 @pytest.mark.parametrize("sql,specs,sorts", [
