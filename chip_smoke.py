@@ -120,6 +120,28 @@ Phase 9  runs the statistics, GROUPING(), scalar-function, regex and
          their profiled warm runs, if `index_add_` runs, if F1-F3, F5 or F6
          runs an eager leaf or captures again on a warm run, or if F4 runs
          an eager leaf outside STRING_FN_LEAVES.
+Phase 10 runs the ordered-set, STRING_AGG, ARRAY_AGG/UNNEST, LIST-function
+         and WITH RECURSIVE statements of `tpch/ordered.py` (O1: MEDIAN,
+         PERCENTILE_CONT(0.9) and PERCENTILE_DISC(0.5) DESC with COUNT(*)
+         and SUM per Q1 group; O2: MODE() ASC and DESC per l_shipmode; O3: a
+         median in HAVING and ORDER BY over orders; O4a/O4b: STRING_AGG
+         with ORDER BY and DISTINCT over nation/region and part; O5a/O5b:
+         ARRAY_AGG exploded by UNNEST, and the words of p_name through
+         UNNEST(STRING_TO_ARRAY()) with ARRAY_LENGTH; O6: a 50-round WITH
+         RECURSIVE joined to lineitem) on phase 7's SF1 tables and Session:
+         first, 5 warm and one eager run each, every one equal to the
+         statement's numpy oracle (quantiles by np.sort with PG's index
+         rules, MODE by np.unique with PG's tie rule, strings by Python
+         joins; floats to rtol 1e-9). Prints per statement the rows, the
+         warm median, host syncs, stats (captures per warm query), eager
+         leaves, the host ms of the host finalization (STRING_AGG,
+         ARRAY_AGG, UNNEST, the recursion's dedup), group_agg launches and
+         one profiled warm run's kernel ms by plan node; for O6 the rounds,
+         the captures and the pipeline cache entries the recursion left
+         and the device memory before and after. Each group_agg call of a
+         first run is held against the plain versions. Fails unless
+         group_agg launched in O1, O3 and O6, if O6 did not run 50 rounds,
+         or if `index_add_` runs in any run of the phase.
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after; a kernel of the path that was not launched fails the run.
@@ -1582,6 +1604,198 @@ def phase9(tables, sess):
     return out
 
 
+# the statements whose COUNT, SUM or AVG must launch group_agg on the card
+ORDERED_GROUP_AGG = ("O1", "O3", "O6")
+
+
+def device_by_node(sess, query):
+    """One warm run of `query` under torch.profiler, each plan node the
+    executor runs inside a `node:<kind>` range: the kernel time on the card
+    (the sum of the CUDA kernels' own time, the ranges' spans on the
+    device's timeline left out), the run's wall ms, the kernels' names, the
+    kernel ms by plan node (each kernel charged to the innermost node range
+    it was launched in; a replayed program's kernels to the node that
+    replayed it) and the five kernels that took longest."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from query_engine_tpu_torch.engine.executor import QueryExecutor
+
+    real = QueryExecutor._execute_node
+
+    def ranged(self, plan, _skip_compiled=False):
+        with torch.profiler.record_function(
+                f"node:{type(plan).__name__.removeprefix('P')}"):
+            return real(self, plan, _skip_compiled)
+
+    QueryExecutor._execute_node = ranged
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            sess.sql(query).to_pylist()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        QueryExecutor._execute_node = real
+    cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
+    kernels = [e for e in prof.key_averages() if e.device_type == cuda
+               and not e.key.startswith(("node:", "pipeline:"))]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    names = {e.key for e in kernels}
+    top = {e.key[:60]: round(e.self_device_time_total / 1e3, 3)
+           for e in sorted(kernels, key=lambda e: -e.self_device_time_total)
+           [:5]}
+    by_node = collections.Counter()
+    for fe in prof.events():
+        if fe.device_type != cpu or fe.is_async or not fe.kernels:
+            continue
+        owner = fe
+        while owner is not None and not owner.name.startswith("node:"):
+            owner = owner.cpu_parent
+        node = owner.name[len("node:"):] if owner is not None else "outside"
+        by_node[node] += sum(k.duration for k in fe.kernels) / 1e3
+    by_node = {k: round(v, 3) for k, v in by_node.most_common()}
+    return busy, wall, names, by_node, top
+
+
+def phase10(tables, sess):
+    """The ordered-set, STRING_AGG, ARRAY_AGG/UNNEST, LIST-function and
+    WITH RECURSIVE statements of tpch/ordered.py at SF1 on phase 7's tables
+    and Session, each against its numpy oracle."""
+    import torch
+
+    from query_engine_tpu_torch.tpch import ordered
+
+    t_phase = time.perf_counter()
+    ex = sess.executor
+    pipe = ex.pipeline
+    timing = ("leaf_ms", "capture_ms")
+    out = {}
+    for q, text in ordered.QUERIES.items():
+        t0 = time.perf_counter()
+        want = ordered.run(q, tables)
+        oracle_s = time.perf_counter() - t0
+
+        def held_to_oracle(got, run):
+            try:
+                return ordered.compare(q, got, want)
+            except AssertionError as e:
+                raise CheckFailed(f"{q} at SF1: {run} differs from the numpy "
+                                  f"oracle: {e}") from None
+
+        st0, syncs0 = dict(pipe.stats), ex.host_syncs
+        kinds0 = collections.Counter(pipe.leaf_kinds)
+        keys0 = set(pipe._cache)
+        host0 = dict(ex.host_ms)
+        mem0 = (torch.cuda.memory_allocated(), torch.cuda.memory_reserved())
+        held = []
+        spy = IndexAddSpy()
+        reset_counts()
+        with spy.active(), group_agg_held_against_plain(held, spy):
+            t0 = time.perf_counter()
+            rows = sess.sql(text).to_pylist()
+            first_ms = (time.perf_counter() - t0) * 1e3
+        launches = read_counts()["group_agg"]
+        first = _stats_change(st0, pipe.stats, timing)
+        first_syncs = ex.host_syncs - syncs0
+        first_rec = dict(sess.recursion) if q == "O6" else None
+        errs = [held_to_oracle(rows, "the first run")]
+        check(rows, f"{q} at SF1 returned no rows")
+        walls = []
+        st1, syncs1 = dict(pipe.stats), ex.host_syncs
+        host1 = dict(ex.host_ms)
+        dedup_ms = 0.0
+        for i in range(5):
+            t0 = time.perf_counter()
+            with spy.active():
+                again = sess.sql(text).to_pylist()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            if q == "O6":
+                dedup_ms += sess.recursion["dedup_ms"]
+            errs.append(held_to_oracle(again, f"warm run {i + 1}"))
+        ms = statistics.median(walls)
+        syncs = (ex.host_syncs - syncs1) / 5
+        warm = {k: v / 5
+                for k, v in _stats_change(st1, pipe.stats, timing).items()}
+        warm_host = {k: round((pipe.stats[k] - st1[k]) / 5, 3)
+                     for k in timing}
+        host_warm = {k: round((v - host1.get(k, 0.0)) / 5, 3)
+                     for k, v in ex.host_ms.items() if v != host1.get(k, 0.0)}
+        if q == "O6":
+            host_warm["recursion_dedup"] = round(dedup_ms / 5, 3)
+        leaves = sorted(pipe.leaf_kinds - kinds0)
+        entries = len(set(pipe._cache) - keys0)
+        mem_warm = (torch.cuda.memory_allocated(),
+                    torch.cuda.memory_reserved())
+        ex._compiled = False  # what QE_COMPILED=0 sets
+        try:
+            t0 = time.perf_counter()
+            with spy.active():
+                eager = sess.sql(text).to_pylist()
+            eager_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            ex._compiled = True
+        errs.append(held_to_oracle(eager, "the eager run"))
+        with spy.active():
+            busy, wall, names, by_node, top = device_by_node(sess, text)
+        agg_kernels = kernel_names(names, "sum_count_", "float_absmax")
+        out[q] = {"rows": len(rows), "ms": ms, "first_ms": first_ms,
+                  "syncs": syncs, "first": first, "warm": warm,
+                  "eager_leaves": leaves, "eager_ms": eager_ms,
+                  "host_ms": host_warm, "group_agg": launches,
+                  "group_agg_kernels": agg_kernels,
+                  "index_add_calls": spy.calls,
+                  "index_add_kernels": kernel_names(names, "indexFunc"),
+                  "max_rel_err": max(errs), "device_ms": busy,
+                  "by_node_ms": by_node, "top_kernels_ms": top,
+                  "cache_entries": entries, "warm_host_ms": warm_host}
+        print(f"phase 10: {q}: {len(rows)} rows == numpy oracle on the first "
+              f"and 5 warm compiled runs and the eager run (oracle "
+              f"{oracle_s:.2f} s); largest relative float error "
+              f"{max(errs):.3g}; {ms:.3f} ms/query median of 5 warm runs, "
+              f"{syncs:g} host syncs/query; first run {first_ms:.1f} ms, "
+              f"{first_syncs} syncs, stats {first}; warm stats per query "
+              f"{warm}, host ms in eager leaves and captures {warm_host}; "
+              f"eager leaves {leaves}; host ms of host finalization per warm "
+              f"query {host_warm}; eager run {eager_ms:.1f} ms; "
+              f"group_agg launches {launches} (kernels in the profiled run "
+              f"{agg_kernels}); index_add_ calls {spy.calls}; one profiled "
+              f"warm run: {busy:.3f} ms of kernel time in {wall:.3f} ms "
+              f"wall; kernel ms by plan node {by_node}; longest kernels "
+              f"{top}")
+        if q == "O6":
+            out[q]["recursion"] = first_rec
+            print(f"phase 10: O6: {first_rec['iterations']} rounds; the first "
+                  f"run captured {first.get('captures', 0)} graphs and "
+                  f"compiled {first.get('compiles', 0)} programs, a warm run "
+                  f"captured {warm.get('captures', 0):g}; the recursion left "
+                  f"{entries} pipeline cache entries; device memory allocated "
+                  f"(reserved) {mem0[0] / 2**20:.1f} ({mem0[1] / 2**20:.1f}) "
+                  f"MiB before the first run, {mem_warm[0] / 2**20:.1f} "
+                  f"({mem_warm[1] / 2**20:.1f}) MiB after the warm runs")
+            check(first_rec["iterations"] == ordered.RECURSION_DEPTH,
+                  f"O6 ran {first_rec['iterations']} rounds, not "
+                  f"{ordered.RECURSION_DEPTH}")
+        print(f"phase 10: {q}: rows {rows if len(rows) <= 8 else rows[:4]}")
+        for c in held:
+            print(f"phase 10: {q}: group_agg == plain on the same tensors: "
+                  f"n={c['n']} G={c['groups']} {c['items']} items, max abs "
+                  f"err against float64 summation {c['max_abs_err']:.6g}")
+    for q in ORDERED_GROUP_AGG:
+        check(out[q]["group_agg"] > 0, f"{q}: group_agg did not launch")
+    for q, r in out.items():
+        check(not r["index_add_calls"] and not r["index_add_kernels"],
+              f"{q}: index_add_ on the card: {r['index_add_calls']} calls, "
+              f"kernels {r['index_add_kernels']}")
+    total = sum(r["ms"] for r in out.values())
+    print(f"phase 10: {len(out)} statements: {total:.1f} ms in all (sum of "
+          f"the medians); the phase took {time.perf_counter() - t_phase:.1f} "
+          "s")
+    return out
+
+
 def main():
     import torch
 
@@ -1607,6 +1821,7 @@ def main():
         tpch, tpch_held, sf1_tables, sf1_sess = phase7()
         windows = phase8(sf1_tables, sf1_sess)
         scalar_fns = phase9(sf1_tables, sf1_sess)
+        ordered_sets = phase10(sf1_tables, sf1_sess)
     except CheckFailed as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -1617,6 +1832,7 @@ def main():
     tpch_launches = sum(tpch_by_query.values())
     windows_by_query = {q: r["group_agg"] for q, r in windows.items()}
     scalar_by_query = {q: r["group_agg"] for q, r in scalar_fns.items()}
+    ordered_by_query = {q: r["group_agg"] for q, r in ordered_sets.items()}
     tpch_err = max((c["max_abs_err"] for calls in tpch_held.values()
                     for c in calls), default=0.0)
     print(json.dumps({"kernels": [{
@@ -1625,9 +1841,11 @@ def main():
         "source": "query_engine_tpu_torch/csrc/group_agg.cu",
         "replaces": "query_engine_tpu/ops/pallas/group_agg.py:74",
         "launches": agg_launches + tpch_launches
-        + sum(windows_by_query.values()) + sum(scalar_by_query.values()),
+        + sum(windows_by_query.values()) + sum(scalar_by_query.values())
+        + sum(ordered_by_query.values()),
         "launches_by_phase": {"4": agg_launches, "7": tpch_by_query,
-                              "8": windows_by_query, "9": scalar_by_query},
+                              "8": windows_by_query, "9": scalar_by_query,
+                              "10": ordered_by_query},
         "max_abs_err": max_err["plain"],
         "max_abs_err_vs_float64": {"1": max_err["float64"], "7": tpch_err},
         "ms": main_shape["ms"],

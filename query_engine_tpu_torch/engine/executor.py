@@ -5,10 +5,18 @@ these nodes: scan, projection, filter, INNER, LEFT, RIGHT and FULL
 equi-joins (with or without a residual ON condition), CROSS joins, grouped
 and global aggregate (DISTINCT included), sort, limit, window functions,
 DISTINCT, UNION [ALL] / INTERSECT / EXCEPT, VALUES, the empty relation,
-generate_series, derived tables (a subquery in FROM) and shared WITH
-queries, materialized once per query. Any other node (UNNEST, index scans)
+generate_series, UNNEST, derived tables (a subquery in FROM) and shared
+WITH queries, materialized once per query. Any other node (index scans)
 raises NotImplementedError. Subquery expressions run their plans through
 `execute` (the evaluator's `subquery_exec`).
+
+The aggregates are COUNT/SUM/AVG/MIN/MAX, the ordered-set aggregates
+(PERCENTILE_CONT/DISC, MEDIAN, MODE: one sort of the argument by group and
+value on the device, shared by the quantiles over one plane), and
+STRING_AGG and ARRAY_AGG, finalized on the host as in the reference. An
+ARRAY_AGG result is a LIST column: a dictionary of Python lists, one per
+group, in group order (not sorted), which UNNEST and the LIST functions
+read.
 
 As in the JAX package, every node first goes to the compiled pipeline
 (engine/pipeline.py, on unless QE_COMPILED=0), which runs the largest
@@ -32,6 +40,7 @@ same call runs the kernel's plain version.
 
 from __future__ import annotations
 
+import time
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -39,6 +48,7 @@ import torch
 
 from query_engine_tpu_torch.core.errors import ExecutionError
 from query_engine_tpu_torch.core.schema import Field, Schema
+from query_engine_tpu_torch.core.types import DataType, TypeKind
 from query_engine_tpu_torch.columnar.batch import (
     Column, ColumnBatch, padded_capacity, to_tensor,
 )
@@ -121,6 +131,9 @@ class QueryExecutor:
         self.evaluator = Evaluator(self.device, udfs=udfs,
                                    subquery_exec=self.execute)
         self.host_syncs = 0  # scalar/plane reads from the device, cumulative
+        # host ms of the host-finalized operators (STRING_AGG, ARRAY_AGG,
+        # UNNEST), cumulative by kind
+        self.host_ms = {}
         # per query: the batch of each shared (multiply referenced) WITH
         # query, keyed by id() of its shared physical node; every reference
         # reads this one batch. The Session clears it around a query.
@@ -136,6 +149,23 @@ class QueryExecutor:
         """One counted read of a whole tensor (t.tolist())."""
         self.host_syncs += 1
         return t.tolist()
+
+    def _host_np(self, t: torch.Tensor) -> np.ndarray:
+        """One counted read of a whole plane, as a numpy array."""
+        self.host_syncs += 1
+        return t.cpu().numpy()
+
+    def _host_pylist(self, v: Val, n: int) -> list:
+        """The first n rows of a value as Python values (None for NULL):
+        one counted read each of its data and validity planes."""
+        host = Column(torch.from_numpy(self._host_np(v.data)),
+                      torch.from_numpy(self._host_np(v.validity)), v.dtype,
+                      v.dictionary)
+        return host.to_pylist(n)
+
+    def _add_host_ms(self, kind: str, t0: float) -> None:
+        self.host_ms[kind] = self.host_ms.get(kind, 0.0) \
+            + (time.perf_counter() - t0) * 1e3
 
     # ---- entry ---------------------------------------------------------
     def execute(self, plan: pp.PhysicalPlan) -> ColumnBatch:
@@ -205,6 +235,8 @@ class QueryExecutor:
             return self._exec_values(plan)
         if isinstance(plan, pp.PGenerateSeries):
             return self._exec_generate_series(plan)
+        if isinstance(plan, pp.PUnnest):
+            return self._exec_unnest(plan)
         raise NotImplementedError(
             f"query_engine_tpu_torch does not execute {type(plan).__name__} "
             "yet"
@@ -446,11 +478,27 @@ class QueryExecutor:
                 items, gid, padded_capacity(kernel_bound)
             )
 
+        pct_sort_cache = {}
         for fi, (agg, av, slot) in enumerate(
             zip(plan.agg_exprs, args, slots), start=len(gvals)
         ):
             f = schema.field(fi)
             func = agg.func
+            if func in lp.ORDERED_SET_FNS:
+                out_d, out_v = self._grouped_percentile(
+                    agg, av.data, av.validity, gid, batch.num_rows, cap,
+                    out_cap, pct_sort_cache)
+                cols.append(Column(out_d[:out_cap], out_v[:out_cap],
+                                   f.data_type, None))
+                continue
+            if func is lp.AggFunc.STRING_AGG:
+                cols.append(self._grouped_string_agg(agg, av, gid, batch,
+                                                     cap, out_cap))
+                continue
+            if func is lp.AggFunc.ARRAY_AGG:
+                cols.append(self._grouped_array_agg(agg, av, gid, batch, cap,
+                                                    out_cap, f.data_type))
+                continue
             if slot is not None:
                 sums, counts = results[slot]
                 sums, counts = sums[:out_cap], counts[:out_cap]
@@ -537,6 +585,257 @@ class QueryExecutor:
         of at most _MXU_AGG_MAX_GROUPS. Any device: the wrapper runs the
         kernel on CUDA and its plain version on the CPU."""
         return bound is not None and bound <= self._MXU_AGG_MAX_GROUPS
+
+    # ---- ordered-set aggregates ------------------------------------------
+    def _grouped_percentile(self, agg, data, validity, gid, num_rows, cap,
+                            out_cap, sort_cache):
+        """Sort-based per-group quantile (PERCENTILE_CONT/DISC, MEDIAN) and
+        MODE: one sort of the live valid rows by (group, value) in float
+        total order (`K.sort_by_group_value`), then each group's target
+        position from its start and count, and one gather (two and a lerp
+        for CONT). O(n log n) in rows and O(G) after it: no per-group loop.
+
+        PG semantics: CONT interpolates at frac*(c-1); DISC returns the
+        first value whose cume_dist >= frac (1-based index ceil(frac*c)).
+        DESC mirrors the index from the other end. MODE: the most frequent
+        value per group, ties to the FIRST value in the WITHIN GROUP order
+        (`K.group_mode_sorted`). Empty groups are NULL."""
+        frac, desc = agg.param
+        fn = agg.func
+        # quantiles over one plane (P50/P90/MEDIAN dashboards) share ONE
+        # sort per (argument plane, value representation). The entry keeps
+        # the keying tensors ALIVE: id() of a freed tensor can be reused
+        ck = (id(data), id(validity), fn is lp.AggFunc.PERCENTILE_CONT)
+        if ck not in sort_cache:
+            ok = K.live_mask(cap, num_rows, self.device) & validity
+            vals = (data.to(torch.float64)
+                    if fn is lp.AggFunc.PERCENTILE_CONT else data)
+            sort_cache[ck] = (data, validity,
+                              K.sort_by_group_value(vals, ok, gid, out_cap))
+        skey, sval, c, start = sort_cache[ck][2]
+        if fn is lp.AggFunc.MODE:
+            return K.group_mode_sorted(skey, sval, out_cap, desc), c > 0
+        if fn is lp.AggFunc.PERCENTILE_CONT:
+            fr = 1.0 - frac if desc else frac
+            pos = fr * (c - 1).clamp(min=0).to(torch.float64)
+            lo = torch.floor(pos).to(torch.int64)
+            hi = torch.ceil(pos).to(torch.int64)
+            w = pos - lo.to(torch.float64)
+            vlo = sval[(start + lo).clamp(0, cap - 1)]
+            vhi = sval[(start + hi).clamp(0, cap - 1)]
+            out = vlo * (1.0 - w) + vhi * w
+        else:
+            k_ = torch.ceil(frac * c.to(torch.float64)).to(torch.int64)
+            k_ = torch.minimum(k_.clamp(min=1), c.clamp(min=1))
+            idx = (c - k_) if desc else (k_ - 1)
+            out = sval[(start + idx).clamp(0, cap - 1)]
+        return out, c > 0
+
+    # ---- host-finalized aggregates (STRING_AGG, ARRAY_AGG) ----------------
+    def _agg_host_row_order(self, agg, batch, rows: np.ndarray) -> np.ndarray:
+        """Order the host row indices of one order-sensitive aggregate by
+        its in-call ORDER BY (ARRAY_AGG(x ORDER BY k)): a stable sort from
+        the last key to the first, NULLs placed by the resolved NULLS
+        FIRST/LAST. Input order is kept when there is no ORDER BY (PG leaves
+        it unspecified; input order is deterministic here).
+
+        The reference sorts Python values; a key whose plane orders as its
+        values do (integers, dates, booleans, NaN-free floats, the codes of
+        a sorted string dictionary) sorts its plane with numpy's stable
+        sort, the same order; any other key sorts its Python values."""
+        if not agg.order_by:
+            return rows
+        for k, asc, nulls_first in reversed(agg.order_by):
+            kv = self.evaluator.eval(k, batch)
+            valid = self._host_np(kv.validity)[rows]
+            nn, nulls = rows[valid], rows[~valid]
+            plane = self._orderable_plane(kv, nn)
+            if plane is not None:
+                if asc:
+                    nn = nn[np.argsort(plane, kind="stable")]
+                else:
+                    # Python's reverse=True keeps equal keys in input order
+                    nn = nn[::-1][np.argsort(plane[::-1], kind="stable")][::-1]
+            else:
+                vals = self._host_pylist(kv, kv.data.shape[0])
+                nn = np.asarray(sorted(nn.tolist(), key=lambda i: vals[i],
+                                       reverse=not asc), dtype=np.int64)
+            rows = np.concatenate([nulls, nn] if nulls_first else [nn, nulls])
+        return rows
+
+    def _orderable_plane(self, kv: Val, rows: np.ndarray):
+        """The key plane at `rows` when it sorts as the key's Python values
+        do, else None."""
+        kind = kv.dtype.kind
+        if kv.dictionary is not None:
+            if kind is TypeKind.LIST:  # a LIST dictionary is not sorted
+                return None
+            return self._host_np(kv.data)[rows]
+        if kind not in _PLANE_ORDERED:
+            return None
+        plane = self._host_np(kv.data)[rows]
+        if plane.dtype.kind == "f" and np.isnan(plane).any():
+            return None
+        return plane
+
+    @staticmethod
+    def _dedup_keep_order(vals):
+        seen = set()
+        out = []
+        for v in vals:
+            k = (v is None, v)
+            if k not in seen:
+                seen.add(k)
+                out.append(v)
+        return out
+
+    def _host_groups(self, gid, rows: np.ndarray, out_cap: int):
+        """{group: its rows, in `rows` order} for the groups in
+        [0, out_cap): one read of the gid plane and a stable sort."""
+        g = self._host_np(gid)[rows]
+        keep = (g >= 0) & (g < out_cap)
+        g, rows = g[keep], rows[keep]
+        order = np.argsort(g, kind="stable")
+        g, rows = g[order], rows[order]
+        cut = np.flatnonzero(np.diff(g)) + 1
+        return {int(gs[0]): rs for gs, rs in zip(np.split(g, cut),
+                                                 np.split(rows, cut))
+                if len(gs)}
+
+    def _grouped_string_agg(self, agg, av, gid, batch, cap, out_cap):
+        """STRING_AGG([DISTINCT] expr, delim [ORDER BY k]): host
+        finalization, as in the reference, over one read each of the gid,
+        code and validity planes. A string's code stands for it (the
+        dictionary is sorted and unique), so DISTINCT keeps each group's
+        first row of each code."""
+        t0 = time.perf_counter()
+        delim = agg.param[0]
+        lm = K.live_mask(cap, batch.num_rows, self.device)
+        ok = self._host_np(lm & av.validity)
+        codes = self._host_np(av.data)
+        values = av.dictionary.values if av.dictionary is not None else []
+        rows = self._agg_host_row_order(agg, batch, np.flatnonzero(ok))
+        out_strs = [None] * out_cap
+        for gi, rs in self._host_groups(gid, rows, out_cap).items():
+            cs = codes[rs]
+            if agg.distinct:
+                _, first = np.unique(cs, return_index=True)
+                cs = cs[np.sort(first)]
+            out_strs[gi] = delim.join(values[c] for c in cs.tolist())
+        new_dict, new_codes = Dictionary.from_values(
+            ["" if v is None else v for v in out_strs])
+        valid = np.array([v is not None for v in out_strs], dtype=bool)
+        out = Column(to_tensor(new_codes.astype(np.int32), self.device),
+                     to_tensor(valid, self.device), DataType.utf8(), new_dict)
+        self._add_host_ms("string_agg", t0)
+        return out
+
+    def _grouped_array_agg(self, agg, av, gid, batch, cap, out_cap, dtype):
+        """ARRAY_AGG([DISTINCT] expr [ORDER BY k]) [FILTER (WHERE p)]:
+        per-group Python lists; PG keeps NULL inputs (the result is NULL
+        only for a group with no row, or every row filtered). FILTER
+        excludes rows (the CASE desugar of the other aggregates would keep
+        them as NULL elements). The result is a dictionary of Python lists
+        with codes arange(out_cap): terminal output, as in the
+        reference."""
+        t0 = time.perf_counter()
+        pyvals = self._host_pylist(av, cap)
+        lm = K.live_mask(cap, batch.num_rows, self.device)
+        if agg.filter is not None:
+            fv = self.evaluator.eval(agg.filter, batch)
+            lm = lm & fv.data.to(torch.bool) & fv.validity
+        rows = self._agg_host_row_order(agg, batch,
+                                        np.flatnonzero(self._host_np(lm)))
+        values = np.empty(out_cap, dtype=object)
+        valid = np.zeros(out_cap, dtype=bool)
+        for gi, rs in self._host_groups(gid, rows, out_cap).items():
+            vs = [pyvals[i] for i in rs.tolist()]
+            values[gi] = self._dedup_keep_order(vs) if agg.distinct else vs
+            valid[gi] = True
+        out = Column(torch.arange(out_cap, dtype=torch.int32,
+                                  device=self.device),
+                     to_tensor(valid, self.device), dtype, Dictionary(values))
+        self._add_host_ms("array_agg", t0)
+        return out
+
+    # ---- UNNEST ---------------------------------------------------------
+    def _exec_unnest(self, plan: pp.PUnnest) -> ColumnBatch:
+        """Lateral list explosion: input rows in order, each list's
+        elements in order; a NULL or empty list gives no row. A LIST value
+        is a dictionary of Python lists, so each dictionary VALUE's length
+        and elements are read once on the host (`_unnest_table`); the rows
+        take their lengths by one gather on the device, each output row
+        finds its base row by a searchsorted of the running total, and its
+        element is one gather from the flattened elements. One host read:
+        the total."""
+        batch = self.execute(plan.input)
+        v = self.evaluator.eval(plan.list_expr, batch)
+        if v.dictionary is None:
+            raise ExecutionError("UNNEST requires a LIST value")
+        if v.data.dim() != 1:
+            # the reference reads each row's code with int(), which fails
+            # the same way on the 2-D code plane of a LIST dictionary whose
+            # lists all have one length (Dictionary.map_values)
+            raise TypeError(
+                "only length-1 arrays can be converted to Python scalars")
+        t0 = time.perf_counter()
+        fld = plan.out_schema.field(len(plan.out_schema) - 1)
+        lengths, offsets, elems = self._unnest_table(v.dictionary,
+                                                     fld.data_type)
+        dev, cap, n = self.device, batch.capacity, batch.num_rows
+        nd = len(lengths)
+        code = v.data.to(torch.int64)
+        ok = K.live_mask(cap, n, dev) & v.validity & (code >= 0) & (code < nd)
+        code = code.clamp(0, max(nd - 1, 0))
+        len_t = to_tensor(lengths if nd else np.zeros(1, np.int64), dev)
+        off_t = to_tensor(offsets if nd else np.zeros(1, np.int64), dev)
+        per_row = torch.where(ok, len_t[code], 0)
+        total = self._host_int(per_row.sum())
+        out_cap = padded_capacity(total)
+        # output row j belongs to the input row whose run of the running
+        # total holds j: repeat_interleave(arange(cap), per_row)
+        ends = torch.cumsum(per_row, 0)
+        j = torch.arange(total, device=dev)
+        ridx = torch.searchsorted(ends, j, right=True)
+        eidx = off_t[code[ridx]] + j - (ends - per_row)[ridx]
+        live = K.live_mask(out_cap, total, dev)
+        pad = torch.zeros(out_cap - total, dtype=torch.int64, device=dev)
+        ridx, eidx = torch.cat([ridx, pad]), torch.cat([eidx, pad])
+        cols = list(_take(batch, ridx, total, row_valid=live).columns) \
+            if batch.columns else []
+        cols.append(Column(elems.data[eidx], elems.validity[eidx] & live,
+                           fld.data_type, elems.dictionary))
+        self._add_host_ms("unnest", t0)
+        return ColumnBatch(plan.out_schema, cols, total)
+
+    def _unnest_table(self, d: Dictionary, elem_type: DataType):
+        """(lengths, offsets, elements column) of a LIST dictionary's
+        values, in the reference's reading: None is an empty list, a list
+        or tuple its elements, anything else a one-element list. Kept on
+        the dictionary per element type and device, so a warm query finds
+        the same element column (and dictionary) again."""
+        key = ("unnest", elem_type.kind, elem_type.params, str(self.device))
+        if d._maps is not None and key in d._maps:
+            return d._maps[key]
+        lists = []
+        for x in d.values:
+            if x is None:
+                lists.append([])
+            elif isinstance(x, (list, tuple)):
+                lists.append(list(x))
+            else:
+                lists.append([x])
+        lengths = np.asarray([len(x) for x in lists], dtype=np.int64)
+        offsets = np.cumsum(lengths) - lengths
+        flat = [e for x in lists for e in x]
+        elems = ColumnBatch.from_pydict(
+            {"v": flat}, Schema([Field("v", elem_type, True)]),
+            device=self.device).columns[0]
+        out = (lengths, offsets, elems)
+        if d._maps is None:
+            d._maps = {}
+        d._maps[key] = out
+        return out
 
     # ---- sort / limit --------------------------------------------------
     def _sort_val_keys(
@@ -751,5 +1050,14 @@ _OUTER = {lp.JoinType.LEFT, lp.JoinType.RIGHT, lp.JoinType.FULL}
 _LEFT_OUTER = {lp.JoinType.LEFT, lp.JoinType.FULL}
 _RIGHT_OUTER = {lp.JoinType.RIGHT, lp.JoinType.FULL}
 _AGG_FUNCS = {lp.AggFunc.COUNT, lp.AggFunc.SUM, lp.AggFunc.AVG,
-              lp.AggFunc.MIN, lp.AggFunc.MAX}
+              lp.AggFunc.MIN, lp.AggFunc.MAX, lp.AggFunc.STRING_AGG,
+              lp.AggFunc.ARRAY_AGG} | lp.ORDERED_SET_FNS
 _KERNEL_FUNCS = {lp.AggFunc.SUM, lp.AggFunc.COUNT, lp.AggFunc.AVG}
+# the kinds whose plane (NaN aside) orders as their Python values: not
+# UINT64 (an int64 plane), DECIMAL (read back as scaled floats), INTERVAL
+_PLANE_ORDERED = {
+    TypeKind.BOOLEAN, TypeKind.INT8, TypeKind.INT16, TypeKind.INT32,
+    TypeKind.INT64, TypeKind.UINT8, TypeKind.UINT16, TypeKind.UINT32,
+    TypeKind.FLOAT32, TypeKind.FLOAT64, TypeKind.DATE32, TypeKind.DATE64,
+    TypeKind.TIMESTAMP,
+}

@@ -9,8 +9,9 @@ regex operators ~ ~* !~ !~* and [NOT] SIMILAR TO, ||, the JSON operators
 -> ->> #> #>>, @@, the scalar functions (math, strings, regexes, dates, JSON,
 text search, COALESCE/NULLIF/GREATEST/LEAST), UDF calls, and the subquery
 forms: scalar, [NOT] IN, [NOT] EXISTS, ANY/ALL, and the planner's
-decorrelated lookups. STRING_TO_ARRAY, ARRAY_TO_STRING and ARRAY_LENGTH,
-which make or read LIST columns, raise NotImplementedError.
+decorrelated lookups, and STRING_TO_ARRAY, ARRAY_TO_STRING and
+ARRAY_LENGTH, which make or read LIST columns (a dictionary of Python
+lists, as ARRAY_AGG makes them).
 
 A subquery's plan runs through `subquery_exec` (the executor's `execute`),
 once per evaluation; inside a compiled program body the pipeline has run it
@@ -477,7 +478,8 @@ _CMP = {
 }
 
 _F = lp.ScalarFn
-# functions over LIST values (they go with ARRAY_AGG and UNNEST)
+# functions over LIST values (they go with ARRAY_AGG and UNNEST); kept out
+# of compiled programs (pipeline._expr_traceable)
 LIST_FNS = {_F.STRING_TO_ARRAY, _F.ARRAY_TO_STRING, _F.ARRAY_LENGTH}
 # functions that run once per dictionary value on the host (their first
 # argument's dictionary), or build one table per row (CONCAT)
@@ -995,8 +997,6 @@ class Evaluator:
         f = e.func
         if f is _F.EXTRACT:
             return self._eval_extract(e, batch)
-        if f in LIST_FNS:
-            raise _unsupported(e)  # LIST columns: with ARRAY_AGG and UNNEST
         args = [self.eval(a, batch) for a in e.args]
         if f is _F.UPPER:
             return _dict_map_host(args[0], str.upper, "UPPER")
@@ -1247,7 +1247,35 @@ class Evaluator:
         if f in (_F.REGEXP_REPLACE, _F.REGEXP_LIKE, _F.REGEXP_SUBSTR,
                  _F.REGEXP_COUNT):
             return self._eval_regexp_fn(f, args)
+        if f in LIST_FNS:
+            return self._eval_list_fn(f, args)
         return None
+
+    def _eval_list_fn(self, f, args) -> Val:
+        """STRING_TO_ARRAY, ARRAY_TO_STRING and ARRAY_LENGTH. A LIST value
+        is a dictionary of Python lists (ARRAY_AGG's result, or the lists
+        STRING_TO_ARRAY makes once per string), so each function runs once
+        per dictionary value on the host, as the string functions do."""
+        if f is _F.STRING_TO_ARRAY:
+            delim = self._literal_str(args[1], "STRING_TO_ARRAY")
+            return _dict_map_host(
+                args[0], lambda s: s.split(delim) if s else [],
+                ("STRING_TO_ARRAY", delim), DataType.list_(DataType.utf8()))
+        if f is _F.ARRAY_TO_STRING:
+            delim = self._literal_str(args[1], "ARRAY_TO_STRING")
+
+            def join_elems(lst):
+                if not isinstance(lst, (list, tuple)):
+                    return "" if lst is None else str(lst)
+                # PG skips NULL elements
+                return delim.join(str(x) for x in lst if x is not None)
+
+            return _dict_map_host(args[0], join_elems,
+                                  ("ARRAY_TO_STRING", delim), DataType.utf8())
+        return _dict_lookup_host(
+            args[0],
+            lambda lst: len(lst) if isinstance(lst, (list, tuple)) else 1,
+            np.int64, DataType.int64())
 
     def _eval_regexp_fn(self, f, args) -> Val:
         """PostgreSQL's regexp_* functions. The pattern and flags must be

@@ -3,8 +3,9 @@
 The counterpart of `query_engine_tpu.engine.session.Session` for the main
 path: Parse -> Plan -> Optimize -> Lower -> Execute, the same chain as the
 reference's only complete path (pgwire backend.rs:159-218
-execute_query_sync). It takes SELECT statements and EXPLAIN [ANALYZE];
-other statement kinds raise NotImplementedError.
+execute_query_sync). It takes SELECT statements (WITH RECURSIVE
+included) and EXPLAIN [ANALYZE]; other statement kinds raise
+NotImplementedError.
 
 Every table the session registers and every tensor it makes lies on the
 device given to `Session(device=...)`: the card ("cuda") unless the caller
@@ -13,12 +14,13 @@ asks for the CPU with `device="cpu"`.
 
 from __future__ import annotations
 
+import copy
 import time
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import torch
 
-from query_engine_tpu_torch.core.errors import PlanError
+from query_engine_tpu_torch.core.errors import PlanError, SchemaError
 from query_engine_tpu_torch.core.schema import Schema
 from query_engine_tpu_torch.core.udf import UdfRegistry
 from query_engine_tpu_torch.columnar.batch import ColumnBatch
@@ -31,6 +33,8 @@ from query_engine_tpu_torch.sql import ast
 from query_engine_tpu_torch.sql.parser import parse_sql
 from query_engine_tpu_torch.storage.memory import MemoryDataSource
 from query_engine_tpu_torch.utils.profiling import QueryTiming
+
+MAX_RECURSION_ITERS = 1000  # parity: backend.rs recursive CTE cap
 
 
 class Session:
@@ -51,6 +55,8 @@ class Session:
         self.optimizer = Optimizer()
         self.executor = QueryExecutor(self.device, self.udfs)
         self.sources: Dict[str, object] = {}
+        # rounds and host dedup ms of the last WITH RECURSIVE query
+        self.recursion: Dict[str, float] = {}
         # parse/plan/execute breakdown of the last statement
         self.last_timing = QueryTiming()
 
@@ -85,6 +91,10 @@ class Session:
     def register_source(self, name: str, source) -> None:
         self.sources[name.lower()] = source
         self.planner.register_table(name, source.schema())
+
+    def deregister_table(self, name: str) -> None:
+        self.sources.pop(name.lower(), None)
+        self.planner.deregister_table(name)
 
     # ---- SQL entry -----------------------------------------------------
     def sql(self, query: str) -> ColumnBatch:
@@ -143,13 +153,16 @@ class Session:
             stmt.recursive and Planner._references_table(c.query, c.name)
             for c in stmt.ctes
         ):
-            raise NotImplementedError(
-                "query_engine_tpu_torch does not execute recursive CTEs yet"
-            )
+            raise PlanError("recursive CTE must go through _execute_query")
         plan = self.planner.create_logical_plan(stmt)
         return self.optimizer.optimize(plan)
 
     def _execute_query(self, stmt) -> ColumnBatch:
+        if isinstance(stmt, ast.WithSelect) and stmt.recursive:
+            rec = [c for c in stmt.ctes
+                   if Planner._references_table(c.query, c.name)]
+            if rec:
+                return self._execute_recursive_cte(stmt)
         t0 = time.perf_counter()
         plan = self._plan_query(stmt)
         pplan = Lowering(
@@ -170,3 +183,83 @@ class Session:
     def _clear_query_memos(self) -> None:
         self.executor._cte_memo.clear()
         self.executor.evaluator._corr_match_memo.clear()
+
+    def _execute_recursive_cte(self, stmt: ast.WithSelect) -> ColumnBatch:
+        """Fixed-point recursive CTE evaluation (backend.rs:221-369):
+        iterate `base UNION [ALL] step`, registering the last round's new
+        rows (the frontier) as a temporary table under the CTE's name each
+        round, until a round adds no rows (or MAX_RECURSION_ITERS rounds).
+        UNION keeps only rows not seen before (a set difference on the
+        host); UNION ALL stops on an empty frontier. Every frontier stays on
+        the session's device. `recursion` holds the last run's rounds and
+        host milliseconds of the UNION's dedup."""
+        if len(stmt.ctes) != 1:
+            raise PlanError("recursive WITH supports exactly one CTE")
+        cte = stmt.ctes[0]
+        sel = cte.query
+        if sel.union_clause is None:
+            raise PlanError("recursive CTE requires base UNION step shape")
+        base_sel = _strip_union(sel)
+        step_sel = sel.union_clause.select
+        dedup = sel.union_clause.set_op is ast.SetOperation.UNION
+
+        tmp_name = cte.name.lower()
+        if tmp_name in self.sources:
+            raise PlanError(
+                f"recursive CTE name '{cte.name}' shadows an existing table"
+            )
+        self.recursion = {"iterations": 0, "dedup_ms": 0.0}
+        try:
+            acc = self._execute_query(ast.Select(base_sel))
+            if cte.columns:
+                acc = _rename_batch(acc, list(cte.columns))
+            frontier = acc
+            for _ in range(MAX_RECURSION_ITERS):
+                if frontier.num_rows == 0:
+                    break
+                self.recursion["iterations"] += 1
+                self.register_table(tmp_name, frontier)
+                try:
+                    new_rows = self._execute_query(ast.Select(step_sel))
+                finally:
+                    self.deregister_table(tmp_name)
+                if cte.columns:
+                    new_rows = _rename_batch(new_rows, list(cte.columns))
+                if dedup:
+                    t0 = time.perf_counter()
+                    seen = set(acc.to_pylist())
+                    fresh = [r for r in new_rows.to_pylist() if r not in seen]
+                    self.recursion["dedup_ms"] += \
+                        (time.perf_counter() - t0) * 1e3
+                    if not fresh:
+                        break
+                    cols = {f.name: [r[i] for r in fresh]
+                            for i, f in enumerate(acc.schema)}
+                    new_rows = ColumnBatch.from_pydict(cols, acc.schema,
+                                                       device=self.device)
+                elif new_rows.num_rows == 0:
+                    break
+                acc = ColumnBatch.concat([acc, new_rows])
+                frontier = new_rows
+            # the outer SELECT over the final CTE result
+            self.register_table(tmp_name, acc)
+            try:
+                return self._execute_query(ast.Select(stmt.select))
+            finally:
+                self.deregister_table(tmp_name)
+        finally:
+            if tmp_name in self.sources:
+                self.deregister_table(tmp_name)
+
+
+def _strip_union(sel: ast.SelectStatement) -> ast.SelectStatement:
+    base = copy.copy(sel)
+    base.union_clause = None
+    return base
+
+
+def _rename_batch(batch: ColumnBatch, names: List[str]) -> ColumnBatch:
+    if len(names) != len(batch.schema):
+        raise SchemaError("CTE column list arity mismatch")
+    schema = Schema([f.with_name(n) for f, n in zip(batch.schema, names)])
+    return ColumnBatch(schema, batch.columns, batch.num_rows)

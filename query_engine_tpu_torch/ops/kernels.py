@@ -42,6 +42,8 @@ _I32_MIN = int(np.iinfo(np.int32).min)
 _I32_MAX = int(np.iinfo(np.int32).max)
 _I64_MIN = int(np.iinfo(np.int64).min)
 _I64_MAX = int(np.iinfo(np.int64).max)
+_F64_QNAN = 0x7FF8000000000000  # the positive quiet NaN's bits
+_F32_QNAN = 0x7FC00000
 
 # ---------------------------------------------------------------------------
 # small utilities
@@ -645,6 +647,71 @@ def segment_aggregate(
             out = out.to(torch.float64)
         return out, has
     raise ValueError(f"unknown aggregate {func}")
+
+
+def total_order_key(x: torch.Tensor) -> torch.Tensor:
+    """An int64 plane whose signed order is lax.sort's order of x: for
+    floats -inf < ... < 0.0 < ... < inf < NaN, with -0.0 equal to 0.0 and
+    every NaN (either sign, any payload) equal to every other, as the
+    comparator canonicalizes them; integers and booleans as their values."""
+    if not x.is_floating_point():
+        return x.to(torch.int64)
+    if x.dtype == torch.float64:
+        b = torch.where(x == 0, torch.zeros_like(x), x).view(torch.int64)
+        b = torch.where(torch.isnan(x), torch.full_like(b, _F64_QNAN), b)
+        return b ^ ((b >> 63) & _I64_MAX)
+    x = x.to(torch.float32)
+    b = torch.where(x == 0, torch.zeros_like(x), x).view(torch.int32)
+    b = torch.where(torch.isnan(x), torch.full_like(b, _F32_QNAN), b)
+    b = b.to(torch.int64)
+    return b ^ ((b >> 31) & _I32_MAX)
+
+
+def sort_by_group_value(vals: torch.Tensor, ok: torch.Tensor,
+                        gid: torch.Tensor, num_groups: int):
+    """The rows where `ok` sorted by (group, value), values in lax.sort's
+    order (`total_order_key`; equal keys keep their input order), the
+    others after them. Returns the sorted group key (num_groups for the
+    others), the sorted values, and each group's row count and first
+    position (length num_groups), the counts from the sorted keys
+    (searchsorted), with no scatter."""
+    gkey = torch.where(ok, gid.to(torch.int64),
+                       torch.full_like(gid, num_groups, dtype=torch.int64))
+    perm = _lexsort([gkey, total_order_key(vals)])
+    skey = gkey[perm]
+    edges = torch.searchsorted(
+        skey, torch.arange(num_groups + 1, device=skey.device))
+    start = edges[:-1]
+    return skey, vals[perm], edges[1:] - start, start
+
+
+def group_mode_sorted(skey: torch.Tensor, sval: torch.Tensor,
+                      num_groups: int, desc: bool) -> torch.Tensor:
+    """MODE() per group over `sort_by_group_value`'s planes: runs of equal
+    (group, value) neighbours (compared with !=, so each NaN is a run of
+    its own and -0.0 joins 0.0) give run lengths, and a scatter-max of a
+    packed (length, position) key picks each group's winner; ties go to
+    the FIRST value in the WITHIN GROUP order (PG): the smallest value for
+    ASC, the largest for DESC. Empty groups hold an arbitrary value.
+
+    Only run starts carry a key to their group's slot: a run's length is
+    the searchsorted end of its number in the (sorted) running count of
+    starts, and every other row writes to a slot of its own, so no slot
+    takes more atomics than its group has runs."""
+    cap = skey.shape[0]
+    idx = torch.arange(cap, device=skey.device)
+    start = (idx == 0) | (skey != torch.roll(skey, 1)) \
+        | (sval != torch.roll(sval, 1))
+    run = torch.cumsum(start.to(torch.int64), 0)
+    run_len = torch.searchsorted(run, run, right=True) - idx
+    big = cap + 1
+    tie = idx if desc else cap - idx
+    tgt = torch.where(start & (skey < num_groups), skey, num_groups + idx)
+    best = torch.full((num_groups + cap,), _I64_MIN, dtype=torch.int64,
+                      device=skey.device).scatter_reduce_(
+        0, tgt, run_len * big + tie, reduce="amax")[:num_groups]
+    pos = (best % big) if desc else (cap - best % big)
+    return sval[pos.clamp(0, cap - 1)]
 
 
 def _segment_extreme(data: torch.Tensor, ok: torch.Tensor, gid: torch.Tensor,

@@ -144,15 +144,14 @@ def test_extract_in_group_by_and_filter(sessions):
 
 def test_other_scalar_functions_still_raise(sessions):
     """UPPER, which raised before the port had the string functions, gives
-    the JAX Session's rows; the functions over LIST values, which the port
-    does not have yet, still raise."""
+    the JAX Session's rows; so does STRING_TO_ARRAY, which raised before the
+    port had LIST values."""
     got = _check(sessions, "SELECT id, UPPER(s), LOWER(ds) FROM t "
                            "ORDER BY id")
     assert [r[1] for r in got[:4]] == ["ABC", "A_C", "", "ABC"]
-    _, compiled, eager = sessions
-    for s in (compiled, eager):
-        with pytest.raises(NotImplementedError, match="STRING_TO_ARRAY"):
-            s.sql("SELECT STRING_TO_ARRAY(s, '_') FROM t").to_pylist()
+    got = _check(sessions, "SELECT id, STRING_TO_ARRAY(s, '_') FROM t "
+                           "ORDER BY id")
+    assert [r[1] for r in got[:2]] == [["abc"], ["a", "c"]]
 
 
 CASE_CASES = [

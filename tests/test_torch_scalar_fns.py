@@ -16,9 +16,9 @@ must be equal and in the same order: integers, strings and dates exactly,
 floats to rtol 1e-9. Where the JAX package raises, the port raises the same
 error class.
 
-STRING_TO_ARRAY, ARRAY_TO_STRING and ARRAY_LENGTH make or read LIST
-columns, which the port does not have yet: they raise NotImplementedError
-(`PORT_LACKS`).
+STRING_TO_ARRAY and ARRAY_LENGTH, which make or read LIST columns, and
+UNNEST of such a column are among the cases (tests/test_torch_list_aggs.py
+has the rest of the LIST forms).
 
 Also: a program keys ROUND's digits (and the other arguments the host
 reads) by value, so `ROUND(x, 2)` then `ROUND(x, 3)` on one Session give
@@ -380,6 +380,11 @@ CASES = [
             "FROM docs ORDER BY id"),
     ("num", "SELECT id, TO_TSVECTOR(body) @@ TO_TSQUERY('rust & !go') "
             "FROM docs ORDER BY id"),
+    # the LIST functions and UNNEST
+    ("json", "SELECT u.e FROM t2 CROSS JOIN LATERAL "
+             "UNNEST(STRING_TO_ARRAY(t2.csv, ',')) u(e) ORDER BY u.e"),
+    ("json", "SELECT STRING_TO_ARRAY(csv, ',') FROM t2"),
+    ("json", "SELECT ARRAY_LENGTH(STRING_TO_ARRAY(csv, ',')) FROM t2"),
 ]
 
 # the JAX package raises these; the port must raise the same class
@@ -394,13 +399,6 @@ RAISING = [
     ("num", "SELECT s % 2 FROM n"),
 ]
 
-# the port has no LIST columns yet: these raise NotImplementedError in it
-PORT_LACKS = [
-    ("json", "SELECT u.e FROM t2 CROSS JOIN LATERAL "
-             "UNNEST(STRING_TO_ARRAY(t2.csv, ',')) u(e) ORDER BY u.e"),
-    ("json", "SELECT STRING_TO_ARRAY(csv, ',') FROM t2"),
-    ("json", "SELECT ARRAY_LENGTH(STRING_TO_ARRAY(csv, ',')) FROM t2"),
-]
 
 
 def _run(s, sql):
@@ -413,7 +411,7 @@ def _run(s, sql):
 @pytest.fixture(scope="module")
 def jax_results():
     out = {}
-    cases = CASES + RAISING + PORT_LACKS
+    cases = CASES + RAISING
     for fixture in {f for f, _ in cases}:
         js = JSession()
         _register(js, fixture, True)
@@ -481,14 +479,6 @@ def test_case_raises_as_in_jax(jax_results, fixture, sql, mode,
     want = jax_results[(fixture, sql)]
     assert isinstance(want, str) and want != "NotImplementedError", want
     assert _run(_session(fixture, mode, monkeypatch), sql) == want
-
-
-@pytest.mark.parametrize("mode", MODES)
-@pytest.mark.parametrize("fixture,sql", PORT_LACKS, ids=_ids(PORT_LACKS))
-def test_list_functions_raise(jax_results, fixture, sql, mode, monkeypatch):
-    assert not isinstance(jax_results[(fixture, sql)], str)
-    with pytest.raises(NotImplementedError):
-        _session(fixture, mode, monkeypatch).sql(sql).to_pylist()
 
 
 def test_extract_epoch_before_1970():

@@ -212,7 +212,7 @@ def test_string_functions_match_jax(csv_pair, query):
 
 
 @pytest.mark.parametrize("query", [
-    "SELECT STRING_TO_ARRAY(name, 'a') FROM employees",
+    "UPDATE employees SET age = 41 WHERE id = 1",
     "INSERT INTO employees VALUES (7, 'Gus', 40, 1, 101)",
 ])
 def test_outside_the_slice_raises(csv_pair, query):
