@@ -142,6 +142,33 @@ Phase 10 runs the ordered-set, STRING_AGG, ARRAY_AGG/UNNEST, LIST-function
          first run is held against the plain versions. Fails unless
          group_agg launched in O1, O3 and O6, if O6 did not run 50 rounds,
          or if `index_add_` runs in any run of the phase.
+Phase 11 runs the Session surface at SF1 on a Session of its own over
+         phase 7's host tables, after the earlier phases' Sessions are freed:
+         TPC-H's refresh functions (RF1, RF2; TPC-H v3.0.1 §2.5) and the
+         statements of `tpch/refresh.py` in order: M1 CREATE INDEX on
+         orders; M2 an equality and a range lookup with parameters, whose
+         lowered plans hold a PIndexScan that the executor runs; M3 Q6 with
+         parameters; M4 RF1 (1,500 orders: 10 by INSERT ... VALUES ...
+         RETURNING, the rest and their lineitems by INSERT ... SELECT from
+         staging tables); M5 Q1, Q3, Q18; M6 RF2 (DELETE ... WHERE key IN
+         (1,500 keys)) and M2 again; M7 Q1, Q3, Q18; M8 an UPDATE of
+         customer, then Q10; M9 INSERT ... ON CONFLICT DO UPDATE (50
+         existing keys, 50 new); M10 BEGIN, a second RF1, SAVEPOINT, a
+         second RF2, ROLLBACK TO, Q1, ROLLBACK, Q1; M11 Q15's view form
+         through sql_script; M12 CREATE TABLE AS, ALTER TABLE ADD and
+         RENAME COLUMN, DROP TABLE, TRUNCATE; M13 a Session with the result
+         cache: Q1, Q1 again (a hit: no program, no group_agg launch, no
+         host sync), a DELETE, Q1 (a miss); M14 three rounds of RF1, RF2
+         and Q1 with the device memory allocated after each, then two
+         rounds with the pipeline's dropping of a replaced table's programs
+         turned off, to show what it keeps. Every statement's status or
+         rows must equal the numpy oracle's on the edited tables (floats to
+         rtol 1e-9). Prints per statement the first (and for a query the
+         warm) ms, host syncs and group_agg launches, each index build's
+         ms, and the memory before and after. Fails unless group_agg
+         launched in M5 and M7, if `index_add_` runs, or if allocated
+         memory grows from round 2 to round 3 of M14 by more than
+         M14_SLACK.
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after; a kernel of the path that was not launched fails the run.
@@ -1796,6 +1823,241 @@ def phase10(tables, sess):
     return out
 
 
+# phase 11: the refresh sets' seeds, and the allocated memory M14 may gain
+# from its round 2 to its round 3 (the staging tables registered anew, the
+# allocator's rounding)
+RF_SEED = 20260517
+M14_SLACK = 64 << 20
+
+
+def _index_build_timer(builds):
+    """While open, each index build of a table (CREATE INDEX, a rebuild
+    after a replace, an append's rows) appends (rows, ms) to `builds`."""
+    from query_engine_tpu_torch.storage.memory import MemoryDataSource
+
+    real = MemoryDataSource._insert_into_index
+
+    def timed(self, idx_name, columns, batch, start_row):
+        t0 = time.perf_counter()
+        real(self, idx_name, columns, batch, start_row)
+        builds.append((batch.num_rows, (time.perf_counter() - t0) * 1e3))
+
+    @contextlib.contextmanager
+    def active():
+        MemoryDataSource._insert_into_index = timed
+        try:
+            yield
+        finally:
+            MemoryDataSource._insert_into_index = real
+
+    return active()
+
+
+def _mib(n):
+    return f"{n / 2**20:.1f} MiB"
+
+
+def phase11(tables):
+    """The Session surface at SF1: TPC-H's refresh functions, indexes and
+    parameters, UPDATE, ON CONFLICT, a transaction, views, DDL, the result
+    cache and rounds of refreshes, each statement against the numpy oracle
+    on the edited tables."""
+    import gc
+
+    import torch
+
+    from query_engine_tpu_torch.engine.session import Session, _bind_params
+    from query_engine_tpu_torch.index import native
+    from query_engine_tpu_torch.plan.lowering import Lowering
+    from query_engine_tpu_torch.sql.parser import parse_sql
+    from query_engine_tpu_torch.tpch import data, oracle, refresh
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    mem0 = (torch.cuda.memory_allocated(), torch.cuda.memory_reserved())
+    sess = Session(device="cuda")
+    data.register(sess, tables)
+    torch.cuda.synchronize()
+    mem_reg = torch.cuda.memory_allocated()
+    ex, pipe = sess.executor, sess.executor.pipeline
+    st = refresh.State(dict(tables))
+    count = refresh.refresh_count(data.SF1_LINEITEM)
+    rf = refresh.make_rf1(st, count, RF_SEED)
+    refresh.register_staging(sess, rf)
+    print(f"phase 11: device memory allocated (reserved) {_mib(mem0[0])} "
+          f"({_mib(mem0[1])}) with the earlier Sessions freed, "
+          f"{_mib(mem_reg)} with the SF1 tables registered; native index "
+          f"library {native.native_available()}; a refresh is {count} "
+          f"orders, RF1 {rf.lineitem.num_rows} lineitems")
+    out, builds = [], []
+    spy = IndexAddSpy()
+    launches = collections.Counter()
+
+    def run(step, s=sess, warm=True):
+        want = step.want(st) if step.want is not None else None
+        e = s.executor
+        syncs0, scans0, n_builds = e.host_syncs, e.index_scans, len(builds)
+        held = []
+        reset_counts()
+        with spy.active(), group_agg_held_against_plain(held, spy):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rows = refresh.run_step(s, step)
+            torch.cuda.synchronize()
+            first_ms = (time.perf_counter() - t0) * 1e3
+        n_launch = read_counts()["group_agg"]
+        launches[step.label] += n_launch
+        syncs = e.host_syncs - syncs0
+        if want is not None:
+            try:
+                oracle.compare(rows, want, step.float_keys)
+            except AssertionError as err:
+                raise CheckFailed(f"{step.label}: {step.sql[:100]}: differs "
+                                  f"from the numpy oracle: {err}") from None
+        if step.index_scan:
+            bound = _bind_params(parse_sql(step.sql), step.params)
+            text = Lowering(s.sources).lower(s._plan_query(bound)).pretty()
+            check("IndexScan" in text, f"{step.label}: no IndexScan in the "
+                  f"lowered plan of {step.sql}: {text}")
+            check(e.index_scans == scans0 + 1, f"{step.label}: the executor "
+                  f"ran {e.index_scans - scans0} index scans for {step.sql}")
+        if step.edit is not None:
+            step.edit(st)
+        warm_ms = None
+        read_only = step.sql.lstrip().upper().startswith("SELECT")
+        if warm and read_only and not step.script:
+            walls = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                with spy.active():
+                    again = refresh.run_step(s, step)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+                if want is not None:
+                    try:
+                        oracle.compare(again, want, step.float_keys)
+                    except AssertionError as err:
+                        raise CheckFailed(f"{step.label}: a warm run of "
+                                          f"{step.sql[:100]} differs from "
+                                          f"the oracle: {err}") from None
+            warm_ms = statistics.median(walls)
+        rec = {"label": step.label, "sql": " ".join(step.sql.split())[:72],
+               "rows": len(rows), "first_ms": first_ms, "warm_ms": warm_ms,
+               "syncs": syncs, "group_agg": n_launch,
+               "index_builds": builds[n_builds:]}
+        out.append(rec)
+        shown = rows if len(rows) <= 3 else rows[:2] + ["..."]
+        warm_txt = "" if warm_ms is None else f", warm {warm_ms:.3f} ms"
+        build_txt = "" if not rec["index_builds"] else (
+            ", index builds (rows, ms) " + ", ".join(
+                f"({n:,}, {ms:.1f})" for n, ms in rec["index_builds"]))
+        print(f"phase 11: {step.label}: {rec['sql']}: {len(rows)} rows "
+              f"== oracle {shown}; first {first_ms:.3f} ms{warm_txt}; "
+              f"{syncs} host syncs; group_agg {n_launch}{build_txt}")
+        for c in held:
+            print(f"phase 11: {step.label}: group_agg == plain on the same "
+                  f"tensors: n={c['n']} G={c['groups']} {c['items']} items, "
+                  f"max abs err against float64 summation "
+                  f"{c['max_abs_err']:.6g}")
+        return rows
+
+    with _index_build_timer(builds):
+        for step in refresh.steps(st, count, RF_SEED, rf):
+            run(step)
+        rf2 = refresh.make_rf1(st, count, RF_SEED + 1)
+        refresh.register_staging(sess, rf2)
+        for step in refresh.transaction_steps(st, count, RF_SEED + 1, rf2):
+            run(step)
+        for step in refresh.ddl_steps(st):
+            run(step)
+        check(not sess.in_transaction(), "M10 left a transaction open")
+
+        # M13: a Session with the result cache, over lineitem
+        csess = Session(device="cuda", enable_cache=True)
+        csess.register_table("lineitem", tables["lineitem"].to_batch("cuda"))
+        cst = refresh.State(dict(tables))
+        q1 = refresh._query("Q1", "M13")
+        cpipe = csess.executor.pipeline
+        st_main, st = st, cst
+        try:
+            run(q1, csess, warm=False)
+            stats0, syncs0 = dict(cpipe.stats), csess.executor.host_syncs
+            reset_counts()
+            run(q1, csess, warm=False)
+            check(read_counts()["group_agg"] == 0 and cpipe.stats == stats0
+                  and csess.executor.host_syncs == syncs0
+                  and csess._cache.stats.hits == 1,
+                  f"M13: the repeated Q1 was not a cache hit that runs no "
+                  f"program: stats {_stats_change(stats0, cpipe.stats)}, "
+                  f"{csess.executor.host_syncs - syncs0} syncs, "
+                  f"{read_counts()['group_agg']} group_agg launches, "
+                  f"{csess._cache.stats.snapshot()}")
+            keys = refresh.rf2_keys(cst, count)
+            run(refresh.rf2_steps(cst, keys, "M13")[0], csess)
+            refresh.apply_rf2(cst, keys)
+            check(len(csess._cache) == 0, "M13: the DELETE left the result "
+                  "cache full")
+            run(q1, csess, warm=False)
+            check(csess._cache.stats.misses == 2, "M13: the Q1 after the "
+                  f"DELETE was not a miss: {csess._cache.stats.snapshot()}")
+        finally:
+            st = st_main
+        del csess, cpipe
+        gc.collect()
+
+        # M14: rounds of RF1, RF2 and Q1
+        def rounds(n, seed, tag):
+            mem = []
+            for r in range(n):
+                rfr = refresh.make_rf1(st, count, seed + r)
+                refresh.register_staging(sess, rfr)
+                for step in refresh.rf1_steps(st, rfr, tag):
+                    run(step, warm=False)
+                for step in refresh.rf2_steps(st, refresh.rf2_keys(st, count),
+                                              tag):
+                    run(step, warm=False)
+                run(refresh._query("Q1", tag), warm=False)
+                gc.collect()
+                torch.cuda.synchronize()
+                mem.append((torch.cuda.memory_allocated(),
+                            torch.cuda.memory_reserved(), len(pipe._cache)))
+            return mem
+
+        mem14 = rounds(3, RF_SEED + 10, "M14")
+        real_drop = pipe.drop_entries_reading
+        pipe.drop_entries_reading = lambda sources: 0
+        try:
+            mem_off = rounds(2, RF_SEED + 20, "M14b")
+        finally:
+            pipe.drop_entries_reading = real_drop
+    for tag, mem in (("M14", mem14), ("M14 with the dropping off", mem_off)):
+        print(f"phase 11: {tag}: after each round allocated (reserved) "
+              + ", ".join(f"{_mib(a)} ({_mib(r)}), {n} programs"
+                          for a, r, n in mem))
+    growth = mem14[2][0] - mem14[1][0]
+    check(growth <= M14_SLACK, f"M14: allocated memory grew by "
+          f"{_mib(growth)} from round 2 to round 3 (slack "
+          f"{_mib(M14_SLACK)})")
+    for label in ("M5", "M7"):
+        check(launches[label] > 0, f"{label}: group_agg did not launch")
+    check(not spy.calls, f"phase 11: {spy.calls} index_add_ calls on the card")
+    # the closures hold the Session too
+    del sess, pipe, ex, run, rounds, real_drop
+    gc.collect()
+    torch.cuda.synchronize()
+    mem1 = (torch.cuda.memory_allocated(), torch.cuda.memory_reserved())
+    print(f"phase 11: {len(out)} statements == oracle; group_agg launches by "
+          f"statement group {dict(launches)}; index builds (rows, ms) "
+          f"{[(n, round(ms, 1)) for n, ms in builds]}; M14 allocated growth "
+          f"round 2 -> 3 {_mib(growth)}; memory allocated (reserved) before "
+          f"{_mib(mem0[0])} ({_mib(mem0[1])}), after the phase's Sessions "
+          f"are freed {_mib(mem1[0])} ({_mib(mem1[1])}); the phase took "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return {"statements": out, "launches": dict(launches),
+            "index_builds": builds, "m14": mem14, "m14_off": mem_off}
+
+
 def main():
     import torch
 
@@ -1822,6 +2084,9 @@ def main():
         windows = phase8(sf1_tables, sf1_sess)
         scalar_fns = phase9(sf1_tables, sf1_sess)
         ordered_sets = phase10(sf1_tables, sf1_sess)
+        # phase 11 runs on a Session of its own: free the earlier ones
+        del sf1_sess, tables
+        session_surface = phase11(sf1_tables)
     except CheckFailed as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -1833,6 +2098,7 @@ def main():
     windows_by_query = {q: r["group_agg"] for q, r in windows.items()}
     scalar_by_query = {q: r["group_agg"] for q, r in scalar_fns.items()}
     ordered_by_query = {q: r["group_agg"] for q, r in ordered_sets.items()}
+    surface_by_group = session_surface["launches"]
     tpch_err = max((c["max_abs_err"] for calls in tpch_held.values()
                     for c in calls), default=0.0)
     print(json.dumps({"kernels": [{
@@ -1842,10 +2108,11 @@ def main():
         "replaces": "query_engine_tpu/ops/pallas/group_agg.py:74",
         "launches": agg_launches + tpch_launches
         + sum(windows_by_query.values()) + sum(scalar_by_query.values())
-        + sum(ordered_by_query.values()),
+        + sum(ordered_by_query.values()) + sum(surface_by_group.values()),
         "launches_by_phase": {"4": agg_launches, "7": tpch_by_query,
                               "8": windows_by_query, "9": scalar_by_query,
-                              "10": ordered_by_query},
+                              "10": ordered_by_query,
+                              "11": surface_by_group},
         "max_abs_err": max_err["plain"],
         "max_abs_err_vs_float64": {"1": max_err["float64"], "7": tpch_err},
         "ms": main_shape["ms"],

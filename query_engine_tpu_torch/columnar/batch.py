@@ -181,9 +181,35 @@ def _infer_type(values: Sequence) -> DataType:
     return DataType.utf8()
 
 
+def _temporal_ints(values: list, dtype: DataType) -> list:
+    """DATE32 / TIMESTAMP values given as `datetime.date`, `datetime.datetime`
+    or ISO strings (an INSERT's `DATE '...'` literal) as the plane's integer
+    days or microseconds; other values pass through. The JAX package's
+    encoder takes only integers here."""
+    import datetime
+
+    k = dtype.kind
+    if k not in (TypeKind.DATE32, TypeKind.TIMESTAMP):
+        return values
+    epoch = datetime.datetime(1970, 1, 1)
+    out = []
+    for v in values:
+        if isinstance(v, str):
+            v = datetime.datetime.fromisoformat(v)
+        if isinstance(v, datetime.datetime):
+            v = (v.date() - epoch.date()).days if k is TypeKind.DATE32 \
+                else (v - epoch) // datetime.timedelta(microseconds=1)
+        elif isinstance(v, datetime.date):
+            v = (v - epoch.date()).days if k is TypeKind.DATE32 \
+                else (v - epoch.date()).days * 86_400_000_000
+        out.append(v)
+    return out
+
+
 def _encode_values(values: list, dtype: DataType, device) -> Column:
     """Host encode of a Python list (numpy), then one copy of each plane to
     `device`. None is NULL."""
+    values = _temporal_ints(values, dtype)
     n = len(values)
     cap = padded_capacity(n)
     validity = np.asarray([v is not None for v in values], dtype=bool)
@@ -236,10 +262,19 @@ class ColumnBatch:
     def capacity(self) -> int:
         return self.columns[0].capacity if self.columns else padded_capacity(self.num_rows)
 
+    @property
+    def num_columns(self) -> int:
+        return len(self.columns)
+
     def column(self, i: Union[int, str]) -> Column:
         if isinstance(i, str):
             i = self.schema.index_of(i)
         return self.columns[i]
+
+    def live_mask_np(self) -> np.ndarray:
+        m = np.zeros(self.capacity, dtype=bool)
+        m[: self.num_rows] = True
+        return m
 
     def to(self, device) -> "ColumnBatch":
         """The same batch with every plane on `device` (columns already
@@ -360,6 +395,12 @@ class ColumnBatch:
             self.num_rows,
         )
 
+    def rename(self, names: Sequence[str]) -> "ColumnBatch":
+        schema = Schema(
+            [f.with_name(n) for f, n in zip(self.schema, names)]
+        )
+        return ColumnBatch(schema, self.columns, self.num_rows)
+
     def slice(self, offset: int, length: int) -> "ColumnBatch":
         """Row slice (LIMIT/OFFSET; reference executor.rs:299-341)."""
         offset = min(max(offset, 0), self.num_rows)
@@ -373,6 +414,26 @@ class ColumnBatch:
         cap = padded_capacity(len(indices))
         cols = [c.take_host(indices, cap) for c in self.columns]
         return ColumnBatch(self.schema, cols, len(indices))
+
+    def take(self, indices: torch.Tensor, count: int) -> "ColumnBatch":
+        """Gather rows by a device index plane whose first `count` slots are
+        the rows to keep, into a batch at `padded_capacity(count)`: the
+        gather runs on the batch's device, and pad rows hold 0 and are
+        invalid, as `take_host` leaves them."""
+        cap = padded_capacity(count)
+        if not self.columns:
+            return ColumnBatch(self.schema, [], count)
+        dev = self.columns[0].data.device
+        idx = indices.to(device=dev, dtype=torch.int64)[:cap]
+        if idx.shape[0] < cap:
+            idx = _pad_t(idx, cap)
+        live = torch.arange(cap, device=dev) < count
+        cols = []
+        for c in self.columns:
+            zero = torch.zeros((), dtype=c.data.dtype, device=dev)
+            cols.append(Column(torch.where(live, c.data[idx], zero),
+                               c.validity[idx] & live, c.dtype, c.dictionary))
+        return ColumnBatch(self.schema, cols, count)
 
     @staticmethod
     def concat(batches: List["ColumnBatch"]) -> "ColumnBatch":

@@ -6,9 +6,10 @@ equi-joins (with or without a residual ON condition), CROSS joins, grouped
 and global aggregate (DISTINCT included), sort, limit, window functions,
 DISTINCT, UNION [ALL] / INTERSECT / EXCEPT, VALUES, the empty relation,
 generate_series, UNNEST, derived tables (a subquery in FROM) and shared
-WITH queries, materialized once per query. Any other node (index scans)
-raises NotImplementedError. Subquery expressions run their plans through
-`execute` (the evaluator's `subquery_exec`).
+WITH queries, materialized once per query, and index scans (the row ids
+come from the host index, the gather runs on the device). Any other node
+raises ExecutionError, as in the JAX package. Subquery expressions run
+their plans through `execute` (the evaluator's `subquery_exec`).
 
 The aggregates are COUNT/SUM/AVG/MIN/MAX, the ordered-set aggregates
 (PERCENTILE_CONT/DISC, MEDIAN, MODE: one sort of the argument by group and
@@ -131,6 +132,7 @@ class QueryExecutor:
         self.evaluator = Evaluator(self.device, udfs=udfs,
                                    subquery_exec=self.execute)
         self.host_syncs = 0  # scalar/plane reads from the device, cumulative
+        self.index_scans = 0  # IndexScan nodes run, cumulative
         # host ms of the host-finalized operators (STRING_AGG, ARRAY_AGG,
         # UNNEST), cumulative by kind
         self.host_ms = {}
@@ -191,12 +193,16 @@ class QueryExecutor:
 
     def _execute_node(self, plan: pp.PhysicalPlan,
                       _skip_compiled: bool = False) -> ColumnBatch:
+        if isinstance(plan, _Materialized):
+            return plan.batch
         if self._compiled and not _skip_compiled:
             out = self.pipeline.try_execute(plan)
             if out is not None:
                 return out
         if isinstance(plan, pp.PScan):
             return self._exec_scan(plan)
+        if isinstance(plan, pp.PIndexScan):
+            return self._exec_index_scan(plan)
         if isinstance(plan, pp.PProjection):
             return self._exec_projection(plan)
         if isinstance(plan, pp.PFilter):
@@ -237,10 +243,7 @@ class QueryExecutor:
             return self._exec_generate_series(plan)
         if isinstance(plan, pp.PUnnest):
             return self._exec_unnest(plan)
-        raise NotImplementedError(
-            f"query_engine_tpu_torch does not execute {type(plan).__name__} "
-            "yet"
-        )
+        raise ExecutionError(f"cannot execute {type(plan).__name__}")
 
     # ---- scan ----------------------------------------------------------
     def _exec_scan(self, plan: pp.PScan) -> ColumnBatch:
@@ -255,6 +258,22 @@ class QueryExecutor:
         # device once per table version, not once per query
         ensure_device(batch, self.device)
         return ColumnBatch(plan.out_schema, batch.columns, batch.num_rows)
+
+    def _exec_index_scan(self, plan: pp.PIndexScan) -> ColumnBatch:
+        """The index lookup on the host (`plan.lookup()`), its row ids to
+        the device once, the gather there, then the residual filter."""
+        batch = plan.source.scan()
+        if plan.projection is not None:
+            batch = batch.select(plan.projection)
+        ensure_device(batch, self.device)
+        row_ids = np.asarray(plan.lookup(), dtype=np.int64)
+        self.index_scans += 1
+        out = batch.take(torch.from_numpy(row_ids).to(self.device),
+                         len(row_ids))
+        out = ColumnBatch(plan.out_schema, out.columns, out.num_rows)
+        if plan.residual is not None:
+            out = self._filter_batch(out, plan.residual)
+        return out
 
     # ---- projection / filter ------------------------------------------
     def _exec_projection(self, plan: pp.PProjection) -> ColumnBatch:
@@ -1061,3 +1080,13 @@ _PLANE_ORDERED = {
     TypeKind.FLOAT32, TypeKind.FLOAT64, TypeKind.DATE32, TypeKind.DATE64,
     TypeKind.TIMESTAMP,
 }
+
+
+class _Materialized(pp.PhysicalPlan):
+    """Wraps an already-computed batch as a plan node (internal reuse)."""
+
+    def __init__(self, batch: ColumnBatch):
+        self.batch = batch
+
+    def schema(self) -> Schema:
+        return self.batch.schema

@@ -758,6 +758,20 @@ class CompiledPipeline:
         ]
         return ColumnBatch(meta["schema"], cols, count)
 
+    def drop_entries_reading(self, sources) -> int:
+        """Drop the cached programs whose plan reads one of `sources` (the
+        tables a DML or DDL statement or a ROLLBACK replaced). Such an
+        entry holds the table's old batch (`leaves`), the planes its graph
+        read and its eager leaves' batches; a new version of the table keys
+        a new entry, so without this every refresh would leave one table's
+        worth of planes reachable. Returns the number dropped."""
+        ids = {id(s) for s in sources}
+        dead = [k for k, e in self._cache.items()
+                if ids & _sources_read(e.plan, e.sub_exprs)]
+        for k in dead:
+            del self._cache[k]
+        return len(dead)
+
     # ---- running a program -------------------------------------------------
     def _body(self, entry, planes, n_bufs, dyn_bufs):
         """The program: the plan segment over the input planes (the leaves',
@@ -1804,6 +1818,31 @@ class CompiledPipeline:
                            [None] * len(cols))
         sel_out = torch.arange(S, device=dev) < ng
         return _TTable(schema, cols, sel_out, S, True, [None] * len(cols))
+
+
+def _sources_read(plan, sub_exprs=()) -> set:
+    """id()s of the table sources a physical plan reads, its expressions'
+    subquery plans included."""
+    seen, out = set(), set()
+    stack = [plan] + [x.plan for x in sub_exprs]
+    while stack:
+        obj = stack.pop()
+        if id(obj) in seen:
+            continue
+        seen.add(id(obj))
+        if isinstance(obj, (list, tuple)):
+            stack.extend(obj)
+            continue
+        if not isinstance(obj, (pp.PhysicalPlan, lp.LogicalExpr,
+                                lp.LogicalPlan)):
+            continue
+        src = getattr(obj, "source", None)
+        if isinstance(obj, (pp.PScan, pp.PIndexScan)) and src is not None:
+            out.add(id(src))
+        stack.extend(v for v in vars(obj).values()
+                     if isinstance(v, (list, tuple, pp.PhysicalPlan,
+                                       lp.LogicalExpr, lp.LogicalPlan)))
+    return out
 
 
 def _ptrs(planes):

@@ -119,6 +119,103 @@ def encode_key_bytes(values: Sequence) -> bytes:
     return bytes(out)
 
 
+# numeric planes whose Python values (Column.to_pylist) are int, float or
+# bool: encoded straight from the plane
+_NUMERIC_KINDS = frozenset(
+    ("Boolean", "Int8", "Int16", "Int32", "Int64", "UInt8", "UInt16",
+     "UInt32", "UInt64", "Float32", "Float64")
+)
+_NULL_PART = np.frombuffer(struct.pack(">I", 1) + b"\x00", dtype=np.uint8)
+
+
+def _segments_gather(buf: np.ndarray, starts: np.ndarray,
+                     lens: np.ndarray) -> np.ndarray:
+    """The byte segments buf[starts[i]:starts[i]+lens[i]], concatenated."""
+    total = int(lens.sum())
+    dst_start = np.cumsum(lens) - lens
+    src = np.arange(total, dtype=np.int64) + np.repeat(starts - dst_start,
+                                                       lens)
+    return buf[src]
+
+
+def _encode_numeric(data: np.ndarray, valid: np.ndarray, kind: str,
+                    scale: int):
+    """(bytes, per-row lengths) of `encode_scalar_bytes` over a numeric
+    plane, length prefix included: the value widened to float64, the IEEE
+    sign flip, big-endian."""
+    if kind == "UInt64":
+        data = data.view(np.uint64)
+    f = data.astype(np.float64)
+    if scale:
+        f = f / (10 ** scale)
+    bits = f.view(np.uint64)
+    neg = (bits >> np.uint64(63)) == 1
+    bits = np.where(neg, ~bits, bits ^ np.uint64(1 << 63))
+    n = len(f)
+    mat = np.empty((n, 13), dtype=np.uint8)
+    mat[:, :5] = np.frombuffer(struct.pack(">I", 9) + b"\x01", np.uint8)
+    mat[:, 5:] = bits.astype(">u8").view(np.uint8).reshape(n, 8)
+    lens = np.full(n, 13, dtype=np.int64)
+    if valid.all():
+        return mat.reshape(-1), lens
+    mat[~valid, :5] = _NULL_PART
+    lens[~valid] = 5
+    keep = np.arange(13)[None, :] < lens[:, None]
+    return mat[keep], lens
+
+
+def _encode_by_value(col, data: np.ndarray, valid: np.ndarray):
+    """(bytes, per-row lengths) of `encode_scalar_bytes` for any other
+    column: each distinct plane value made a Python value once
+    (`Column.to_pylist`) and encoded once, then gathered by row."""
+    import torch
+
+    uniq, inv = np.unique(data[valid], return_inverse=True)
+    host = type(col)(torch.from_numpy(np.ascontiguousarray(uniq)),
+                     torch.ones(len(uniq), dtype=torch.bool), col.dtype,
+                     col.dictionary)
+    parts = [encode_key_bytes([v])
+             for v in host.to_pylist(len(uniq))] + [_NULL_PART.tobytes()]
+    table = np.frombuffer(b"".join(parts), dtype=np.uint8)
+    part_lens = np.asarray([len(p) for p in parts], dtype=np.int64)
+    part_starts = np.cumsum(part_lens) - part_lens
+    code = np.full(len(data), len(parts) - 1, dtype=np.int64)
+    code[valid] = inv.reshape(-1)
+    lens = part_lens[code]
+    return _segments_gather(table, part_starts[code], lens), lens
+
+
+def encode_key_columns(columns: Sequence, num_rows: int):
+    """`encode_key_bytes` of rows [0, num_rows) of the key columns, all at
+    once in numpy: (the keys' bytes back to back, uint64 offsets of
+    num_rows + 1). One host read of each column's planes; a numeric plane
+    never becomes Python values."""
+    parts = []
+    for col in columns:
+        data = col.data[:num_rows].cpu().numpy()
+        valid = col.validity[:num_rows].cpu().numpy().astype(bool)
+        kind = col.dtype.kind.value
+        if col.dictionary is None and kind in _NUMERIC_KINDS:
+            parts.append(_encode_numeric(data, valid, kind, 0))
+        elif col.dictionary is None and kind == "Decimal128" \
+                and col.dtype.params:
+            parts.append(_encode_numeric(data, valid, kind,
+                                         col.dtype.params[1]))
+        else:
+            parts.append(_encode_by_value(col, data, valid))
+    lens = sum(p[1] for p in parts)
+    offsets = np.zeros(num_rows + 1, dtype=np.uint64)
+    offsets[1:] = np.cumsum(lens)
+    out = np.empty(int(offsets[-1]), dtype=np.uint8)
+    pos = offsets[:-1].astype(np.int64)
+    for buf, plens in parts:
+        src_start = np.cumsum(plens) - plens
+        out[np.arange(len(buf), dtype=np.int64)
+            + np.repeat(pos - src_start, plens)] = buf
+        pos = pos + plens
+    return out.tobytes(), offsets
+
+
 class _NativeIndexBase(Index):
     _prefix = ""
     _has_range = False
@@ -166,6 +263,22 @@ class _NativeIndexBase(Index):
         row_arr = (ctypes.c_uint64 * n)(*rows)
         rc = getattr(self._lib, f"qe_{self._prefix}_bulk_insert")(
             self._handle, bytes(keys), off_arr, row_arr, n
+        )
+        if rc < 0:
+            raise IndexError_("unique constraint violation in bulk load")
+
+    def bulk_load_columns(self, columns: Sequence, num_rows: int,
+                          start_row: int = 0) -> None:
+        """The keys encoded in numpy (`encode_key_columns`) and inserted in
+        row order by one native call."""
+        if num_rows == 0:
+            return
+        keys, offsets = encode_key_columns(columns, num_rows)
+        rows = np.arange(start_row, start_row + num_rows, dtype=np.uint64)
+        p64 = ctypes.POINTER(ctypes.c_uint64)
+        rc = getattr(self._lib, f"qe_{self._prefix}_bulk_insert")(
+            self._handle, keys, offsets.ctypes.data_as(p64),
+            rows.ctypes.data_as(p64), num_rows,
         )
         if rc < 0:
             raise IndexError_("unique constraint violation in bulk load")

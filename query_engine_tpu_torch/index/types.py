@@ -90,3 +90,13 @@ class Index:
     def bulk_load(self, pairs: Sequence[Tuple[Sequence, int]]) -> None:
         for key, rid in pairs:
             self.insert(key, rid)
+
+    def bulk_load_columns(self, columns: Sequence, num_rows: int,
+                          start_row: int = 0) -> None:
+        """Insert rows [0, num_rows) of the key columns (columnar `Column`s,
+        one per key part) under row ids start_row + i: the keys as
+        `Column.to_pylist` gives them, one read of each plane."""
+        if num_rows == 0:
+            return
+        keys = zip(*[c.to_pylist(num_rows) for c in columns])
+        self.bulk_load(zip(keys, range(start_row, start_row + num_rows)))

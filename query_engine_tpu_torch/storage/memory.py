@@ -5,6 +5,12 @@ batch store + per-table IndexManager: create/drop B-Tree & Hash indexes,
 build from data with global row ids (:124-141), index_lookup /
 index_range_scan -> fetch_rows via take (:196-269), append keeps indexes
 updated (:277-302).
+
+The stored batch is never written in place: DML replaces it (`replace`,
+`append`), so a transaction's snapshot can hold the old one by reference.
+An index is built from whole key planes at once (`Index.bulk_load_columns`:
+the native indexes encode every key in numpy and take them in one call),
+not one Python insert a row.
 """
 
 from __future__ import annotations
@@ -21,10 +27,14 @@ from query_engine_tpu_torch.index.manager import IndexManager
 
 class MemoryDataSource:
     def __init__(self, batch: Optional[ColumnBatch] = None,
-                 schema: Optional[Schema] = None, name: str = ""):
+                 schema: Optional[Schema] = None, name: str = "",
+                 device="cpu"):
+        """A table from `batch`, or an empty one of `schema` whose planes
+        are made on `device`."""
         if batch is None and schema is None:
             raise StorageError("MemoryDataSource needs a batch or a schema")
-        self._batch = batch if batch is not None else ColumnBatch.empty(schema)
+        self._batch = batch if batch is not None \
+            else ColumnBatch.empty(schema, device=device)
         self.name = name
         self.indexes = IndexManager()
         # SERIAL column -> next auto-increment value (session DML fills)
@@ -73,11 +83,10 @@ class MemoryDataSource:
 
     def _insert_into_index(self, idx_name: str, columns: List[str],
                            batch: ColumnBatch, start_row: int) -> None:
-        """Walk rows with global row ids (memory.rs:124-141)."""
-        index = self.indexes.get(idx_name)
-        cols = [batch.column(c).to_pylist(batch.num_rows) for c in columns]
-        for i, key in enumerate(zip(*cols)):
-            index.insert(key, start_row + i)
+        """Rows with global row ids (memory.rs:124-141), all at once."""
+        cols = [batch.column(c) for c in columns]
+        self.indexes.get(idx_name).bulk_load_columns(
+            cols, batch.num_rows, start_row)
 
     def index_lookup(self, idx_name: str, key) -> np.ndarray:
         return np.asarray(self.indexes.get(idx_name).lookup(key), dtype=np.int64)
