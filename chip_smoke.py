@@ -169,6 +169,37 @@ Phase 11 runs the Session surface at SF1 on a Session of its own over
          launched in M5 and M7, if `index_add_` runs, or if allocated
          memory grows from round 2 to round 3 of M14 by more than
          M14_SLACK.
+Phase 12 runs the host services over the card on a Session of its own
+         over phase 7's host tables, after phase 11's is freed. 12a: a pgwire
+         server (`pgwire/server.py`) in a thread on 127.0.0.1, and 4 client
+         connections (`tests/torch_pg_wire.py`, over
+         `tests/pg_client.PgTestClient`) that each send the 22 TPC-H queries
+         by the simple protocol, connection i from query 5i mod 22 on: every
+         DataRow decoded by its type OID and held against the numpy oracle,
+         every RowDescription against the schema; each query alone 3 times
+         more, and in process through Session.sql. Then Q6 with $1-$3
+         parsed once, described, bound and executed with 5 sets of literals;
+         RF1 loaded by COPY orders / lineitem FROM STDIN, RF2 by DELETE ...
+         IN, then Q1, Q3 and Q18 on the edited tables; COPY nation and
+         supplier TO STDOUT against the host tables; BEGIN, DELETE, a bad
+         statement and ROLLBACK (ReadyForQuery T, T, T, E, I); SHOW TABLES,
+         DESCRIBE, information_schema, DECLARE and FETCH 25 over Q18; Q6
+         over a SCRAM-SHA-256 listener. Prints per query the wire ms (first,
+         warm with 4 connections, warm alone), Session.sql's warm ms, the
+         server's ms and its encoding's host ms, and group_agg's launches.
+         12b: lineitem streamed from a MemoryStreamSource in 92 batches of
+         2^16 rows into StreamingQuery(device="cuda") with the device
+         buffer; a clock that counts batches closes a tumbling window every
+         8 (12 windows, the last of 4), each window's Q1 against the oracle
+         over exactly its rows, upload_rows against its rows; then all 92
+         batches in one window (the table grows to 2^23 rows) against phase
+         7's Q1 oracle. 12c: `cli.main` query and bench over
+         GENERATE_SERIES(1, 2^23) (printed rows against numpy) and a Repl
+         over 12a's Session (.tables, .timing, Q1 parsed back). 12d: Flight
+         do_get Q1 and Q3 and a do_put table where pyarrow exists; else it
+         prints that Flight did not run. group_agg must launch in 12a (in
+         every query of TPCH_GROUP_AGG), 12b and 12c, every first-run call
+         held against the plain versions; no `index_add_` on the card.
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after; a kernel of the path that was not launched fails the run.
@@ -2058,6 +2089,778 @@ def phase11(tables):
             "index_builds": builds, "m14": mem14, "m14_off": mem_off}
 
 
+# ---- phase 12: the host services over the card ----------------------------
+PG_CONNECTIONS = 4
+PG_WARM_ALONE = 3      # warm runs of each query on one connection alone
+Q6_PARAM_SETS = (["1994-01-01", 0.06, 24], ["1993-01-01", 0.05, 25],
+                 ["1995-01-01", 0.07, 24], ["1996-01-01", 0.03, 30],
+                 ["1997-01-01", 0.08, 20])
+Q6_PARAM_OIDS = [1082, 701, 20]  # date, float8, int8
+PG_USER, PG_PASSWORD = "tpch", "sf1-secret"
+STREAM_BATCH = 1 << 16
+WINDOW_BATCHES = 8
+CLI_ROWS = 1 << 23
+CLI_QUERY = (f"SELECT x % 16 AS k, COUNT(*) AS n, SUM(x) AS s, MIN(x) AS lo "
+             f"FROM GENERATE_SERIES(1, {CLI_ROWS}) AS g(x) GROUP BY x % 16 "
+             "ORDER BY k")
+
+
+def _copy_text(t, row):
+    """One row of a host table as COPY's text renders it (str of the
+    Python value, a DATE in ISO form)."""
+    import datetime
+
+    from query_engine_tpu_torch.tpch.data import EPOCH
+
+    out = []
+    for f in t.fields:
+        v = t.columns[f.name][row]
+        kind = f.data_type.kind.value
+        if f.name in t.dicts:
+            out.append(str(t.dicts[f.name][v]))
+        elif kind == "Date32":
+            out.append(str(EPOCH + datetime.timedelta(days=int(v))))
+        elif kind.startswith("Float"):
+            out.append(str(float(v)))
+        else:
+            out.append(str(int(v)))
+    return "\t".join(out)
+
+
+def _oracle_equal(label, rows, want, keys=()):
+    from query_engine_tpu_torch.tpch import oracle
+
+    try:
+        return oracle.compare(rows, want, keys)
+    except AssertionError as e:
+        raise CheckFailed(f"{label}: differs from the numpy oracle: "
+                          f"{e}") from None
+
+
+def _read_paths_ms(batch, reps=5):
+    """Host ms (medians of `reps`) of reading `batch` to Python values in
+    one packed transfer (`host_pylists`, the one path) and a column at a
+    time (`Column.to_pylist`, two transfers a column); the two must
+    agree."""
+    def timed(read):
+        walls = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            vals = read()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        return vals, statistics.median(walls)
+
+    packed, packed_ms = timed(batch.host_pylists)
+    per_col, per_col_ms = timed(lambda: [c.to_pylist(batch.num_rows)
+                                         for c in batch.columns])
+    check(packed == per_col, "phase 12a: the packed read differs from the "
+          "column-at-a-time read")
+    return packed_ms, per_col_ms
+
+
+@contextlib.contextmanager
+def _server_records(sess, server_mod):
+    """While open, each statement the Session executes (in the server's
+    thread) is recorded by its SQL text: its ms (host clock to the end of
+    torch.cuda.synchronize()), its group_agg launches, and the host ms and
+    rows of the encoding of its result into DataRows."""
+    import torch
+
+    from query_engine_tpu_torch.ops import group_agg
+
+    records = collections.defaultdict(list)
+    last = {"rec": None}
+    real_exec, real_enc = sess.execute_statement, server_mod.batch_to_data_rows
+
+    def recorded(stmt, sql_text=""):
+        n0 = group_agg.launches
+        t0 = time.perf_counter()
+        out = real_exec(stmt, sql_text=sql_text)
+        if sess.device.type == "cuda":
+            torch.cuda.synchronize()
+        rec = {"ms": (time.perf_counter() - t0) * 1e3,
+               "group_agg": group_agg.launches - n0, "encode_ms": None}
+        records[sql_text].append(rec)
+        last["rec"] = rec
+        return out
+
+    def encoded(batch):
+        t0 = time.perf_counter()
+        rows = real_enc(batch)
+        rec, last["rec"] = last["rec"], None
+        if rec is not None:
+            rec["encode_ms"] = (time.perf_counter() - t0) * 1e3
+        return rows
+
+    sess.execute_statement = recorded
+    server_mod.batch_to_data_rows = encoded
+    try:
+        yield records
+    finally:
+        del sess.execute_statement
+        server_mod.batch_to_data_rows = real_enc
+
+
+def phase12a(tables, sess):
+    """pgwire over the card's Session: the 22 TPC-H queries from 4
+    connections, Q6 by the extended protocol, RF1 by COPY FROM and RF2 by
+    DELETE, COPY TO, a transaction, the catalog, a cursor and SCRAM."""
+    import concurrent.futures
+
+    from query_engine_tpu_torch.pgwire import server as pg
+    from query_engine_tpu_torch.pgwire.auth import AuthConfig, AuthMethod
+    from query_engine_tpu_torch.pgwire.result import type_oid
+    from query_engine_tpu_torch.tpch import oracle, queries, refresh
+    # the test helpers, from this checkout's tests/ (a `tests` package
+    # elsewhere on the path may shadow the directory)
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tests"))
+    from pg_client import PgTestClient
+    from torch_pg_wire import ServerThread, WireClient
+
+    t0 = time.perf_counter()
+    wants = {q: oracle.run(q, tables) for q in queries.QUERIES}
+    oracle_s = time.perf_counter() - t0
+    names = list(queries.QUERIES)
+    server = pg.PgServer(sess, "127.0.0.1", 0)
+    auth_server = pg.PgServer(sess, "127.0.0.1", 0, auth=AuthConfig(
+        AuthMethod.SCRAM_SHA_256, {PG_USER: PG_PASSWORD}))
+    held, spy = [], IndexAddSpy()
+    out = {"queries": {}, "held": held}
+
+    def run_query(c, q, want=None):
+        """(send time, wire ms, RowDescription fields, rows) of one query,
+        its rows held against the oracle."""
+        t_send = time.perf_counter()
+        msgs = c.query_raw(queries.QUERIES[q])
+        wire = (time.perf_counter() - t_send) * 1e3
+        fields, rows, tags = c.typed(msgs)
+        _oracle_equal(f"phase 12a: {q} over the wire", rows,
+                      wants[q] if want is None else want,
+                      oracle.FLOAT_SORT_KEYS.get(q, ()))
+        check(tags == [f"SELECT {len(rows)}"], f"phase 12a: {q}: {tags}")
+        return t_send, wire, fields, len(rows)
+
+    def connection(i):
+        """Connection i sends all the queries, from the (5i mod 22)-th on,
+        so first runs and warm runs interleave across connections."""
+        order = [names[(5 * i + k) % len(names)] for k in range(len(names))]
+        c = WireClient("127.0.0.1", srv.ports[0])
+        try:
+            return [(q,) + run_query(c, q) for q in order]
+        finally:
+            c.close()
+
+    reset_counts()
+    srv = ServerThread(server, auth_server).start()
+    try:
+        with spy.active(), group_agg_held_against_plain(held, spy), \
+                _server_records(sess, pg) as records:
+            t0 = time.perf_counter()
+            with concurrent.futures.ThreadPoolExecutor(PG_CONNECTIONS) as ex:
+                futures = [ex.submit(connection, i)
+                           for i in range(PG_CONNECTIONS)]
+                per_conn = [f.result() for f in futures]
+            concurrent_s = time.perf_counter() - t0
+            c = WireClient("127.0.0.1", srv.ports[0])
+            alone = {q: [run_query(c, q)[1] for _ in range(PG_WARM_ALONE)]
+                     for q in names}
+            wire_recs = {q: list(records[queries.QUERIES[q]])
+                         for q in names}
+            # the same Session in this process, under its lock
+            in_proc, schemas, reads = {}, {}, {}
+            with sess.lock:
+                for q in names:
+                    walls = []
+                    for _ in range(3):
+                        t1 = time.perf_counter()
+                        res = sess.sql(queries.QUERIES[q])
+                        res.to_pylist()
+                        walls.append((time.perf_counter() - t1) * 1e3)
+                    in_proc[q] = statistics.median(walls)
+                    schemas[q] = [(f.name.rsplit(".", 1)[-1],
+                                   type_oid(f.data_type)) for f in res.schema]
+                    reads[q] = _read_paths_ms(res)
+            runs = collections.defaultdict(list)
+            for conn in per_conn:
+                for q, t_send, wire, fields, n in conn:
+                    check(fields == schemas[q], f"phase 12a: {q}: "
+                          f"RowDescription {fields} != the schema's "
+                          f"{schemas[q]}")
+                    runs[q].append((t_send, wire, n))
+            for q in names:
+                recs = wire_recs[q]
+                first = min(runs[q])
+                warm = [w for t, w, n in runs[q] if (t, w, n) != first]
+                r = out["queries"][q] = {
+                    "rows": first[2], "first_wire_ms": first[1],
+                    "warm_wire_ms_concurrent": statistics.median(warm),
+                    "warm_wire_ms_alone": statistics.median(alone[q]),
+                    "session_sql_warm_ms": in_proc[q],
+                    "server_first_ms": recs[0]["ms"],
+                    "server_warm_ms": statistics.median(
+                        x["ms"] for x in recs[1:]),
+                    "encode_ms": statistics.median(
+                        x["encode_ms"] for x in recs),
+                    "group_agg": sum(x["group_agg"] for x in recs),
+                    "read_ms_packed": reads[q][0],
+                    "read_ms_per_column": reads[q][1]}
+                print(f"phase 12a: {q}: {r['rows']} rows == numpy oracle on "
+                      f"all {len(recs)} wire runs; wire first "
+                      f"{r['first_wire_ms']:.3f} ms, warm "
+                      f"{r['warm_wire_ms_concurrent']:.3f} ms with "
+                      f"{PG_CONNECTIONS} connections, "
+                      f"{r['warm_wire_ms_alone']:.3f} ms alone; Session.sql "
+                      f"warm {r['session_sql_warm_ms']:.3f} ms in process; "
+                      f"server first {r['server_first_ms']:.3f} ms, warm "
+                      f"{r['server_warm_ms']:.3f} ms, encoding "
+                      f"{r['encode_ms']:.3f} ms (host); the result's "
+                      f"read to Python {r['read_ms_packed']:.3f} ms packed, "
+                      f"{r['read_ms_per_column']:.3f} ms a column at a time"
+                      f"; group_agg {r['group_agg']}")
+            print(f"phase 12a: the 22 results read to Python: "
+                  f"{sum(x[0] for x in reads.values()):.3f} ms packed (one "
+                  f"transfer each), "
+                  f"{sum(x[1] for x in reads.values()):.3f} ms a column at "
+                  f"a time (two transfers a column), medians of 5")
+            print(f"phase 12a: {PG_CONNECTIONS} connections x {len(names)} "
+                  f"queries, each connection starting 5 queries on, in "
+                  f"{concurrent_s:.2f} s; RowDescription names and OIDs == "
+                  f"the schema's; oracles {oracle_s:.2f} s before")
+
+            # Q6 by the extended protocol: Parse once, Describe, 5 Binds
+            c.parse("q6", refresh.Q6_PARAM, Q6_PARAM_OIDS)
+            c.describe("S", "q6")
+            described = c.sync()
+            tags = [t for t, _ in described]
+            check(tags == [b"1", b"t", b"T", b"Z"], f"phase 12a: Q6 Parse "
+                  f"and Describe gave {tags}")
+            p_oids = WireClient.parameter_oids(described[1][1])
+            fields = c.typed(described)[0]
+            check(p_oids == Q6_PARAM_OIDS and fields == [("revenue", 701)],
+                  f"phase 12a: Q6 Describe: parameters {p_oids}, fields "
+                  f"{fields}")
+            ext_ms = []
+            for params in Q6_PARAM_SETS:
+                t1 = time.perf_counter()
+                c.bind("q6", params)
+                c.execute()
+                got = c.sync()
+                ext_ms.append((time.perf_counter() - t1) * 1e3)
+                _, rows, _ = c.typed([described[2]] + got)
+                _oracle_equal(f"phase 12a: Q6 with {params}", rows,
+                              refresh.q6_rows(tables, *params))
+            print(f"phase 12a: Q6 with $1-$3 parsed once; Describe gives "
+                  f"parameter OIDs {p_oids}, fields {fields}; 5 Bind/Execute "
+                  f"== oracle in {[round(x, 3) for x in ext_ms]} ms")
+
+            # RF1 by COPY FROM STDIN, RF2 by DELETE, then Q1, Q3, Q18
+            st = refresh.State(dict(tables))
+            count = refresh.refresh_count(tables["lineitem"].num_rows)
+            rf = refresh.make_rf1(st, count, RF_SEED + 40)
+            copy_ms = {}
+            for name, t in (("orders", rf.orders), ("lineitem", rf.lineitem)):
+                lines = [_copy_text(t, r) for r in range(t.num_rows)]
+                t1 = time.perf_counter()
+                tag = c.copy_in(f"COPY {name} FROM STDIN", lines)
+                copy_ms[name] = (time.perf_counter() - t1) * 1e3
+                check(tag == f"COPY {t.num_rows}", f"phase 12a: COPY {name} "
+                      f"FROM STDIN gave {tag}")
+            refresh.apply_rf1(st, rf)
+            keys = refresh.rf2_keys(st, count)
+            n_li = refresh.rf2_lineitems(st, keys)
+            rf2_ms = []
+            for column, table, want in (("l_orderkey", "lineitem", n_li),
+                                        ("o_orderkey", "orders", len(keys))):
+                t1 = time.perf_counter()
+                _, _, tags = c.typed_query(f"DELETE FROM {table} WHERE "
+                                           + refresh.in_list(column, keys))
+                rf2_ms.append((time.perf_counter() - t1) * 1e3)
+                check(tags == [f"DELETE {want}"], f"phase 12a: RF2 on {table}"
+                      f" gave {tags}, not DELETE {want}")
+            refresh.apply_rf2(st, keys)
+            after = {}
+            for q in refresh.AFTER_REFRESH:
+                after[q] = round(run_query(c, q, oracle.run(q, st.tables))[1],
+                                 3)
+            print(f"phase 12a: RF1 by COPY FROM STDIN: {rf.orders.num_rows} "
+                  f"orders in {copy_ms['orders']:.1f} ms, "
+                  f"{rf.lineitem.num_rows} lineitems in "
+                  f"{copy_ms['lineitem']:.1f} ms (wire; each parsed as one "
+                  f"INSERT ... VALUES); RF2: DELETE lineitem ({n_li}) "
+                  f"{rf2_ms[0]:.1f} ms, orders ({len(keys)}) "
+                  f"{rf2_ms[1]:.1f} ms; Q1, Q3, Q18 == oracle on the edited "
+                  f"tables, wire ms {after}")
+            out.update(copy_ms=copy_ms, rf2_ms=rf2_ms, after_ms=after,
+                       copy_rows=(rf.orders.num_rows, rf.lineitem.num_rows),
+                       state=st)
+
+            # COPY TO STDOUT against the host tables
+            for name in ("nation", "supplier"):
+                t = tables[name]
+                t1 = time.perf_counter()
+                lines, tag = c.copy_out(f"COPY {name} TO STDOUT")
+                ms = (time.perf_counter() - t1) * 1e3
+                check(tag == f"COPY {t.num_rows}" and lines == [
+                    _copy_text(t, r) for r in range(t.num_rows)],
+                    f"phase 12a: COPY {name} TO STDOUT gave {tag} and lines "
+                    "that differ from the host table's")
+                print(f"phase 12a: COPY {name} TO STDOUT: {len(lines)} lines "
+                      f"== the host table's rows, {ms:.1f} ms")
+
+            # a transaction over the wire, and errors
+            status = []
+            for sql in ("BEGIN", "DELETE FROM nation WHERE n_nationkey = 0",
+                        "SELECT COUNT(*) FROM nation"):
+                _, rows, _ = c.typed_query(sql)
+                status.append(c.last_txn_status)
+            inside = rows
+            try:
+                c.typed_query("SELECT * FROM no_such_table")
+                raise CheckFailed("phase 12a: a bad statement gave no "
+                                  "ErrorResponse")
+            except RuntimeError:
+                status.append(c.last_txn_status)
+            c.typed_query("ROLLBACK")
+            status.append(c.last_txn_status)
+            _, rows, _ = c.typed_query("SELECT COUNT(*) FROM nation")
+            check(status == [b"T", b"T", b"T", b"E", b"I"]
+                  and inside == [(24,)] and rows == [(25,)],
+                  f"phase 12a: transaction: ReadyForQuery {status}, nation "
+                  f"{inside} inside and {rows} after ROLLBACK")
+            try:
+                c.typed_query("SELEC 1")
+                raise CheckFailed("phase 12a: a syntax error gave no "
+                                  "ErrorResponse")
+            except RuntimeError as e:
+                err = str(e)
+            _, rows, _ = c.typed_query("SELECT 21 * 2")
+            check(rows == [(42,)] and c.last_txn_status == b"I",
+                  "phase 12a: the connection is not usable after an error")
+            print(f"phase 12a: BEGIN, DELETE, a bad statement, ROLLBACK: "
+                  f"ReadyForQuery {[x.decode() for x in status]}, nation 24 "
+                  f"rows inside and 25 after; a syntax error gives an "
+                  f"ErrorResponse ({err[:60]!r}) and the connection answers "
+                  f"the next query")
+
+            # the catalog, and a cursor over Q18's rows
+            _, rows, _ = c.typed_query("SHOW TABLES")
+            shown = {r[0] for r in rows}
+            check(set(tables) <= shown, f"phase 12a: SHOW TABLES {shown}")
+            _, rows, _ = c.typed_query("DESCRIBE lineitem")
+            check([r[0] for r in rows]
+                  == [f.name for f in tables["lineitem"].fields],
+                  f"phase 12a: DESCRIBE lineitem {rows}")
+            described_li = rows
+            _, rows, _ = c.typed_query(
+                "SELECT * FROM information_schema.columns "
+                "WHERE table_name = 'orders'")
+            check([r[2] for r in rows]
+                  == [f.name for f in tables["orders"].fields],
+                  f"phase 12a: information_schema.columns {rows}")
+            c.typed_query(f"DECLARE c18 CURSOR FOR {queries.QUERIES['Q18']}")
+            fetched, pages = [], 0
+            while True:
+                _, rows, _ = c.typed_query("FETCH 25 FROM c18")
+                if not rows:
+                    break
+                fetched += rows
+                pages += 1
+            c.typed_query("CLOSE c18")
+            _oracle_equal("phase 12a: Q18 through DECLARE and FETCH 25",
+                          fetched, oracle.run("Q18", st.tables))
+            print(f"phase 12a: SHOW TABLES ({len(shown)}), DESCRIBE lineitem "
+                  f"({[tuple(r[1:]) for r in described_li[:2]]} ...), "
+                  f"information_schema.columns of orders; DECLARE and "
+                  f"{pages} FETCH 25 over Q18: {len(fetched)} rows == oracle")
+            c.close()
+
+            # SCRAM-SHA-256 on a second listener over the same Session
+            a = PgTestClient("127.0.0.1", srv.ports[1], user=PG_USER,
+                             password=PG_PASSWORD)
+            _, rows, _ = a.query(queries.QUERIES["Q6"])
+            a.close()
+            _oracle_equal("phase 12a: Q6 over SCRAM", [(float(rows[0][0]),)],
+                          oracle.run("Q6", st.tables))
+            try:
+                PgTestClient("127.0.0.1", srv.ports[1], user=PG_USER,
+                             password="wrong")
+                raise CheckFailed("phase 12a: SCRAM took a wrong password")
+            except (RuntimeError, ConnectionError):
+                pass
+            print("phase 12a: a SCRAM-SHA-256 connection answers Q6 == "
+                  "oracle; a wrong password is refused")
+            launches = collections.Counter()
+            for text, recs in records.items():
+                q = next((k for k in names if queries.QUERIES[k] == text),
+                         "other")
+                launches[q] += sum(x["group_agg"] for x in recs)
+    finally:
+        srv.stop()
+    check(not spy.calls, f"phase 12a: {spy.calls} index_add_ calls on the "
+          "card")
+    if sess.device.type == "cuda":
+        for q in TPCH_GROUP_AGG:
+            check(launches[q] > 0, f"phase 12a: {q}: group_agg did not launch")
+        check(held, "phase 12a: no group_agg call was held against the "
+              "plain versions")
+    print(f"phase 12a: group_agg launches {dict(launches)}; "
+          f"{len(held)} calls held against the plain versions, max abs err "
+          f"against float64 summation "
+          f"{max((x['max_abs_err'] for x in held), default=0.0):.6g}")
+    out["launches"] = dict(launches)
+    return out
+
+
+def _stream_batches(t, rows):
+    """`t` (a host table) as batches of `rows` rows on the host, each with
+    its own dictionaries: the values present in it, sorted, as a producer
+    would encode them."""
+    from query_engine_tpu_torch.columnar.batch import padded_capacity
+    from query_engine_tpu_torch.columnar.convert import from_numpy_batch
+
+    out = []
+    for lo in range(0, t.num_rows, rows):
+        n = min(rows, t.num_rows - lo)
+        cap = padded_capacity(n)
+        valid = np.arange(cap) < n
+        planes = []
+        for f in t.fields:
+            src = t.columns[f.name][lo:lo + n]
+            dictionary = None
+            if f.name in t.dicts:
+                used = np.unique(src)
+                dictionary = t.dicts[f.name][used]
+                src = np.searchsorted(used, src).astype(np.int32)
+            data = np.zeros(cap, dtype=f.data_type.device_dtype)
+            data[:n] = src
+            planes.append((data, valid, dictionary))
+        out.append(from_numpy_batch(t.fields, planes, n, "cpu"))
+    return out
+
+
+def _window_table(t, lo, hi):
+    from query_engine_tpu_torch.tpch.data import HostTable
+
+    return HostTable(t.name, t.fields, {k: v[lo:hi]
+                                        for k, v in t.columns.items()},
+                     t.dicts, hi - lo)
+
+
+def phase12b(tables, dev):
+    """Lineitem streamed in batches of 2^16 rows: tumbling windows of 8
+    batches, each window's Q1 against the oracle over its rows; then one
+    window over the whole stream."""
+    import torch
+
+    from query_engine_tpu_torch.columnar.batch import padded_capacity
+    from query_engine_tpu_torch.ops import group_agg
+    from query_engine_tpu_torch.streaming.source import MemoryStreamSource
+    from query_engine_tpu_torch.streaming.stream import (
+        StreamConfig, StreamingQuery,
+    )
+    from query_engine_tpu_torch.streaming.window import WindowSpec, WindowType
+    from query_engine_tpu_torch.tpch import oracle, queries
+
+    li = tables["lineitem"]
+    t0 = time.perf_counter()
+    batches = _stream_batches(li, STREAM_BATCH)
+    build_s = time.perf_counter() - t0
+    q1 = queries.QUERIES["Q1"]
+
+    class BatchClock:
+        """Time = the batches pulled: a window of `WINDOW_BATCHES` seconds
+        closes every WINDOW_BATCHES batches."""
+        t = 0.0
+
+        def __call__(self):
+            return self.t
+
+    class Source(MemoryStreamSource):
+        def __init__(self, batches, clock):
+            super().__init__(batches, "lineitem")
+            self.clock = clock
+
+        def next_batch(self, timeout=None):
+            b = super().next_batch(timeout)
+            self.clock.t += b is not None
+            return b
+
+    def stream(window):
+        clock = BatchClock()
+        sq = StreamingQuery(Source(batches, clock), StreamConfig(
+            batch_size=STREAM_BATCH, window=window), query=q1,
+            table_name="lineitem", clock=clock, device=dev)
+        emitted = []
+        real = sq._emit_window
+
+        def emit():
+            t = sq._dev_table
+            s = sq._session
+            before = dict(s.executor.pipeline.stats) if s else {}
+            rec = {"upload_rows": t.upload_rows, "dict_merges": t.dict_merges,
+                   "group_agg": group_agg.launches, "rows": t.num_rows,
+                   "batches": clock.t}
+            t1 = time.perf_counter()
+            real()
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            rec["ms"] = (time.perf_counter() - t1) * 1e3
+            after = sq._session.executor.pipeline.stats
+            rec["stats"] = {k: after[k] - before.get(k, 0) for k in
+                            ("compiles", "hits", "captures", "replays")}
+            rec["group_agg"] = group_agg.launches - rec["group_agg"]
+            if dev.type == "cuda":
+                rec["mem"] = (torch.cuda.memory_allocated(),
+                              torch.cuda.memory_reserved())
+            emitted.append(rec)
+
+        sq._emit_window = emit
+        return sq, emitted
+
+    held, spy = [], IndexAddSpy()
+    reset_counts()
+    with spy.active(), group_agg_held_against_plain(held, spy):
+        sq, emitted = stream(WindowSpec(WindowType.TUMBLING,
+                                        size_secs=WINDOW_BATCHES))
+        t0 = time.perf_counter()
+        results = sq.run()
+        stream_s = time.perf_counter() - t0
+        check(len(results) == len(emitted) == -(-len(batches)
+                                                // WINDOW_BATCHES),
+              f"phase 12b: {len(results)} windows from {len(batches)} "
+              "batches")
+        prev_upload, prev_merges, done = 0, 0, 0
+        for w, (res, rec) in enumerate(zip(results, emitted)):
+            nb = min(WINDOW_BATCHES, len(batches) - done)
+            lo = done * STREAM_BATCH
+            hi = min(lo + nb * STREAM_BATCH, li.num_rows)
+            want = oracle.run("Q1", {"lineitem": _window_table(li, lo, hi)})
+            _oracle_equal(f"phase 12b: window {w} (batches {done}-"
+                          f"{done + nb - 1})", res.to_pylist(), want)
+            uploaded = rec["upload_rows"] - prev_upload
+            check(uploaded == hi - lo == rec["rows"],
+                  f"phase 12b: window {w}: upload_rows {uploaded}, rows "
+                  f"{rec['rows']}, batch rows {hi - lo}")
+            mem = ("" if "mem" not in rec else
+                   f"; allocated (reserved) {_mib(rec['mem'][0])} "
+                   f"({_mib(rec['mem'][1])})")
+            print(f"phase 12b: window {w}: {nb} batches, {hi - lo} rows == "
+                  f"upload_rows {uploaded}; Q1 == oracle, {rec['ms']:.3f} ms;"
+                  f" dict_merges {rec['dict_merges'] - prev_merges}; "
+                  f"pipeline {rec['stats']}; group_agg {rec['group_agg']}"
+                  f"{mem}")
+            prev_upload, prev_merges = rec["upload_rows"], rec["dict_merges"]
+            done += nb
+        windows = emitted
+        t_cap = sq._dev_table.capacity
+
+        # one window over the whole stream: the table grows to 2^23 rows
+        sq2, emitted2 = stream(None)
+        t0 = time.perf_counter()
+        whole = sq2.run()
+        whole_s = time.perf_counter() - t0
+        table = sq2._dev_table
+        _oracle_equal("phase 12b: Q1 over the whole stream", whole[0]
+                      .to_pylist(), oracle.run("Q1", tables))
+        check(table.upload_rows == li.num_rows and table.capacity
+              == padded_capacity(len(batches) * STREAM_BATCH),
+              f"phase 12b: whole stream uploaded {table.upload_rows} rows "
+              f"into capacity {table.capacity}")
+        print(f"phase 12b: one window over all {len(batches)} batches: Q1 == "
+              f"phase 7's oracle; the device table grew from "
+              f"2^{STREAM_BATCH.bit_length() - 1} to "
+              f"2^{table.capacity.bit_length() - 1} rows, "
+              f"{_mib(table.nbytes)} on the device; upload_rows "
+              f"{table.upload_rows}, upload_bytes {table.upload_bytes}, "
+              f"dict_merges {table.dict_merges}, appends {table.appends}; "
+              f"the run {whole_s:.2f} s, Q1 {emitted2[0]['ms']:.3f} ms, "
+              f"pipeline {emitted2[0]['stats']}, group_agg "
+              f"{emitted2[0]['group_agg']}")
+    launches = sum(r["group_agg"] for r in windows + emitted2)
+    check(not spy.calls, f"phase 12b: {spy.calls} index_add_ calls on the "
+          "card")
+    if dev.type == "cuda":
+        check(launches > 0 and held, f"phase 12b: group_agg launched "
+              f"{launches} times, {len(held)} calls held")
+    print(f"phase 12b: {len(windows)} tumbling windows of {WINDOW_BATCHES} "
+          f"batches ({STREAM_BATCH} rows each, capacity {t_cap}) in "
+          f"{stream_s:.2f} s, batches built on the host in {build_s:.2f} s; "
+          f"group_agg launches {launches}; {len(held)} calls held against "
+          f"the plain versions")
+    return {"windows": windows, "whole": emitted2, "launches": launches,
+            "held": held, "table_bytes": table.nbytes}
+
+
+def _rendered_rows(text):
+    """The cells of a table as cli/format.py renders it."""
+    lines = [ln for ln in text.splitlines() if ln.startswith("| ")]
+    return [[c.strip() for c in ln.strip("|").split("|")] for ln in lines[1:]]
+
+
+def _typed_like(cells, want):
+    out = []
+    for row, w in zip(cells, want):
+        out.append(tuple(None if c == "NULL" else type(v)(c)
+                         for c, v in zip(row, w)))
+    return out
+
+
+def phase12c(sess, st, dev):
+    """The CLI's query and bench over GENERATE_SERIES(1, 2^23), and a REPL
+    over phase 12a's Session."""
+    import io
+
+    from query_engine_tpu_torch.cli import main as cli
+    from query_engine_tpu_torch.cli.repl import Repl
+    from query_engine_tpu_torch.ops import group_agg
+    from query_engine_tpu_torch.tpch import oracle, queries
+
+    x = np.arange(1, CLI_ROWS + 1, dtype=np.int64)
+    k = x % 16
+    want = [(int(g), int((k == g).sum()), int(x[k == g].sum()),
+             int(x[k == g].min())) for g in range(16)]
+    held, spy = [], IndexAddSpy()
+    out = {}
+    with spy.active(), group_agg_held_against_plain(held, spy):
+        for cmd in ("query", "bench"):
+            argv = [cmd, "--device", dev.type, "-s", CLI_QUERY]
+            if cmd == "bench":
+                argv += ["-n", "5"]
+            buf = io.StringIO()
+            reset_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main(argv)
+            ms = (time.perf_counter() - t0) * 1e3
+            text = buf.getvalue()
+            check(rc == 0, f"phase 12c: cli {cmd} exited {rc}")
+            out[cmd] = {"ms": ms, "group_agg": group_agg.launches}
+            if cmd == "query":
+                got = _typed_like(_rendered_rows(text), want)
+                check(got == want, f"phase 12c: cli query printed {got[:3]}"
+                      f" ..., numpy gives {want[:3]} ...")
+                print(f"phase 12c: cli query --device {dev.type}: the 16 rows"
+                      f" printed == numpy over GENERATE_SERIES(1, {CLI_ROWS})"
+                      f"; {ms:.1f} ms for the command (a Session of its own, "
+                      f"first run); group_agg {out[cmd]['group_agg']}")
+            else:
+                stats = {ln.split(":")[0].strip(): ln.split(":")[1].strip()
+                         for ln in text.splitlines() if ":" in ln}
+                check("Median" in stats and "Throughput" in stats,
+                      f"phase 12c: cli bench printed {text!r}")
+                out[cmd]["printed"] = stats
+                print(f"phase 12c: cli bench --device {dev.type} -n 5: "
+                      f"{stats}; group_agg {out[cmd]['group_agg']} (the "
+                      f"warm-up's first run and capture)")
+        r = Repl(session=sess)
+        tables_txt = r.handle(".tables")
+        check(set(st.tables) <= set(tables_txt.splitlines()),
+              f"phase 12c: .tables gave {tables_txt!r}")
+        check(r.handle(".timing") == "timing on", "phase 12c: .timing")
+        want_q1 = oracle.run("Q1", st.tables)
+        reset_counts()
+        text = r.handle(queries.QUERIES["Q1"])
+        out["repl"] = {"group_agg": group_agg.launches}
+        got = _typed_like(_rendered_rows(text), want_q1)
+        _oracle_equal("phase 12c: the REPL's Q1", got, want_q1)
+        check("Time:" in text, "phase 12c: the REPL printed no Time: line")
+        print(f"phase 12c: REPL over phase 12a's Session: .tables lists the "
+              f"{len(st.tables)} tables, .timing on, Q1's rendered rows "
+              f"parsed back == oracle on the edited tables; "
+              f"{text.splitlines()[-1]}; group_agg "
+              f"{out['repl']['group_agg']}")
+    check(not spy.calls, f"phase 12c: {spy.calls} index_add_ calls on the "
+          "card")
+    if dev.type == "cuda":
+        check(out["query"]["group_agg"] > 0 and held, "phase 12c: group_agg "
+              "did not launch at 2^23 rows")
+    out["held"] = held
+    out["launches"] = sum(out[k]["group_agg"]
+                          for k in ("query", "bench", "repl"))
+    return out
+
+
+def phase12d(sess, st):
+    """Flight over the card's Session where pyarrow exists."""
+    import importlib.util
+
+    from query_engine_tpu_torch.tpch import oracle, queries
+
+    found = importlib.util.find_spec("pyarrow") is not None
+    print(f"phase 12d: pyarrow {'found' if found else 'not found'} on this "
+          f"machine")
+    if not found:
+        print("flight: not run (no pyarrow on this machine)")
+        return {"ran": False}
+    from query_engine_tpu_torch.columnar.batch import ColumnBatch
+    from query_engine_tpu_torch.core.config import FlightConfig
+    from query_engine_tpu_torch.flight.client import FlightClient
+    from query_engine_tpu_torch.flight.server import FlightServer
+
+    server = FlightServer(FlightConfig(host="127.0.0.1", port=0), sess)
+    thread = server.start_background()
+    try:
+        client = FlightClient(f"grpc://127.0.0.1:{server.port}")
+        ms = {}
+        for q in ("Q1", "Q3"):
+            t0 = time.perf_counter()
+            rows = client.execute_sql(queries.QUERIES[q]).to_pylist()
+            ms[q] = (time.perf_counter() - t0) * 1e3
+            _oracle_equal(f"phase 12d: {q} through do_get", rows,
+                          oracle.run(q, st.tables),
+                          oracle.FLOAT_SORT_KEYS.get(q, ()))
+        put = {"k": list(range(1000)), "v": [i * 0.5 for i in range(1000)]}
+        client.upload_table("flight_put", ColumnBatch.from_pydict(put))
+        got = client.execute_sql("SELECT COUNT(*), SUM(k), SUM(v) FROM "
+                                 "flight_put").to_pylist()
+        check(got == [(1000, sum(put["k"]), sum(put["v"]))],
+              f"phase 12d: the do_put table read back {got}")
+        client.close()
+    finally:
+        server.shutdown()
+        thread.join(30)
+    print(f"phase 12d: Flight do_get Q1, Q3 == oracle ({ms} ms); a do_put "
+          f"table of 1000 rows read back")
+    return {"ran": True, "ms": ms}
+
+
+def phase12(tables, dev=None):
+    """The host services over the card, on a Session of its own over phase
+    7's host tables."""
+    import gc
+
+    import torch
+
+    from query_engine_tpu_torch.engine.session import Session
+    from query_engine_tpu_torch.tpch import data
+
+    dev = torch.device("cuda") if dev is None else torch.device(dev)
+    t_phase = time.perf_counter()
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    sess = Session(device=dev)
+    data.register(sess, tables)
+    a = phase12a(tables, sess)
+    t1 = time.perf_counter()
+    b = phase12b(tables, dev)
+    t2 = time.perf_counter()
+    c = phase12c(sess, a["state"], dev)
+    t3 = time.perf_counter()
+    d = phase12d(sess, a["state"])
+    del sess
+    gc.collect()
+    print(f"phase 12: 12a {t1 - t_phase:.1f} s, 12b {t2 - t1:.1f} s, 12c "
+          f"{t3 - t2:.1f} s, 12d {time.perf_counter() - t3:.1f} s")
+    held = a["held"] + b["held"] + c["held"]
+    return {"launches": {"12a": sum(a["launches"].values()),
+                         "12b": b["launches"], "12c": c["launches"]},
+            "max_abs_err": max((x["max_abs_err"] for x in held),
+                               default=0.0),
+            "flight": d["ran"]}
+
+
 def main():
     import torch
 
@@ -2087,6 +2890,7 @@ def main():
         # phase 11 runs on a Session of its own: free the earlier ones
         del sf1_sess, tables
         session_surface = phase11(sf1_tables)
+        services = phase12(sf1_tables)
     except CheckFailed as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -2099,6 +2903,7 @@ def main():
     scalar_by_query = {q: r["group_agg"] for q, r in scalar_fns.items()}
     ordered_by_query = {q: r["group_agg"] for q, r in ordered_sets.items()}
     surface_by_group = session_surface["launches"]
+    services_by_part = services["launches"]
     tpch_err = max((c["max_abs_err"] for calls in tpch_held.values()
                     for c in calls), default=0.0)
     print(json.dumps({"kernels": [{
@@ -2108,13 +2913,16 @@ def main():
         "replaces": "query_engine_tpu/ops/pallas/group_agg.py:74",
         "launches": agg_launches + tpch_launches
         + sum(windows_by_query.values()) + sum(scalar_by_query.values())
-        + sum(ordered_by_query.values()) + sum(surface_by_group.values()),
+        + sum(ordered_by_query.values()) + sum(surface_by_group.values())
+        + sum(services_by_part.values()),
         "launches_by_phase": {"4": agg_launches, "7": tpch_by_query,
                               "8": windows_by_query, "9": scalar_by_query,
                               "10": ordered_by_query,
-                              "11": surface_by_group},
+                              "11": surface_by_group,
+                              "12": services_by_part},
         "max_abs_err": max_err["plain"],
-        "max_abs_err_vs_float64": {"1": max_err["float64"], "7": tpch_err},
+        "max_abs_err_vs_float64": {"1": max_err["float64"], "7": tpch_err,
+                                   "12": services["max_abs_err"]},
         "ms": main_shape["ms"],
         "plain_ms": main_shape["plain_ms"],
         "bound_ms": main_shape["bound_ms"],

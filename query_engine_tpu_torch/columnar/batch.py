@@ -82,6 +82,47 @@ def to_tensor(arr: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(arr).to(device)
 
 
+def host_pylist(data: np.ndarray, valid: np.ndarray, dtype: DataType,
+                dictionary: Optional[Dictionary] = None) -> list:
+    """A column's live rows as Python values (None for NULL), from its data
+    and validity planes already on the host."""
+    if dictionary is not None:
+        vals = dictionary.values
+        out = [
+            vals[c] if v and 0 <= c < len(vals) else None
+            for c, v in zip(data.tolist(), valid.tolist())
+        ]
+        return out
+    k = dtype.kind
+    if k is TypeKind.UINT64:
+        data = data.view(np.uint64)
+    if k is TypeKind.DATE32:
+        import datetime
+
+        epoch = datetime.date(1970, 1, 1)
+        return [
+            epoch + datetime.timedelta(days=int(x)) if v else None
+            for x, v in zip(data.tolist(), valid.tolist())
+        ]
+    if k is TypeKind.TIMESTAMP or k is TypeKind.DATE64:
+        import datetime
+
+        epoch = datetime.datetime(1970, 1, 1)
+        mult = 1 if k is TypeKind.TIMESTAMP else 1000
+        return [
+            epoch + datetime.timedelta(microseconds=int(x) * mult)
+            if v else None
+            for x, v in zip(data.tolist(), valid.tolist())
+        ]
+    if k is TypeKind.DECIMAL128 and dtype.params:
+        scale = dtype.params[1]
+        return [
+            (int(x) / (10**scale)) if v else None
+            for x, v in zip(data.tolist(), valid.tolist())
+        ]
+    return [x if v else None for x, v in zip(data.tolist(), valid.tolist())]
+
+
 @dataclass
 class Column:
     """One column: data plane + validity plane (+ dictionary for strings)."""
@@ -106,43 +147,9 @@ class Column:
                       self.dtype, self.dictionary)
 
     def to_pylist(self, num_rows: int) -> list:
-        data = self.data[:num_rows].cpu().numpy()
-        valid = self.validity[:num_rows].cpu().numpy()
-        if self.dictionary is not None:
-            vals = self.dictionary.values
-            out = [
-                vals[c] if v and 0 <= c < len(vals) else None
-                for c, v in zip(data.tolist(), valid.tolist())
-            ]
-            return out
-        k = self.dtype.kind
-        if k is TypeKind.UINT64:
-            data = data.view(np.uint64)
-        if k is TypeKind.DATE32:
-            import datetime
-
-            epoch = datetime.date(1970, 1, 1)
-            return [
-                epoch + datetime.timedelta(days=int(x)) if v else None
-                for x, v in zip(data.tolist(), valid.tolist())
-            ]
-        if k is TypeKind.TIMESTAMP or k is TypeKind.DATE64:
-            import datetime
-
-            epoch = datetime.datetime(1970, 1, 1)
-            mult = 1 if k is TypeKind.TIMESTAMP else 1000
-            return [
-                epoch + datetime.timedelta(microseconds=int(x) * mult)
-                if v else None
-                for x, v in zip(data.tolist(), valid.tolist())
-            ]
-        if k is TypeKind.DECIMAL128 and self.dtype.params:
-            scale = self.dtype.params[1]
-            return [
-                (int(x) / (10**scale)) if v else None
-                for x, v in zip(data.tolist(), valid.tolist())
-            ]
-        return [x if v else None for x, v in zip(data.tolist(), valid.tolist())]
+        return host_pylist(self.data[:num_rows].cpu().numpy(),
+                           self.validity[:num_rows].cpu().numpy(),
+                           self.dtype, self.dictionary)
 
     def take_host(self, indices: np.ndarray, capacity: int) -> "Column":
         """Gather rows by host-side indices (slicing/limit paths); the
@@ -378,14 +385,55 @@ class ColumnBatch:
 
     # ---- exporters -----------------------------------------------------
     def to_pydict(self) -> Dict[str, list]:
-        return {
-            f.name: c.to_pylist(self.num_rows)
-            for f, c in zip(self.schema, self.columns)
-        }
+        return {f.name: vals
+                for f, vals in zip(self.schema, self.host_pylists())}
 
     def to_pylist(self) -> List[tuple]:
-        cols = [c.to_pylist(self.num_rows) for c in self.columns]
-        return list(zip(*cols)) if cols else []
+        return list(zip(*self.host_pylists()))
+
+    def host_planes(self) -> List[tuple]:
+        """(data, validity) numpy arrays of every column's live rows. The
+        planes' bytes are packed into one buffer on their device and read
+        to the host in one transfer, not two per column."""
+        n = self.num_rows
+        planes = [p[:n] for c in self.columns for p in (c.data, c.validity)]
+        if not planes:
+            return []
+        # only a plane that is not dense (a broadcast has stride 0, also
+        # where it holds one row), or not on the first plane's device, is
+        # copied before the pack
+        dev = planes[0].device
+        flat = torch.cat([
+            (p if p.is_contiguous() and p.stride(-1) == 1
+             else p.clone(memory_format=torch.contiguous_format))
+            .to(dev).view(torch.uint8).reshape(-1)
+            for p in planes]).cpu().numpy()
+        arrs, off = [], 0
+        for p in planes:
+            size = p.numel() * p.element_size()
+            dt = torch.empty(0, dtype=p.dtype).numpy().dtype
+            arrs.append(flat[off:off + size].view(dt).reshape(p.shape))
+            off += size
+        return list(zip(arrs[0::2], arrs[1::2]))
+
+    def host_pylists(self) -> List[list]:
+        """Every column's live rows as Python values, the same as
+        `Column.to_pylist`, from one read of the planes (`host_planes`):
+        the one way a batch comes to Python (`to_pylist`, `to_pydict`, the
+        pgwire DataRows). Imports no pyarrow: it is `to_arrow`'s host
+        step."""
+        return [host_pylist(d, v, c.dtype, c.dictionary)
+                for (d, v), c in zip(self.host_planes(), self.columns)]
+
+    def to_arrow(self):
+        """A pyarrow RecordBatch of the live rows: each plane read to the
+        host once (`host_pylists`), then one arrow array per column."""
+        if pa is None:
+            raise ExecutionError("pyarrow unavailable")
+        arrays = [pa.array(vals, type=f.data_type.to_arrow())
+                  for vals, f in zip(self.host_pylists(), self.schema)]
+        return pa.RecordBatch.from_arrays(arrays,
+                                          schema=self.schema.to_arrow())
 
     # ---- transforms ----------------------------------------------------
     def select(self, indices: Sequence[int]) -> "ColumnBatch":

@@ -73,6 +73,7 @@ from __future__ import annotations
 import collections
 import gc
 import os
+import threading
 import time
 from dataclasses import dataclass
 from typing import List, Optional, Tuple
@@ -103,6 +104,8 @@ class _Unsupported(Exception):
 # failures of a program body that mean "not for this slice" — run eagerly.
 # Device and capture errors (RuntimeError) are not among them: they raise.
 _TRACE_ERRORS = (_Unsupported, NotImplementedError, ExecutionError)
+# held by a CUDA graph capture, of any Session (`_capture`)
+_CAPTURE_LOCK = threading.RLock()
 
 
 @dataclass
@@ -861,21 +864,29 @@ class CompiledPipeline:
     def _capture(self, entry, planes, n_bufs, dyn_bufs):
         """Capture the body into a CUDA graph over these inputs. The entry
         keeps the input tensors alive: the graph reads their addresses."""
-        entry.graph = entry.outputs = None  # free the old graph's pool
         t0 = time.perf_counter()
-        graph = torch.cuda.CUDAGraph()
-        # A cyclic collection inside the capture may free another CUDA graph
-        # (one an unreachable cycle holds, e.g. a dropped Session's); CUDA
-        # refuses that while a stream captures, and the capture is lost. So
-        # the collector waits until the capture ends.
-        collecting = gc.isenabled()
-        gc.disable()
-        try:
-            with torch.cuda.graph(graph):
-                outputs = self._body(entry, planes, n_bufs, dyn_bufs)
-        finally:
-            if collecting:
-                gc.enable()
+        # Thread-local mode: the CUDA calls of another thread (another
+        # Session's query) do not break this capture; this thread's own
+        # unsafe calls still do. Threads that share this Session hold its
+        # lock. The captures of all Sessions take turns: torch.cuda.graph
+        # synchronizes the device before it captures, which would break a
+        # capture under way in another thread, and captures on one stream.
+        with _CAPTURE_LOCK:
+            entry.graph = entry.outputs = None  # free the old graph's pool
+            graph = torch.cuda.CUDAGraph()
+            # A cyclic collection inside the capture may free another CUDA
+            # graph (one an unreachable cycle holds, e.g. a dropped
+            # Session's); CUDA refuses that while a stream captures, and the
+            # capture is lost. So the collector waits until the capture ends.
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                with torch.cuda.graph(graph,
+                                      capture_error_mode="thread_local"):
+                    outputs = self._body(entry, planes, n_bufs, dyn_bufs)
+            finally:
+                if collecting:
+                    gc.enable()
         if self._leaf_depth == 0:
             self.stats["capture_ms"] += (time.perf_counter() - t0) * 1e3
         entry.graph = graph

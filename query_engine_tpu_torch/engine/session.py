@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import threading
 import time
 from typing import Dict, List, Optional
 
@@ -56,6 +57,19 @@ from query_engine_tpu_torch.utils.profiling import QueryTiming
 MAX_RECURSION_ITERS = 1000  # parity: backend.rs recursive CTE cap
 
 
+def require_device(device, owner: str) -> torch.device:
+    """torch.device(device), or RuntimeError for the card where CUDA is not
+    available: nothing falls back to the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{owner}(device={str(device)!r}): CUDA is not available "
+            "(torch.cuda.is_available() is False); pass device='cpu' to "
+            "run on the CPU"
+        )
+    return dev
+
+
 class Session:
     def __init__(self, device="cuda", enable_cache: bool = False):
         """device: the torch device every table and result lives on, the
@@ -63,13 +77,7 @@ class Session:
         falls back to another device: without CUDA a Session on the card
         raises here. enable_cache: keep SELECT results by SQL text
         (`cache/`), cleared by every DDL and DML statement."""
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                f"Session(device={str(device)!r}): CUDA is not available "
-                "(torch.cuda.is_available() is False); pass device='cpu' to "
-                "run on the CPU"
-            )
+        self.device = require_device(device, "Session")
         self.udfs = UdfRegistry()
         self.planner = Planner(self.udfs)
         self.optimizer = Optimizer()
@@ -90,6 +98,10 @@ class Session:
         self._txn = None
         self._txn_failed = False
         self._savepoints: List[tuple] = []
+        # A Session serves one thread at a time: every front end over it
+        # (the pgwire and Flight servers, a StreamingQuery) holds this lock
+        # around its calls and its reads of a result's planes
+        self.lock = threading.RLock()
 
     # ---- registration --------------------------------------------------
     def register_csv(self, name: str, path: str, schema: Optional[Schema] = None):

@@ -255,14 +255,21 @@ Q15_SCRIPT = (
 AFTER_REFRESH = ("Q1", "Q3", "Q18")
 
 
-def q6_param_rows(state: State) -> list:
-    li = oracle._T(state.tables["lineitem"])
-    d = Q6_PARAMS[1]
-    m = (li.l_shipdate >= days(1994, 1, 1)) \
-        & (li.l_shipdate < days(1995, 1, 1)) \
-        & (li.l_discount >= d - 0.01) & (li.l_discount <= d + 0.01) \
-        & (li.l_quantity < Q6_PARAMS[2])
+def q6_rows(tables: Dict[str, HostTable], start: str, discount: float,
+            quantity: int) -> list:
+    """The rows of Q6_PARAM with $1-$3 = start (an ISO date), discount,
+    quantity."""
+    li = oracle._T(tables["lineitem"])
+    y, m, d = (int(x) for x in start.split("-"))
+    m = (li.l_shipdate >= days(y, m, d)) \
+        & (li.l_shipdate < days(y + 1, m, d)) \
+        & (li.l_discount >= discount - 0.01) \
+        & (li.l_discount <= discount + 0.01) & (li.l_quantity < quantity)
     return [(oracle._global_sum(li.l_extendedprice[m] * li.l_discount[m]),)]
+
+
+def q6_param_rows(state: State) -> list:
+    return q6_rows(state.tables, *Q6_PARAMS)
 
 
 def orders_rows(state: State, lo: int, hi: int, cols: Sequence[str]) -> list:

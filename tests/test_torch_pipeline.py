@@ -315,7 +315,8 @@ def test_explain_analyze_shows_the_segment():
 def test_capture_defers_cyclic_collection(monkeypatch, fails):
     """The cyclic collector is off while a CUDA graph captures (a
     collection there may free another graph, which CUDA refuses during a
-    capture) and on again afterwards, also when the body raises. The CUDA
+    capture) and on again afterwards, also when the body raises. The
+    capture runs in thread-local mode under the capture lock. The CUDA
     graph calls are stood in by fakes on the CPU."""
     import contextlib
     import gc
@@ -324,14 +325,20 @@ def test_capture_defers_cyclic_collection(monkeypatch, fails):
 
     from query_engine_tpu_torch.engine import pipeline as P
 
+    modes = []
+
+    def fake_graph(g, **kwargs):
+        modes.append(kwargs.get("capture_error_mode"))
+        return contextlib.nullcontext()
+
     monkeypatch.setattr(torch.cuda, "CUDAGraph", lambda: object())
-    monkeypatch.setattr(torch.cuda, "graph",
-                        lambda g: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "graph", fake_graph)
     pipe = Session(device="cpu").executor.pipeline
     seen = []
 
     def body(*args):
         seen.append(gc.isenabled())
+        assert P._CAPTURE_LOCK._is_owned()
         if fails:
             raise RuntimeError("body failed")
         return []
@@ -343,4 +350,55 @@ def test_capture_defers_cyclic_collection(monkeypatch, fails):
           else contextlib.nullcontext()):
         pipe._capture(entry, [], [], [])
     assert seen == [False] and gc.isenabled()
+    assert modes == ["thread_local"]
     assert (entry.graph is None) == fails
+    assert not P._CAPTURE_LOCK._is_owned()
+
+
+def test_captures_of_two_sessions_take_turns(monkeypatch):
+    """A capture waits while another thread's capture (another Session's)
+    holds the capture lock, and its cyclic collector stays off until its
+    own capture ends. Fakes stand in for the CUDA graph calls."""
+    import contextlib
+    import gc
+    import threading
+
+    import torch
+
+    from query_engine_tpu_torch.engine import pipeline as P
+
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", lambda: object())
+    monkeypatch.setattr(torch.cuda, "graph",
+                        lambda g, **kwargs: contextlib.nullcontext())
+    pipes = [Session(device="cpu").executor.pipeline for _ in range(2)]
+    events, inside = [], threading.Event()
+    release = threading.Event()
+
+    def body_a(*args):
+        events.append("a in")
+        inside.set()
+        assert release.wait(10)
+        events.append(("a out", gc.isenabled()))
+        return []
+
+    def body_b(*args):
+        events.append(("b", gc.isenabled()))
+        return []
+
+    monkeypatch.setattr(pipes[0], "_body", body_a)
+    monkeypatch.setattr(pipes[1], "_body", body_b)
+    a = threading.Thread(target=pipes[0]._capture,
+                         args=(P._Entry(None, []), [], [], []))
+    b = threading.Thread(target=pipes[1]._capture,
+                         args=(P._Entry(None, []), [], [], []))
+    a.start()
+    assert inside.wait(10)
+    b.start()
+    b.join(0.2)
+    assert b.is_alive() and events == ["a in"]
+    release.set()
+    a.join(10)
+    b.join(10)
+    assert events == ["a in", ("a out", False), ("b", False)]
+    assert gc.isenabled()
+    assert [p.stats["captures"] for p in pipes] == [1, 1]
