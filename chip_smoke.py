@@ -200,6 +200,33 @@ Phase 12 runs the host services over the card on a Session of its own
          prints that Flight did not run. group_agg must launch in 12a (in
          every query of TPCH_GROUP_AGG), 12b and 12c, every first-run call
          held against the plain versions; no `index_add_` on the card.
+Phase 13 runs the chunked aggregate and the host stage walk. 13a: a fact
+         table of 2^28 - 17 rows (int64 age, salary NULL on about 1 % of
+         rows, dept; seed 23; validity arange(cap) < n) and Query A's
+         dimension; Query A and Query C (COUNT, AVG, MIN, MAX and a float
+         SUM of salary * rate per dept) each a first and 5 warm runs,
+         chunked at the defaults (8 chunks of 2^25 rows), then Query A
+         unchunked (QE_CHUNK_ENGAGE above the capacity), every run against
+         a numpy oracle (integers exactly, floats to rtol 1e-9). Fails
+         unless every chunked run makes 8 chunks and every warm one makes
+         no new capture of the partial program and 8 replays, or if
+         `index_add_` runs, or no group_agg kernel shows in a profiled
+         warm chunked Query A. Prints each form's ms (first, warm median,
+         min, max), its peak allocated and reserved device memory from a
+         reset just before it, its group_agg launches, and the staging
+         copy of one chunk's device ms against its bound. Only an out of
+         memory error of the unchunked run is recorded as its result
+         instead of failing. 13b: Q1, Q3, Q5, Q6, Q10, Q12 and Q14 at SF1
+         (phase 7's host tables) through `Coordinator(device="cuda")`
+         with 4 workers and a DistributedExecutor of 4 partitions, a first
+         and 2 warm runs each against the numpy oracle; fails if a query
+         is planned local, runs one stage, or shuffles no rows (Q6 aside:
+         a global aggregate over one table). Prints ms, stages, rows
+         shuffled, the first run's captures, group_agg launches and the
+         last run's host ms by stage. 13c: Q1 and Q6 through
+         `FlightTransport.execute_on_all` to two Flight servers, each over
+         a card Session of its own, both results against the oracle
+         (skipped where pyarrow is missing, as 12d).
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after; a kernel of the path that was not launched fails the run.
@@ -2861,6 +2888,410 @@ def phase12(tables, dev=None):
             "flight": d["ran"]}
 
 
+# phase 13: the chunked aggregate at 2^28 - 17 rows, the host stage walk and
+# the Flight transport
+N_BIG = (1 << 28) - 17  # 17 pad rows at capacity 2^28
+BIG_SEED = 23
+SALARY_NULL = 0.01  # share of rows whose salary is NULL
+QUERY_C = ("SELECT f.dept, COUNT(f.salary) AS n, AVG(f.salary) AS a, "
+           "MIN(f.age) AS lo, MAX(f.salary) AS hi, SUM(f.salary * d.rate) "
+           "AS s FROM f JOIN d ON f.dept = d.dept_id WHERE f.age > 25 "
+           "GROUP BY f.dept ORDER BY f.dept")
+BIG_WARM = 5
+STAGE_QUERIES = ("Q1", "Q3", "Q5", "Q6", "Q10", "Q12", "Q14")
+STAGE_NO_SHUFFLE = ("Q6",)  # a global aggregate over one table
+STAGE_WARM = 2
+STAGE_WORKERS = 4
+
+
+def make_big_tables(dev, n=N_BIG, seed=BIG_SEED):
+    """The chunked phase's fact table (age, salary, dept; salary NULL on
+    about 1 % of rows) at capacity padded_capacity(n), validity
+    arange(cap) < n, and Query A/B's dimension from the same seed. Returns
+    the host planes and the two batches."""
+    from query_engine_tpu_torch.columnar.batch import padded_capacity
+    from query_engine_tpu_torch.columnar.convert import from_numpy_batch
+    from query_engine_tpu_torch.core.schema import Field
+    from query_engine_tpu_torch.core.types import DataType
+
+    rng = np.random.default_rng(seed)
+    cap = padded_capacity(n)
+    live = np.arange(cap) < n
+
+    def draw(lo, hi):
+        a = rng.integers(lo, hi, cap)
+        a[n:] = 0
+        return a
+
+    host = {"age": draw(18, 65), "salary": draw(50_000, 150_000),
+            "dept": draw(0, N_DIM)}
+    host["salary_valid"] = live & (rng.random(cap) >= SALARY_NULL)
+    host["bonus"] = rng.integers(0, 1000, N_DIM)
+    host["rate"] = rng.integers(128, 384, N_DIM) / 256
+    i64, f64 = DataType.int64(), DataType.float64()
+    fact = from_numpy_batch(
+        [Field("age", i64), Field("salary", i64), Field("dept", i64)],
+        [(host["age"], live, None),
+         (host["salary"], host["salary_valid"], None),
+         (host["dept"], live, None)], n, dev)
+    dcap = padded_capacity(N_DIM)
+    dvalid = np.arange(dcap) < N_DIM
+
+    def dplanes(arr):
+        data = np.zeros(dcap, dtype=arr.dtype)
+        data[:N_DIM] = arr
+        return data, dvalid, None
+
+    dim = from_numpy_batch(
+        [Field("dept_id", i64), Field("bonus", i64), Field("rate", f64)],
+        [dplanes(np.arange(N_DIM)), dplanes(host["bonus"]),
+         dplanes(host["rate"])], N_DIM, dev)
+    return host, fact, dim
+
+
+def big_oracles(host, n=N_BIG):
+    """numpy: Query A's and Query C's rows over the first n rows. Sums of
+    integers (and of salary * rate, multiples of 2^-8 below 2^44) are exact
+    in float64."""
+    age, salary, dept = host["age"][:n], host["salary"][:n], host["dept"][:n]
+    m = age > 25
+    mv = m & host["salary_valid"][:n]
+    dm, dv, sal = dept[m], dept[mv], salary[mv]
+    c = np.bincount(dm, minlength=N_DIM)
+    nv = np.bincount(dv, minlength=N_DIM)
+    s_a = np.bincount(dv, weights=sal + host["bonus"][dv], minlength=N_DIM)
+    groups = np.nonzero(c)[0]
+    order = groups[np.argsort(-s_a[groups], kind="stable")][:10]
+    want_a = [(int(g), int(c[g]), int(s_a[g])) for g in order]
+    sum_sal = np.bincount(dv, weights=sal, minlength=N_DIM)
+    s_c = np.bincount(dv, weights=sal * host["rate"][dv], minlength=N_DIM)
+    lo = np.full(N_DIM, np.iinfo(np.int64).max)
+    np.minimum.at(lo, dm, age[m])
+    hi = np.full(N_DIM, np.iinfo(np.int64).min)
+    np.maximum.at(hi, dv, sal)
+    want_c = [(int(g), int(nv[g]), float(sum_sal[g] / nv[g]), int(lo[g]),
+               int(hi[g]), float(s_c[g])) for g in groups]
+    return want_a, want_c
+
+
+def _big_form(sess, query, want, tag, exact, chunks):
+    """A first and BIG_WARM warm runs of `query`, every one against `want`
+    (exactly, or floats to RTOL): the ms of each, the chunked path's stats
+    change of each, the group_agg launches over the runs, and the peak
+    device memory from a reset just before them. chunks: the chunks a run
+    must make (0: it must not run chunked)."""
+    import torch
+
+    from query_engine_tpu_torch.tpch import oracle
+
+    ch = sess.executor.chunked.stats
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    walls, runs, err = [], [], 0.0
+    for run in range(1 + BIG_WARM):
+        before = dict(ch)
+        t0 = time.perf_counter()
+        rows = sess.sql(query).to_pylist()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        d = _stats_change(before, ch)
+        runs.append(d)
+        if exact:
+            check(rows == want, f"{tag}: run {run} differs from the numpy "
+                  f"oracle: {rows[:3]} against {want[:3]}")
+        else:
+            err = max(err, _oracle_equal(f"{tag}: run {run}", rows, want))
+        if chunks:
+            check(d.get("queries") == 1 and d.get("chunks") == chunks,
+                  f"{tag}: run {run} did not run in {chunks} chunks: {d}")
+            check(run == 0 or not sess.executor.pipeline._graphs or (
+                not d.get("captures") and d.get("replays") == chunks),
+                  f"{tag}: warm run {run}: the partial program captured "
+                  f"again or did not replay once a chunk: {d}")
+        else:
+            check(not d, f"{tag}: run {run} ran chunked: {d}")
+    out = {"first_ms": walls[0], "ms": statistics.median(walls[1:]),
+           "warm_ms": walls[1:], "runs": runs,
+           "group_agg": read_counts()["group_agg"], "max_rel_err": err,
+           "base_mib": base / 2 ** 20,
+           "peak_allocated_mib": torch.cuda.max_memory_allocated() / 2 ** 20,
+           "peak_reserved_mib": torch.cuda.max_memory_reserved() / 2 ** 20}
+    print(f"{tag}: {len(rows)} rows == numpy oracle on a first and "
+          f"{BIG_WARM} warm runs (max rel err {err:.3g}); first "
+          f"{walls[0]:.1f} ms, warm median {out['ms']:.3f} ms (min "
+          f"{min(walls[1:]):.3f}, max {max(walls[1:]):.3f}); chunked stats "
+          f"first {runs[0]}, warm {runs[1]}; group_agg launches "
+          f"{out['group_agg']}; device memory allocated before "
+          f"{out['base_mib']:.1f} MiB, peak allocated "
+          f"{out['peak_allocated_mib']:.1f} MiB, peak reserved "
+          f"{out['peak_reserved_mib']:.1f} MiB")
+    return out
+
+
+def phase13a(dev=None, n=N_BIG):
+    """Query A and Query C at n fact rows, chunked at the defaults, then
+    Query A unchunked; each against the numpy oracle."""
+    import gc
+
+    import torch
+
+    from query_engine_tpu_torch.engine import chunked
+    from query_engine_tpu_torch.engine.session import Session
+
+    dev = torch.device("cuda") if dev is None else torch.device(dev)
+    for var in ("QE_CHUNK_ENGAGE", "QE_CHUNK_ROWS"):
+        os.environ.pop(var, None)
+    t0 = time.perf_counter()
+    host, fact, dim = make_big_tables(dev, n)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want_a, want_c = big_oracles(host, n)
+    oracle_s = time.perf_counter() - t0
+    cap, cc = fact.capacity, min(chunked.chunk_rows(), fact.capacity)
+    chunks = cap // cc
+    check(cap >= chunked.chunk_engage_rows(),
+          f"phase 13a: capacity {cap} is below QE_CHUNK_ENGAGE")
+    table_mib = sum(c.data.nbytes + c.validity.nbytes
+                    for c in fact.columns) / 2 ** 20
+    print(f"phase 13a: f {n:,} rows at capacity {cap:,} ({table_mib:.1f} "
+          f"MiB on the card), d {N_DIM} rows; built and uploaded in "
+          f"{gen_s:.2f} s, oracles {oracle_s:.2f} s; chunks of {cc:,} rows "
+          f"({chunks} a query)")
+    del host
+    gc.collect()
+    out = {}
+
+    def session():
+        s = Session(device=dev)
+        s.register_table("f", fact)
+        s.register_table("d", dim)
+        return s
+
+    sess = session()
+    spy = IndexAddSpy()
+    with spy.active():
+        out["A chunked"] = _big_form(sess, QUERY, want_a,
+                                     "phase 13a: Query A chunked", True,
+                                     chunks)
+        out["C chunked"] = _big_form(sess, QUERY_C, want_c,
+                                     "phase 13a: Query C chunked", False,
+                                     chunks)
+    check(not spy.calls, f"phase 13a: {spy.calls} index_add_ calls on the "
+          "card")
+    busy, wall, names = device_ms(sess, QUERY)
+    found = kernel_names(names, "sum_count_")
+    check(found, "phase 13a: no group_agg kernel in a profiled warm chunked "
+          "Query A")
+    check(not kernel_names(names, "indexFunc"), "phase 13a: index_add_ "
+          "kernels in a profiled warm chunked Query A")
+    print(f"phase 13a: one profiled warm chunked Query A: {busy:.3f} ms of "
+          f"kernel time in {wall:.3f} ms wall; group_agg kernels {found}; "
+          f"no index_add_ kernel")
+    # the staging copy of one chunk alone (device time)
+    stager = sess.executor.chunked
+    stage_ms = cuda_ms(lambda: stager.stage_chunk(fact, 0, cc, cc))
+    row_bytes = sum(c.data.element_size() + c.validity.element_size()
+                    for c in fact.columns)
+    stage_bound = bound_ms(2 * cc * row_bytes)
+    out["staging"] = {"ms": stage_ms, "bound_ms": stage_bound,
+                      "bytes": 2 * cc * row_bytes}
+    print(f"phase 13a: the staging copy of one chunk ({cc:,} rows, "
+          f"{row_bytes} B a row read and written): {stage_ms:.4f} ms "
+          f"(CUDA events), bound {stage_bound:.4f} ms, "
+          f"{stage_bound / stage_ms:.0%} of it")
+    del sess, stager
+    gc.collect()
+    torch.cuda.empty_cache()
+    os.environ["QE_CHUNK_ENGAGE"] = str(2 * cap)
+    try:
+        sess = session()
+        try:
+            out["A unchunked"] = _big_form(
+                sess, QUERY, want_a, "phase 13a: Query A unchunked", True, 0)
+        except torch.cuda.OutOfMemoryError as e:
+            # the one failure this phase records: the comparison run's OOM
+            out["A unchunked"] = {"oom": str(e).splitlines()[0]}
+            print(f"phase 13a: Query A unchunked: out of memory: "
+                  f"{out['A unchunked']['oom']}")
+        del sess
+    finally:
+        os.environ.pop("QE_CHUNK_ENGAGE")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _stage_stats(dx):
+    """The captures made by the stage walk's executors (its local one and
+    each worker's) and their host ms."""
+    pipes = [dx._local.pipeline] + [
+        dx.coordinator.runner(w.worker_id).executor.pipeline
+        for w in dx.coordinator.active_workers()]
+    return (sum(p.stats["captures"] for p in pipes),
+            sum(p.stats["capture_ms"] for p in pipes))
+
+
+def phase13b(tables, dev=None):
+    """TPC-H queries through the host stage walk: a Coordinator with
+    STAGE_WORKERS workers, each its own executor on the card, and a
+    DistributedExecutor with 4 partitions; every run against the oracle."""
+    import torch
+
+    from query_engine_tpu_torch.engine.session import Session
+    from query_engine_tpu_torch.parallel.coordinator import Coordinator
+    from query_engine_tpu_torch.parallel.dexecutor import DistributedExecutor
+    from query_engine_tpu_torch.sql.parser import parse_sql
+    from query_engine_tpu_torch.tpch import data, oracle, queries
+
+    dev = torch.device("cuda") if dev is None else torch.device(dev)
+    sess = Session(device=dev)
+    data.register(sess, tables)
+    coord = Coordinator(device=dev)
+    for i in range(STAGE_WORKERS):
+        coord.register_worker(f"worker{i}")
+    dx = DistributedExecutor(coord)
+    check(dx.planner.default_partitions == 4,
+          "phase 13b: the stage walk does not run 4 partitions")
+    out = {}
+    for q in STAGE_QUERIES:
+        plan = sess.optimizer.optimize(
+            sess.planner.create_logical_plan(parse_sql(queries.QUERIES[q])))
+        dplan = dx.planner.plan(plan)
+        check(not dplan.is_local, f"phase 13b: {q}: planned local")
+        want = oracle.run(q, tables)
+        keys = oracle.FLOAT_SORT_KEYS.get(q, ())
+        walls, shuffled, err = [], [], 0.0
+        reset_counts()
+        cap0, _ = _stage_stats(dx)
+        for run in range(1 + STAGE_WARM):
+            rows0 = dx.stats.rows_shuffled
+            t0 = time.perf_counter()
+            rows = dx.execute(plan, sess.sources).to_pylist()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            shuffled.append(dx.stats.rows_shuffled - rows0)
+            err = max(err, _oracle_equal(f"phase 13b: {q} run {run}", rows,
+                                         want, keys))
+            check(len(dx.last_stages) > 1, f"phase 13b: {q}: run {run} "
+                  f"ran {len(dx.last_stages)} stage(s)")
+            check(q in STAGE_NO_SHUFFLE or shuffled[-1] > 0,
+                  f"phase 13b: {q}: run {run} shuffled no rows")
+            if run == 0:
+                cap1, ms1 = _stage_stats(dx)
+                first_captures = cap1 - cap0
+        cap2, ms2 = _stage_stats(dx)
+        warm_captures = (cap2 - cap1) / STAGE_WARM
+        warm_capture_ms = (ms2 - ms1) / STAGE_WARM
+        stages = [(k, round(ms, 3)) for _, k, ms in dx.last_stages]
+        out[q] = {"first_ms": walls[0], "ms": statistics.median(walls[1:]),
+                  "stages": len(dx.last_stages),
+                  "rows_shuffled": shuffled[0],
+                  "group_agg": read_counts()["group_agg"],
+                  "first_captures": first_captures,
+                  "warm_captures": warm_captures,
+                  "warm_capture_ms": warm_capture_ms, "max_rel_err": err,
+                  "stage_ms": stages}
+        print(f"phase 13b: {q}: {len(rows)} rows == numpy oracle on a first "
+              f"and {STAGE_WARM} warm runs (max rel err {err:.3g}); first "
+              f"{walls[0]:.1f} ms, warm {', '.join(f'{w:.1f}' for w in walls[1:])}"
+              f" ms; {len(dx.last_stages)} stages, {shuffled[0]:,} rows "
+              f"shuffled a run; first run's captures {first_captures}; "
+              f"a warm run's captures {warm_captures:g} taking "
+              f"{warm_capture_ms:.1f} ms (host clock, summed over the "
+              f"workers' threads); "
+              f"group_agg launches {out[q]['group_agg']}; last run's stages "
+              f"(kind, host ms) {stages}")
+    st = dx.stats
+    print(f"phase 13b: {STAGE_WORKERS} workers, {st.tasks_executed} tasks, "
+          f"{st.task_failures} failures, {st.queries_executed} queries")
+    check(st.task_failures == 0, "phase 13b: a task failed")
+    return out
+
+
+def phase13c(tables, dev=None):
+    """Q1 and Q6 sent by FlightTransport.execute_on_all to two Flight
+    servers, each over a Session of its own on the card."""
+    import importlib.util
+
+    import torch
+
+    found = importlib.util.find_spec("pyarrow") is not None
+    if not found:
+        print("phase 13c: Flight transport not run (no pyarrow on this "
+              "machine)")
+        return {"ran": False}
+    from query_engine_tpu_torch.core.config import FlightConfig
+    from query_engine_tpu_torch.engine.session import Session
+    from query_engine_tpu_torch.flight.server import FlightServer
+    from query_engine_tpu_torch.parallel.flight_transport import (
+        FlightTransport,
+    )
+    from query_engine_tpu_torch.tpch import data, oracle, queries
+
+    dev = torch.device("cuda") if dev is None else torch.device(dev)
+    servers, threads = [], []
+    transport = FlightTransport()
+    reset_counts()
+    try:
+        for i in range(2):
+            s = Session(device=dev)
+            data.register(s, tables)
+            server = FlightServer(FlightConfig(host="127.0.0.1", port=0), s)
+            threads.append(server.start_background())
+            servers.append(server)
+            transport.add_worker(f"worker{i}",
+                                 f"grpc://127.0.0.1:{server.port}")
+        ms = {}
+        for q in ("Q1", "Q6"):
+            want = oracle.run(q, tables)
+            ms[q] = []
+            for _ in range(2):  # first, warm
+                t0 = time.perf_counter()
+                results = transport.execute_on_all(queries.QUERIES[q])
+                ms[q].append((time.perf_counter() - t0) * 1e3)
+                check(len(results) == 2, f"phase 13c: {q}: "
+                      f"{len(results)} results from 2 workers")
+                for r in results:
+                    _oracle_equal(f"phase 13c: {q}", r.to_pylist(), want,
+                                  oracle.FLOAT_SORT_KEYS.get(q, ()))
+    finally:
+        for server in servers:
+            server.shutdown()
+        for t in threads:
+            t.join(30)
+    launches = read_counts()["group_agg"]
+    print(f"phase 13c: FlightTransport.execute_on_all to 2 Flight servers: "
+          f"Q1 and Q6 == numpy oracle from both; ms (first, warm) {ms}; "
+          f"group_agg launches {launches}")
+    return {"ran": True, "ms": ms, "group_agg": launches}
+
+
+def phase13(tables, dev=None):
+    """The chunked aggregate at 2^28 - 17 rows (13a), the host stage walk
+    at SF1 (13b) and the Flight transport (13c)."""
+    import gc
+
+    import torch
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    a = phase13a(dev)
+    t1 = time.perf_counter()
+    b = phase13b(tables, dev)
+    t2 = time.perf_counter()
+    c = phase13c(tables, dev)
+    gc.collect()
+    print(f"phase 13: 13a {t1 - t_phase:.1f} s, 13b {t2 - t1:.1f} s, 13c "
+          f"{time.perf_counter() - t2:.1f} s")
+    launches = {"13a": {k: r["group_agg"] for k, r in a.items()
+                        if "group_agg" in r},
+                "13b": {q: r["group_agg"] for q, r in b.items()},
+                "13c": c.get("group_agg", 0)}
+    return {"a": a, "b": b, "c": c, "launches": launches}
+
+
 def main():
     import torch
 
@@ -2891,6 +3322,7 @@ def main():
         del sf1_sess, tables
         session_surface = phase11(sf1_tables)
         services = phase12(sf1_tables)
+        distributed = phase13(sf1_tables)
     except CheckFailed as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -2904,6 +3336,9 @@ def main():
     ordered_by_query = {q: r["group_agg"] for q, r in ordered_sets.items()}
     surface_by_group = session_surface["launches"]
     services_by_part = services["launches"]
+    p13 = distributed["launches"]
+    p13_launches = sum(p13["13a"].values()) + sum(p13["13b"].values()) \
+        + p13["13c"]
     tpch_err = max((c["max_abs_err"] for calls in tpch_held.values()
                     for c in calls), default=0.0)
     print(json.dumps({"kernels": [{
@@ -2914,12 +3349,12 @@ def main():
         "launches": agg_launches + tpch_launches
         + sum(windows_by_query.values()) + sum(scalar_by_query.values())
         + sum(ordered_by_query.values()) + sum(surface_by_group.values())
-        + sum(services_by_part.values()),
+        + sum(services_by_part.values()) + p13_launches,
         "launches_by_phase": {"4": agg_launches, "7": tpch_by_query,
                               "8": windows_by_query, "9": scalar_by_query,
                               "10": ordered_by_query,
                               "11": surface_by_group,
-                              "12": services_by_part},
+                              "12": services_by_part, "13": p13},
         "max_abs_err": max_err["plain"],
         "max_abs_err_vs_float64": {"1": max_err["float64"], "7": tpch_err,
                                    "12": services["max_abs_err"]},

@@ -19,10 +19,18 @@ ARRAY_AGG result is a LIST column: a dictionary of Python lists, one per
 group, in group order (not sorted), which UNNEST and the LIST functions
 read.
 
+An aggregate runs in one of three modes: `single`, or the distributed
+stage walk's `partial` (AVG as a float64 sum and an int64 count plane) and
+`final` (a combine of the partial planes after the group keys); every
+grouped COUNT, SUM and AVG on a CUDA tensor goes to group_agg in each.
+
 As in the JAX package, every node first goes to the compiled pipeline
 (engine/pipeline.py, on unless QE_COMPILED=0), which runs the largest
 segment it supports as one static program; what it declines runs in the
-eager walk below, which is also the pipeline's semantics oracle.
+eager walk below, which is also the pipeline's semantics oracle. Before
+the pipeline, an aggregate over a table of QE_CHUNK_ENGAGE rows or more
+runs chunked (engine/chunked.py): a partial program per row chunk, then a
+final combine.
 
 Parity surface: reference crates/query-executor/src/executor.rs:12-541 —
 recursive plan walk materializing results per node.
@@ -54,6 +62,7 @@ from query_engine_tpu_torch.columnar.batch import (
     Column, ColumnBatch, padded_capacity, to_tensor,
 )
 from query_engine_tpu_torch.columnar.dictionary import Dictionary
+from query_engine_tpu_torch.engine.chunked import ChunkedAggregate
 from query_engine_tpu_torch.engine.expr_eval import Evaluator, Val, unify_dicts
 from query_engine_tpu_torch.engine import window as W
 from query_engine_tpu_torch.engine.pipeline import (
@@ -142,6 +151,7 @@ class QueryExecutor:
         self._cte_memo = {}
         self.pipeline = CompiledPipeline(self)
         self._compiled = compiled_enabled()
+        self.chunked = ChunkedAggregate(self)
 
     def _host_int(self, t: torch.Tensor) -> int:
         self.host_syncs += 1
@@ -178,6 +188,9 @@ class QueryExecutor:
         name = type(plan).__name__
         name = (name[1:] if name.startswith("P") else name).lower() or "node"
         if self._compiled:
+            out = self.chunked.try_execute(plan)  # engages above threshold
+            if out is not None:
+                return out
             with GLOBAL_PROFILER.op("compiled_pipeline") as rec:
                 out = self.pipeline.try_execute(plan)
                 if out is not None:
@@ -196,6 +209,12 @@ class QueryExecutor:
         if isinstance(plan, _Materialized):
             return plan.batch
         if self._compiled and not _skip_compiled:
+            # 100M+-row aggregates run chunked (partial per row-chunk ->
+            # final combine) to bound device memory; engages only from the
+            # QE_CHUNK_ENGAGE capacity on
+            out = self.chunked.try_execute(plan)
+            if out is not None:
+                return out
             out = self.pipeline.try_execute(plan)
             if out is not None:
                 return out
@@ -422,11 +441,6 @@ class QueryExecutor:
 
     # ---- aggregate -----------------------------------------------------
     def _exec_aggregate(self, plan: pp.PHashAggregate) -> ColumnBatch:
-        if plan.mode != "single":
-            raise NotImplementedError(
-                f"query_engine_tpu_torch does not execute {plan.mode} "
-                "aggregates yet"
-            )
         for agg in plan.agg_exprs:
             if agg.func not in _AGG_FUNCS:
                 raise NotImplementedError(
@@ -456,6 +470,11 @@ class QueryExecutor:
             cols.append(Column(v.data[rep][:out_cap],
                                v.validity[rep][:out_cap], f.data_type,
                                v.dictionary))
+
+        if plan.mode == "final":
+            cols += self._final_aggregates(plan, batch, gid, len(gvals),
+                                           out_cap)
+            return ColumnBatch(schema, cols, num_groups)
 
         lm = K.live_mask(cap, batch.num_rows, dev)
         args = [
@@ -498,11 +517,18 @@ class QueryExecutor:
             )
 
         pct_sort_cache = {}
-        for fi, (agg, av, slot) in enumerate(
-            zip(plan.agg_exprs, args, slots), start=len(gvals)
-        ):
+        fi = len(gvals)
+        for agg, av, slot in zip(plan.agg_exprs, args, slots):
             f = schema.field(fi)
+            fi += 1
             func = agg.func
+            if plan.mode == "partial" and func is lp.AggFunc.AVG:
+                # AVG's partial pair: a float64 sum plane and an int64
+                # count plane (the partial schema, plan/physical.py)
+                fi += 1
+                cols += self._partial_avg(av, slot, results, gid, batch,
+                                          plan.group_exprs, out_cap)
+                continue
             if func in lp.ORDERED_SET_FNS:
                 out_d, out_v = self._grouped_percentile(
                     agg, av.data, av.validity, gid, batch.num_rows, cap,
@@ -567,6 +593,67 @@ class QueryExecutor:
             cols.append(Column(out_d, out_v, f.data_type, out_dict))
 
         return ColumnBatch(schema, cols, num_groups)
+
+    def _partial_avg(self, av, slot, results, gid, batch, grouped, out_cap):
+        """The (sum, count) columns of a partial AVG: from its group_agg
+        item when it has one, else from the segment route (group_agg
+        too)."""
+        dev = self.device
+        if slot is not None:
+            sums, counts = results[slot]
+            counts = counts[:out_cap]
+            s, has = sums[:out_cap].to(torch.float64), counts > 0
+        else:
+            nseg = batch.capacity if grouped else out_cap
+            s, has = K.segment_aggregate(
+                "sum", av.data.to(torch.float64), av.validity, gid,
+                batch.num_rows, nseg)
+            counts, _ = K.segment_aggregate(
+                "count", av.data, av.validity, gid, batch.num_rows, nseg)
+            s, has, counts = s[:out_cap], has[:out_cap], counts[:out_cap]
+        ones = torch.ones(out_cap, dtype=torch.bool, device=dev)
+        return [Column(s, has, DataType.float64(), None),
+                Column(counts, ones, DataType.int64(), None)]
+
+    def _final_aggregates(self, plan, batch, gid, ci, out_cap):
+        """The combine of a final aggregate: the input's columns after the
+        group keys are the partial planes in aggregate order (an AVG's sum
+        and count pair included). COUNT and SUM partials add, MIN and MAX
+        take their extreme, AVG divides its summed pair; every sum goes
+        through group_agg (`K.segment_aggregate`)."""
+        schema = plan.schema()
+        nseg = batch.capacity if plan.group_exprs else out_cap
+        n = batch.num_rows
+
+        def combine(func, col):
+            return K.segment_aggregate(func, col.data, col.validity, gid, n,
+                                       nseg)
+
+        cols = []
+        for fi, agg in enumerate(plan.agg_exprs, start=ci):
+            f = schema.field(fi)
+            col = batch.columns[ci]
+            if agg.func is lp.AggFunc.AVG:
+                s, sv = combine("sum", col)
+                c, _ = combine("sum", batch.columns[ci + 1])
+                ci += 2
+                out_d = s.to(torch.float64) / c.clamp(min=1).to(torch.float64)
+                cols.append(Column(out_d[:out_cap], (sv & (c > 0))[:out_cap],
+                                   f.data_type, None))
+                continue
+            ci += 1
+            if agg.func not in _COMBINE:
+                raise ExecutionError(
+                    f"{agg.name()} has no final combine")
+            vals, valid = combine(_COMBINE[agg.func], col)
+            if agg.func is lp.AggFunc.COUNT:
+                valid = torch.ones_like(valid)
+            out_d = vals[:out_cap]
+            if col.dictionary is not None:
+                out_d = out_d.to(torch.int32)
+            cols.append(Column(out_d, valid[:out_cap], f.data_type,
+                               col.dictionary))
+        return cols
 
     def _group_ids_best(self, gvals, num_rows):
         """Returns (gid, ng, rep, static_bound). static_bound is the dense
@@ -1072,6 +1159,9 @@ _AGG_FUNCS = {lp.AggFunc.COUNT, lp.AggFunc.SUM, lp.AggFunc.AVG,
               lp.AggFunc.MIN, lp.AggFunc.MAX, lp.AggFunc.STRING_AGG,
               lp.AggFunc.ARRAY_AGG} | lp.ORDERED_SET_FNS
 _KERNEL_FUNCS = {lp.AggFunc.SUM, lp.AggFunc.COUNT, lp.AggFunc.AVG}
+# a final aggregate's combine of each partial (AVG divides its pair)
+_COMBINE = {lp.AggFunc.COUNT: "sum", lp.AggFunc.SUM: "sum",
+            lp.AggFunc.MIN: "min", lp.AggFunc.MAX: "max"}
 # the kinds whose plane (NaN aside) orders as their Python values: not
 # UINT64 (an int64 plane), DECIMAL (read back as scaled floats), INTERVAL
 _PLANE_ORDERED = {

@@ -681,8 +681,11 @@ class CompiledPipeline:
             res = {}
             demoted = False
             for jnode, lprov, rprov in ctx.checks:
-                dl = self._prov_max_dup(lprov, batch_by_node, res)
                 dr = self._prov_max_dup(rprov, batch_by_node, res)
+                # a unique right side wins every tie: the left side's stat
+                # (a sort of its key plane and a host read) is not needed
+                dl = None if dr == 1 else self._prov_max_dup(
+                    lprov, batch_by_node, res)
                 side = None
                 # prefer the right (build) side on ties
                 if dr is not None and (dl is None or dr <= dl):
