@@ -216,7 +216,11 @@ Phase 13 runs the chunked aggregate and the host stage walk. 13a: a fact
          reset just before it, its group_agg launches, and the staging
          copy of one chunk's device ms against its bound. Only an out of
          memory error of the unchunked run is recorded as its result
-         instead of failing. 13b: Q1, Q3, Q5, Q6, Q10, Q12 and Q14 at SF1
+         instead of failing. Apart from those measured runs, each form's
+         first run on a Session of its own holds every group_agg call
+         outside a capture against the plain versions, and must hold one
+         at the chunk's 2^25 rows (the partial program) or, unchunked, at
+         2^28. 13b: Q1, Q3, Q5, Q6, Q10, Q12 and Q14 at SF1
          (phase 7's host tables) through `Coordinator(device="cuda")`
          with 4 workers and a DistributedExecutor of 4 partitions, a first
          and 2 warm runs each against the numpy oracle; fails if a query
@@ -226,7 +230,11 @@ Phase 13 runs the chunked aggregate and the host stage walk. 13a: a fact
          last run's host ms by stage. 13c: Q1 and Q6 through
          `FlightTransport.execute_on_all` to two Flight servers, each over
          a card Session of its own, both results against the oracle
-         (skipped where pyarrow is missing, as 12d).
+         (skipped where pyarrow is missing, as 12d). group_agg must launch
+         in every form of 13a, every query of 13b and 13c, every call of
+         13b's and 13c's first runs (the partial and final aggregates of
+         every partition) held against the plain versions; no
+         `index_add_` on the card.
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after; a kernel of the path that was not launched fails the run.
@@ -248,6 +256,7 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -1105,19 +1114,25 @@ def device_ms(sess, query):
 class IndexAddSpy:
     """While open, counts the `index_add_` calls made on CUDA tensors
     (`Tensor.index_add_`, `Tensor.index_add`, `torch.index_add`), by the
-    path and by captures alike, except while `paused` (the plain versions
-    the checks themselves run)."""
+    path and by captures alike, from every thread, except in a thread
+    while it is `paused` (the plain versions the checks themselves run)."""
 
     def __init__(self):
-        self.calls, self.paused = 0, False
+        self.calls = 0
+        self._local = threading.local()
+
+    @property
+    def paused(self):
+        return getattr(self._local, "paused", False)
 
     @contextlib.contextmanager
     def pause(self):
-        self.paused, was = True, self.paused
+        was = self.paused
+        self._local.paused = True
         try:
             yield
         finally:
-            self.paused = was
+            self._local.paused = was
 
     @contextlib.contextmanager
     def active(self):
@@ -1126,11 +1141,13 @@ class IndexAddSpy:
         saved = [(torch.Tensor, "index_add_"), (torch.Tensor, "index_add"),
                  (torch, "index_add")]
         originals = [getattr(o, n) for o, n in saved]
+        lock = threading.Lock()
 
         def wrap(fn):
             def counted(t, *args, **kwargs):
                 if not self.paused and t.is_cuda:
-                    self.calls += 1
+                    with lock:
+                        self.calls += 1
                 return fn(t, *args, **kwargs)
             return counted
 
@@ -3011,9 +3028,11 @@ def _big_form(sess, query, want, tag, exact, chunks):
                   f"again or did not replay once a chunk: {d}")
         else:
             check(not d, f"{tag}: run {run} ran chunked: {d}")
+    launches = read_counts()["group_agg"]
+    check(launches > 0, f"{tag}: group_agg made no launch")
     out = {"first_ms": walls[0], "ms": statistics.median(walls[1:]),
            "warm_ms": walls[1:], "runs": runs,
-           "group_agg": read_counts()["group_agg"], "max_rel_err": err,
+           "group_agg": launches, "max_rel_err": err,
            "base_mib": base / 2 ** 20,
            "peak_allocated_mib": torch.cuda.max_memory_allocated() / 2 ** 20,
            "peak_reserved_mib": torch.cuda.max_memory_reserved() / 2 ** 20}
@@ -3027,6 +3046,43 @@ def _big_form(sess, query, want, tag, exact, chunks):
           f"{out['peak_allocated_mib']:.1f} MiB, peak reserved "
           f"{out['peak_reserved_mib']:.1f} MiB")
     return out
+
+
+def _big_held(sess, forms, n_rows, chunks, spy):
+    """The first run of each (tag, query, want, exact) of `forms` on
+    `sess`, a Session that has run nothing, with every group_agg call
+    outside a capture held against the plain versions (apart from the
+    measured runs, so that the plain versions' memory and time stay out of
+    their numbers). Each form must make group_agg calls, one of them at
+    `n_rows` rows (a chunk's partial program, or the unchunked table), and
+    run in `chunks` chunks. Returns the held records and the group_agg
+    launches of the runs."""
+    held = []
+    ch = sess.executor.chunked.stats
+    reset_counts()
+    with spy.active(), group_agg_held_against_plain(held, spy):
+        for tag, query, want, exact in forms:
+            first, before = len(held), dict(ch)
+            rows = sess.sql(query).to_pylist()
+            if exact:
+                check(rows == want, f"{tag}: the held run differs from the "
+                      f"numpy oracle: {rows[:3]} against {want[:3]}")
+            else:
+                _oracle_equal(f"{tag}: the held run", rows, want)
+            d = _stats_change(before, ch)
+            check(d.get("chunks", 0) == chunks, f"{tag}: the held run did not "
+                  f"run in {chunks} chunk(s): {d}")
+            mine = held[first:]
+            shapes = sorted({(c["n"], c["groups"], c["items"]) for c in mine})
+            check(any(c["n"] == n_rows for c in mine), f"{tag}: no group_agg "
+                  f"call at {n_rows} rows held against the plain versions "
+                  f"(held: {shapes})")
+            print(f"{tag}: a first run on a Session of its own: "
+                  f"{len(mine)} group_agg calls held against the plain "
+                  f"versions, (rows, groups, items) {shapes}; max abs err "
+                  f"against float64 summation "
+                  f"{max((c['max_abs_err'] for c in mine), default=0.0):.3g}")
+    return held, read_counts()["group_agg"]
 
 
 def phase13a(dev=None, n=N_BIG):
@@ -3078,8 +3134,6 @@ def phase13a(dev=None, n=N_BIG):
         out["C chunked"] = _big_form(sess, QUERY_C, want_c,
                                      "phase 13a: Query C chunked", False,
                                      chunks)
-    check(not spy.calls, f"phase 13a: {spy.calls} index_add_ calls on the "
-          "card")
     busy, wall, names = device_ms(sess, QUERY)
     found = kernel_names(names, "sum_count_")
     check(found, "phase 13a: no group_agg kernel in a profiled warm chunked "
@@ -3104,20 +3158,40 @@ def phase13a(dev=None, n=N_BIG):
     del sess, stager
     gc.collect()
     torch.cuda.empty_cache()
+    held, launches = _big_held(session(), [
+        ("phase 13a: Query A chunked", QUERY, want_a, True),
+        ("phase 13a: Query C chunked", QUERY_C, want_c, False)],
+        cc, chunks, spy)
+    out["A, C chunked, held"] = {"group_agg": launches}
+    gc.collect()
+    torch.cuda.empty_cache()
     os.environ["QE_CHUNK_ENGAGE"] = str(2 * cap)
     try:
         sess = session()
         try:
-            out["A unchunked"] = _big_form(
-                sess, QUERY, want_a, "phase 13a: Query A unchunked", True, 0)
+            with spy.active():
+                out["A unchunked"] = _big_form(
+                    sess, QUERY, want_a, "phase 13a: Query A unchunked",
+                    True, 0)
         except torch.cuda.OutOfMemoryError as e:
             # the one failure this phase records: the comparison run's OOM
             out["A unchunked"] = {"oom": str(e).splitlines()[0]}
             print(f"phase 13a: Query A unchunked: out of memory: "
                   f"{out['A unchunked']['oom']}")
         del sess
+        gc.collect()
+        torch.cuda.empty_cache()
+        if "oom" not in out["A unchunked"]:
+            more, launches = _big_held(session(), [
+                ("phase 13a: Query A unchunked", QUERY, want_a, True)],
+                cap, 0, spy)
+            held += more
+            out["A unchunked, held"] = {"group_agg": launches}
     finally:
         os.environ.pop("QE_CHUNK_ENGAGE")
+    check(not spy.calls, f"phase 13a: {spy.calls} index_add_ calls on the "
+          "card")
+    out["held"] = held
     gc.collect()
     torch.cuda.empty_cache()
     return out
@@ -3148,6 +3222,7 @@ def phase13b(tables, dev=None):
     dev = torch.device("cuda") if dev is None else torch.device(dev)
     sess = Session(device=dev)
     data.register(sess, tables)
+    spy = IndexAddSpy()
     coord = Coordinator(device=dev)
     for i in range(STAGE_WORKERS):
         coord.register_worker(f"worker{i}")
@@ -3162,13 +3237,19 @@ def phase13b(tables, dev=None):
         check(not dplan.is_local, f"phase 13b: {q}: planned local")
         want = oracle.run(q, tables)
         keys = oracle.FLOAT_SORT_KEYS.get(q, ())
-        walls, shuffled, err = [], [], 0.0
+        walls, shuffled, err, held = [], [], 0.0, []
         reset_counts()
         cap0, _ = _stage_stats(dx)
         for run in range(1 + STAGE_WARM):
             rows0 = dx.stats.rows_shuffled
+            # the first run's group_agg calls outside a capture (the
+            # partial and final aggregates, every partition's) are held
+            # against the plain versions; the warm runs are timed bare
+            hold = (group_agg_held_against_plain(held, spy) if run == 0
+                    else contextlib.nullcontext())
             t0 = time.perf_counter()
-            rows = dx.execute(plan, sess.sources).to_pylist()
+            with spy.active(), hold:
+                rows = dx.execute(plan, sess.sources).to_pylist()
             walls.append((time.perf_counter() - t0) * 1e3)
             shuffled.append(dx.stats.rows_shuffled - rows0)
             err = max(err, _oracle_equal(f"phase 13b: {q} run {run}", rows,
@@ -3184,10 +3265,14 @@ def phase13b(tables, dev=None):
         warm_captures = (cap2 - cap1) / STAGE_WARM
         warm_capture_ms = (ms2 - ms1) / STAGE_WARM
         stages = [(k, round(ms, 3)) for _, k, ms in dx.last_stages]
+        launches = read_counts()["group_agg"]
+        check(launches > 0 and held, f"phase 13b: {q}: group_agg launched "
+              f"{launches} times, {len(held)} calls held")
+        shapes = sorted({(c["n"], c["groups"], c["items"]) for c in held})
         out[q] = {"first_ms": walls[0], "ms": statistics.median(walls[1:]),
                   "stages": len(dx.last_stages),
                   "rows_shuffled": shuffled[0],
-                  "group_agg": read_counts()["group_agg"],
+                  "group_agg": launches, "held": held,
                   "first_captures": first_captures,
                   "warm_captures": warm_captures,
                   "warm_capture_ms": warm_capture_ms, "max_rel_err": err,
@@ -3200,12 +3285,18 @@ def phase13b(tables, dev=None):
               f"a warm run's captures {warm_captures:g} taking "
               f"{warm_capture_ms:.1f} ms (host clock, summed over the "
               f"workers' threads); "
-              f"group_agg launches {out[q]['group_agg']}; last run's stages "
-              f"(kind, host ms) {stages}")
+              f"group_agg launches {launches}; the first run (its ms "
+              f"included) held {len(held)} group_agg calls against the "
+              f"plain versions, (rows, groups, items) {shapes}, max abs "
+              f"err against float64 summation "
+              f"{max(c['max_abs_err'] for c in held):.3g}; last run's stages"
+              f" (kind, host ms) {stages}")
     st = dx.stats
     print(f"phase 13b: {STAGE_WORKERS} workers, {st.tasks_executed} tasks, "
           f"{st.task_failures} failures, {st.queries_executed} queries")
     check(st.task_failures == 0, "phase 13b: a task failed")
+    check(not spy.calls, f"phase 13b: {spy.calls} index_add_ calls on the "
+          "card")
     return out
 
 
@@ -3232,6 +3323,7 @@ def phase13c(tables, dev=None):
     dev = torch.device("cuda") if dev is None else torch.device(dev)
     servers, threads = [], []
     transport = FlightTransport()
+    spy, held = IndexAddSpy(), []
     reset_counts()
     try:
         for i in range(2):
@@ -3246,9 +3338,12 @@ def phase13c(tables, dev=None):
         for q in ("Q1", "Q6"):
             want = oracle.run(q, tables)
             ms[q] = []
-            for _ in range(2):  # first, warm
+            for run in range(2):  # first (held against plain), warm
+                hold = (group_agg_held_against_plain(held, spy) if run == 0
+                        else contextlib.nullcontext())
                 t0 = time.perf_counter()
-                results = transport.execute_on_all(queries.QUERIES[q])
+                with spy.active(), hold:
+                    results = transport.execute_on_all(queries.QUERIES[q])
                 ms[q].append((time.perf_counter() - t0) * 1e3)
                 check(len(results) == 2, f"phase 13c: {q}: "
                       f"{len(results)} results from 2 workers")
@@ -3261,10 +3356,17 @@ def phase13c(tables, dev=None):
         for t in threads:
             t.join(30)
     launches = read_counts()["group_agg"]
+    check(not spy.calls, f"phase 13c: {spy.calls} index_add_ calls on the "
+          "card")
+    check(launches > 0 and held, f"phase 13c: group_agg launched {launches} "
+          f"times, {len(held)} calls held")
     print(f"phase 13c: FlightTransport.execute_on_all to 2 Flight servers: "
-          f"Q1 and Q6 == numpy oracle from both; ms (first, warm) {ms}; "
-          f"group_agg launches {launches}")
-    return {"ran": True, "ms": ms, "group_agg": launches}
+          f"Q1 and Q6 == numpy oracle from both; ms (first, warm) {ms}, the "
+          f"first runs with {len(held)} group_agg calls held against the "
+          f"plain versions (max abs err against float64 summation "
+          f"{max(c['max_abs_err'] for c in held):.3g}); group_agg launches "
+          f"{launches}")
+    return {"ran": True, "ms": ms, "group_agg": launches, "held": held}
 
 
 def phase13(tables, dev=None):
@@ -3286,10 +3388,14 @@ def phase13(tables, dev=None):
     print(f"phase 13: 13a {t1 - t_phase:.1f} s, 13b {t2 - t1:.1f} s, 13c "
           f"{time.perf_counter() - t2:.1f} s")
     launches = {"13a": {k: r["group_agg"] for k, r in a.items()
-                        if "group_agg" in r},
+                        if isinstance(r, dict) and "group_agg" in r},
                 "13b": {q: r["group_agg"] for q, r in b.items()},
                 "13c": c.get("group_agg", 0)}
-    return {"a": a, "b": b, "c": c, "launches": launches}
+    held = a["held"] + [x for r in b.values() for x in r["held"]] \
+        + c.get("held", [])
+    return {"a": a, "b": b, "c": c, "launches": launches,
+            "max_abs_err": max((x["max_abs_err"] for x in held),
+                               default=0.0)}
 
 
 def main():
@@ -3357,7 +3463,8 @@ def main():
                               "12": services_by_part, "13": p13},
         "max_abs_err": max_err["plain"],
         "max_abs_err_vs_float64": {"1": max_err["float64"], "7": tpch_err,
-                                   "12": services["max_abs_err"]},
+                                   "12": services["max_abs_err"],
+                                   "13": distributed["max_abs_err"]},
         "ms": main_shape["ms"],
         "plain_ms": main_shape["plain_ms"],
         "bound_ms": main_shape["bound_ms"],

@@ -49,7 +49,10 @@ from query_engine_tpu_torch.plan import physical as pp
 
 
 def chunk_engage_rows() -> int:
-    """Capacity from which aggregates execute chunked (pow2)."""
+    """Capacity from which aggregates execute chunked (pow2). The
+    reference's default, kept as a memory guard: on a card whose memory
+    holds the unchunked working set, a chunked query runs slower than the
+    unchunked one (chip_smoke.py phase 13a measures both)."""
     return int(os.environ.get("QE_CHUNK_ENGAGE", 1 << 27))
 
 

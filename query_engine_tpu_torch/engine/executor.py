@@ -596,21 +596,19 @@ class QueryExecutor:
 
     def _partial_avg(self, av, slot, results, gid, batch, grouped, out_cap):
         """The (sum, count) columns of a partial AVG: from its group_agg
-        item when it has one, else from the segment route (group_agg
-        too)."""
+        item when it has one, else from one group_agg call of its own over
+        the segment ids."""
         dev = self.device
         if slot is not None:
             sums, counts = results[slot]
-            counts = counts[:out_cap]
-            s, has = sums[:out_cap].to(torch.float64), counts > 0
         else:
             nseg = batch.capacity if grouped else out_cap
-            s, has = K.segment_aggregate(
-                "sum", av.data.to(torch.float64), av.validity, gid,
-                batch.num_rows, nseg)
-            counts, _ = K.segment_aggregate(
-                "count", av.data, av.validity, gid, batch.num_rows, nseg)
-            s, has, counts = s[:out_cap], has[:out_cap], counts[:out_cap]
+            ok = K.live_mask(batch.capacity, batch.num_rows, dev) \
+                & av.validity
+            sums, counts = group_agg.grouped_sums_counts_multi(
+                [(av.data.to(torch.float64), ok)], gid, nseg)[0]
+        counts = counts[:out_cap]
+        s, has = sums[:out_cap].to(torch.float64), counts > 0
         ones = torch.ones(out_cap, dtype=torch.bool, device=dev)
         return [Column(s, has, DataType.float64(), None),
                 Column(counts, ones, DataType.int64(), None)]
@@ -619,41 +617,51 @@ class QueryExecutor:
         """The combine of a final aggregate: the input's columns after the
         group keys are the partial planes in aggregate order (an AVG's sum
         and count pair included). COUNT and SUM partials add, MIN and MAX
-        take their extreme, AVG divides its summed pair; every sum goes
-        through group_agg (`K.segment_aggregate`)."""
+        take their extreme, AVG divides its summed pair. Every COUNT, SUM
+        and AVG plane is one item of a single group_agg call; MIN and MAX
+        take the segment route (`K.segment_aggregate`)."""
         schema = plan.schema()
         nseg = batch.capacity if plan.group_exprs else out_cap
         n = batch.num_rows
-
-        def combine(func, col):
-            return K.segment_aggregate(func, col.data, col.validity, gid, n,
-                                       nseg)
-
-        cols = []
-        for fi, agg in enumerate(plan.agg_exprs, start=ci):
-            f = schema.field(fi)
-            col = batch.columns[ci]
-            if agg.func is lp.AggFunc.AVG:
-                s, sv = combine("sum", col)
-                c, _ = combine("sum", batch.columns[ci + 1])
-                ci += 2
-                out_d = s.to(torch.float64) / c.clamp(min=1).to(torch.float64)
-                cols.append(Column(out_d[:out_cap], (sv & (c > 0))[:out_cap],
-                                   f.data_type, None))
+        lm = K.live_mask(batch.capacity, n, self.device)
+        items, planes = [], []  # planes: per aggregate, its items or column
+        for agg in plan.agg_exprs:
+            if agg.func not in _COMBINE and agg.func is not lp.AggFunc.AVG:
+                raise ExecutionError(f"{agg.name()} has no final combine")
+            width = 2 if agg.func is lp.AggFunc.AVG else 1
+            cols = batch.columns[ci: ci + width]
+            ci += width
+            if agg.func in (lp.AggFunc.MIN, lp.AggFunc.MAX):
+                planes.append(cols[0])
                 continue
-            ci += 1
-            if agg.func not in _COMBINE:
-                raise ExecutionError(
-                    f"{agg.name()} has no final combine")
-            vals, valid = combine(_COMBINE[agg.func], col)
-            if agg.func is lp.AggFunc.COUNT:
-                valid = torch.ones_like(valid)
-            out_d = vals[:out_cap]
-            if col.dictionary is not None:
-                out_d = out_d.to(torch.int32)
-            cols.append(Column(out_d, valid[:out_cap], f.data_type,
-                               col.dictionary))
-        return cols
+            planes.append(list(range(len(items), len(items) + width)))
+            items += [(c.data, lm & c.validity) for c in cols]
+        results = (group_agg.grouped_sums_counts_multi(items, gid, nseg)
+                   if items else [])
+        out = []
+        for fi, (agg, src) in enumerate(zip(plan.agg_exprs, planes),
+                                        start=len(plan.group_exprs)):
+            f = schema.field(fi)
+            if isinstance(src, Column):
+                vals, valid = K.segment_aggregate(
+                    _COMBINE[agg.func], src.data, src.validity, gid, n, nseg)
+                out_d = vals[:out_cap]
+                if src.dictionary is not None:
+                    out_d = out_d.to(torch.int32)
+                out.append(Column(out_d, valid[:out_cap], f.data_type,
+                                  src.dictionary))
+                continue
+            s, cnt = results[src[0]]
+            s, has = s[:out_cap], cnt[:out_cap] > 0
+            if agg.func is lp.AggFunc.AVG:
+                c = results[src[1]][0][:out_cap]
+                out_d = s.to(torch.float64) / c.clamp(min=1).to(torch.float64)
+                out.append(Column(out_d, has & (c > 0), f.data_type, None))
+            elif agg.func is lp.AggFunc.COUNT:
+                out.append(Column(s, torch.ones_like(has), f.data_type, None))
+            else:  # SUM
+                out.append(Column(s, has, f.data_type, None))
+        return out
 
     def _group_ids_best(self, gvals, num_rows):
         """Returns (gid, ng, rep, static_bound). static_bound is the dense

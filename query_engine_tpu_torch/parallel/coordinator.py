@@ -46,6 +46,10 @@ class Worker:
         self._active = 0
         self._draining = False
         self._lock = threading.RLock()
+        # one fragment at a time on the executor: its compiled programs
+        # replay into fixed input and output planes, so two tasks at once
+        # would overwrite each other's
+        self._exec_lock = threading.Lock()
         self.executor = QueryExecutor(self.device)
 
     @property
@@ -89,7 +93,8 @@ class Worker:
             raise DistributedError("task has no plan fragment")
         if callable(frag):
             return frag()
-        return self.executor.execute(frag)
+        with self._exec_lock:
+            return self.executor.execute(frag)
 
     def drain(self, timeout_s: float = 10.0) -> None:
         """Graceful shutdown (worker.rs:153-164)."""

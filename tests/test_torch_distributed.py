@@ -19,6 +19,7 @@ on CPU Coordinators and workers, plus
 Integers exactly, floats to rtol 1e-9.
 """
 
+import collections
 import math
 import threading
 import time
@@ -535,6 +536,70 @@ def test_failed_task_is_retried(cluster, monkeypatch):
     same_rows(out.to_pylist(), s.sql(sql).to_pylist())
     assert dex.stats.task_failures == 1
     assert dex.fault.stats.task_retries == 1
+
+
+def test_worker_runs_one_fragment_at_a_time(monkeypatch):
+    """Two stage walks at once on a coordinator with ONE worker: the
+    worker takes both queries' tasks, and its executor (captures stood in
+    on the CPU, tests/torch_graph_stand_in.py: a replay reads the planes
+    it captured and overwrites its outputs, as a CUDA graph does) runs one
+    fragment at a time, so each query still gets its own table's rows."""
+    from torch_graph_stand_in import stand_in_graphs
+
+    c = Coordinator(device="cpu")
+    runner = c.runner(c.register_worker("host0:50050"))
+    stand_in_graphs(runner.executor.pipeline)
+    # the threads inside the executor (its execute recurses into itself)
+    inside, state = collections.Counter(), {"most": 0}
+    lock = threading.Lock()
+
+    def watched(plan, real=runner.executor.execute):
+        me = threading.get_ident()
+        with lock:
+            inside[me] += 1
+            state["most"] = max(state["most"], len(inside))
+        try:
+            time.sleep(0.005)
+            return real(plan)
+        finally:
+            with lock:
+                inside[me] -= 1
+                if not inside[me]:
+                    del inside[me]
+
+    monkeypatch.setattr(runner.executor, "execute", watched)
+    sql = "SELECT k, SUM(v), COUNT(*) FROM t WHERE v > 100 GROUP BY k"
+    batches = [ColumnBatch.from_pydict(make_data(400, 11, seed))
+               for seed in (3, 4)]
+    wants = []
+    for b in batches:
+        s = Session(device="cpu")
+        s.register_table("t", b)
+        wants.append(s.sql(sql).to_pylist())
+    got, errors = [[], []], []
+
+    def run(i):
+        try:
+            for _ in range(3):
+                got[i].append(DistributedExecutor(c).execute(
+                    _logical(sql, {"t": batches[i].schema}),
+                    {"t": MemoryDataSource(batch=batches[i], name="t")},
+                ).to_pylist())
+        except Exception as e:  # noqa: BLE001 - reraised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors, errors
+    assert state["most"] == 1
+    assert runner.executor.pipeline.stats["captures"] > 0
+    for rows, want in zip(got, wants):
+        assert len(rows) == 3
+        for r in rows:
+            same_rows(r, want)
 
 
 def test_partition_results_stay_with_their_partition(cluster):

@@ -249,17 +249,22 @@ def test_partial_and_final_launch_group_agg_on_the_card_route(card_route, i):
 
 def test_final_mode_combines_through_the_segment_route(card_route,
                                                        monkeypatch):
-    """Each partial plane of a final aggregate is combined once by
-    `segment_aggregate` (its COUNT and SUM through group_agg): COUNT and SUM
-    partials and AVG's pair add, MIN and MAX take their extreme."""
+    """A final aggregate's COUNT and SUM partials and AVG's pair are the
+    items of one group_agg call over the segment ids: they add. MIN and
+    MAX take their extreme through `segment_aggregate`, whose NULL test is
+    a group_agg count of its own."""
     from query_engine_tpu_torch.ops import kernels as TK
 
-    funcs = []
-    real = TK.segment_aggregate
+    funcs, multi = [], []
+    real, real_multi = TK.segment_aggregate, tga.grouped_sums_counts_multi
 
     def spy(func, *args, **kwargs):
         funcs.append(func)
         return real(func, *args, **kwargs)
+
+    def spy_multi(items, gid, num_groups):
+        multi.append(len(items))
+        return real_multi(items, gid, num_groups)
 
     (_, _), (ts, tagg) = _plans(_sql(0))
     tex = QueryExecutor("cpu")
@@ -267,16 +272,57 @@ def test_final_mode_combines_through_the_segment_route(card_route,
         _Materialized(tex.execute(tagg.input)), list(tagg.group_exprs),
         list(tagg.agg_exprs), mode="partial"))
     monkeypatch.setattr(TK, "segment_aggregate", spy)
+    monkeypatch.setattr(tga, "grouped_sums_counts_multi", spy_multi)
     launches = card_route["kernel"]
     f = partial.schema.field(0)
     out = tex.execute(pp.PHashAggregate(
         _Materialized(partial),
         [lp.ColumnRef(0, f.name, f.data_type, f.nullable)],
         list(tagg.agg_exprs), mode="final"))
-    # COUNT(*), SUM(v), AVG(v)'s sum and count, MIN(v), MAX(v)
-    assert funcs == ["sum", "sum", "sum", "sum", "min", "max"]
-    assert card_route["kernel"] - launches >= 6
+    # the direct group ids' count; COUNT(*), SUM(v) and AVG(v)'s sum and
+    # count in one call; MIN(v)'s and MAX(v)'s NULL tests
+    assert funcs == ["min", "max"]
+    assert multi == [1, 4, 1, 1]
+    assert card_route["kernel"] - launches == 4
     _same_rows(out.to_pylist(), ts.sql(_sql(0)).to_pylist())
+
+
+def test_partial_avg_takes_sum_and_count_from_one_call(card_route,
+                                                       monkeypatch):
+    """A partial AVG off the group_agg item route (a float key: no dense
+    bound, so the segment route) takes its sum and count planes from one
+    group_agg call."""
+    multi = []
+    real_multi = tga.grouped_sums_counts_multi
+
+    def spy_multi(items, gid, num_groups):
+        multi.append(len(items))
+        return real_multi(items, gid, num_groups)
+
+    sql = "SELECT x, AVG(v) AS a FROM t GROUP BY x"
+    ts = Session(device="cpu")
+    ts.register_table("t", TABLE)
+    tagg = _find_agg(Lowering(ts.sources).lower(ts.optimizer.optimize(
+        ts.planner.create_logical_plan(parse_sql(sql)))), pp)
+    tex = QueryExecutor("cpu")
+    inp = tex.execute(tagg.input)
+    monkeypatch.setattr(tga, "grouped_sums_counts_multi", spy_multi)
+    launches = card_route["kernel"]
+    partial = tex.execute(pp.PHashAggregate(
+        _Materialized(inp), list(tagg.group_exprs), list(tagg.agg_exprs),
+        mode="partial"))
+    assert multi == [1] and card_route["kernel"] - launches == 1
+    want = {}
+    for k, v in zip(TABLE["x"], TABLE["v"]):
+        s, c = want.get(k, (0, 0))
+        want[k] = (s + (v or 0), c + (v is not None))
+    got = {r[0]: r[1:] for r in partial.to_pylist()}
+    assert got.keys() == want.keys()
+    for k, (s, c) in want.items():
+        assert got[k][1] == c  # the count, exactly
+        assert (got[k][0] is None) == (c == 0)
+        if c:
+            assert math.isclose(got[k][0], s, rel_tol=RTOL)
 
 
 @pytest.mark.parametrize("mode", ["partial", "final"])
