@@ -235,6 +235,33 @@ Phase 13 runs the chunked aggregate and the host stage walk. 13a: a fact
          13b's and 13c's first runs (the partial and final aggregates of
          every partition) held against the plain versions; no
          `index_add_` on the card.
+Phase 14 runs the mesh building blocks (`parallel/mesh.py`, `spmd.py`,
+         `overlap.py`, `dict_merge.py`) on a virtual mesh of 4 shards on
+         the card (`make_mesh(["cuda:0"] * 4)`, one host thread a shard),
+         over phase 7's host tables: lineitem's 6,001,215 rows in shards of
+         2^21, filled front to back, and orders'. (a) The distributed
+         aggregate by l_orderkey (COUNT(*), SUM(l_quantity),
+         AVG(l_extendedprice), MIN and MAX(l_shipdate), about 1.5M groups,
+         no group capacity); (b) the same by (l_returnflag, l_linestatus)
+         with a group capacity of 128; (c) join counts of lineitem and
+         orders on the order key, salt 1 and 2; (d) the sampled range sort
+         by l_extendedprice carrying l_orderkey; (e) the overlapped
+         (4 chunks) and the sequential exchange-aggregate of l_quantity by
+         l_orderkey; (f) ingest_sharded_strings of l_shipmode in 4 shards;
+         (g) join counts on a key that 1/7 of the rows share: the overflow
+         output must trip at the default bound, and the caller's
+         grow-and-retry (factor doubled) must give the exact join size.
+         (c), (d) retry the same way when they overflow, and count it.
+         Each result against a numpy oracle: every group on one shard and
+         equal to the oracle's (AVG to rtol 1e-9), the join size, each
+         shard sorted and below the next, the keys equal to np.sort, the
+         bucket sums (numpy's splitmix64 owner), the global sorted codes.
+         Per part (a)-(f): the first run's ms, the median and min-max of 5
+         warm runs (host clock), one profiled warm run's kernel ms and
+         group_agg launches, rows and bytes exchanged, retries. Every
+         group_agg call of a first run is held against the plain versions;
+         (a), (b) and (e) must launch group_agg; no `index_add_` on the
+         card.
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after; a kernel of the path that was not launched fails the run.
@@ -3398,6 +3425,467 @@ def phase13(tables, dev=None):
                                default=0.0)}
 
 
+# the mesh building blocks at SF1 (phase 14)
+MESH_SHARDS = 4
+MESH_WARM = 5
+MESH_GROUP_CAP = 128      # (b): (l_returnflag, l_linestatus) has 6 groups
+OVERLAP_CHUNKS = 4
+RETRY_TRIES = 4           # grow-and-retry attempts before failing
+MESH_GROUP_AGG = ("a", "b", "e overlapped", "e sequential")
+
+
+def _np_splitmix64(x):
+    """splitmix64 over uint64 lanes (numpy wraps the products)."""
+    x = x.astype(np.uint64)
+    x = (x ^ (x >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
+    x = (x ^ (x >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
+    return x ^ (x >> np.uint64(31))
+
+
+def _host(t):
+    return t.cpu().numpy()
+
+
+def _shard_live(counts, per):
+    """The live slots [s * per, s * per + counts[s]) of a sharded plane."""
+    counts = np.minimum(np.asarray(counts).reshape(-1), per)
+    return (np.arange(len(counts) * per) % per) < np.repeat(counts, per)
+
+
+def _with_retry(make, args, factor):
+    """The caller's grow-and-retry: run make(factor)(*args), doubling the
+    receive factor while the overflow output is non-zero. Returns
+    (outputs, retries, factor)."""
+    retries = 0
+    while True:
+        out = make(factor)(*args)
+        if int(out[-1].sum()) == 0:
+            return out, retries, factor
+        retries += 1
+        check(retries < RETRY_TRIES, f"overflow after {retries} retries "
+              f"(factor {factor})")
+        factor *= 2
+
+
+def _mesh_part(tag, fn, verify, mesh, spy, want_group_agg):
+    """One part of phase 14: a first run with every group_agg call held
+    against the plain versions, MESH_WARM warm runs (host clock, to the
+    end of a synchronize), one profiled warm run; the first and the last
+    warm run's results checked by `verify`, which returns what it
+    measured."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from query_engine_tpu_torch.ops import group_agg
+
+    held = []
+    reset_counts()
+    stats0 = dict(mesh.stats)
+    torch.cuda.synchronize()
+    with spy.active(), group_agg_held_against_plain(held, spy):
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        first = (time.perf_counter() - t0) * 1e3
+    launches = read_counts()["group_agg"]
+    moved = mesh.stats["bytes_exchanged"] - stats0["bytes_exchanged"]
+    collectives = mesh.stats["collectives"] - stats0["collectives"]
+    info = verify(res)
+    warm = []
+    with spy.active():
+        for _ in range(MESH_WARM):
+            t0 = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            warm.append((time.perf_counter() - t0) * 1e3)
+    verify(res)
+    del res
+    cuda = torch.autograd.DeviceType.CUDA
+    with spy.active(), profile(activities=[ProfilerActivity.CPU,
+                                           ProfilerActivity.CUDA]) as prof:
+        l0 = group_agg.launches
+        res = fn()
+        torch.cuda.synchronize()
+        prof_launches = group_agg.launches - l0
+    del res
+    events = prof.key_averages()
+    kernel_ms = sum(e.self_device_time_total for e in events
+                    if e.device_type == cuda) / 1e3
+    agg_ms = sum(e.self_device_time_total for e in events
+                 if e.device_type == cuda
+                 and ("sum_count_" in e.key or "float_absmax" in e.key)) / 1e3
+    top = sorted((e for e in events if e.device_type == cuda),
+                 key=lambda e: -e.self_device_time_total)[:4]
+    top = [(e.key[:48], round(e.self_device_time_total / 1e3, 3), e.count)
+           for e in top]
+    if want_group_agg:
+        check(launches > 0 and held, f"phase 14 ({tag}): group_agg launched "
+              f"{launches} times, {len(held)} calls held")
+    err = max((c["max_abs_err"] for c in held), default=0.0)
+    rec = {"first_ms": first, "ms": statistics.median(warm),
+           "min_ms": min(warm), "max_ms": max(warm),
+           "kernel_ms": kernel_ms, "group_agg_kernel_ms": agg_ms,
+           "group_agg": launches, "profiled_group_agg": prof_launches,
+           "held": len(held), "max_abs_err": err,
+           "bytes_exchanged": moved, "collectives": collectives,
+           "top_kernels": top, **info}
+    shapes = sorted({(c["n"], c["groups"], c["items"]) for c in held})
+    extra = ", ".join(f"{k} {v}" for k, v in info.items())
+    print(f"phase 14 ({tag}): == numpy oracle on the first and last warm "
+          f"run; first {first:.1f} ms, warm median {rec['ms']:.1f} ms "
+          f"({rec['min_ms']:.1f}-{rec['max_ms']:.1f}, {MESH_WARM} runs, "
+          f"host clock); profiled warm run {kernel_ms:.3f} ms of kernel "
+          f"time, group_agg {agg_ms:.3f} ms in {prof_launches} launches; "
+          f"first run's group_agg launches {launches}, {len(held)} held "
+          f"against the plain versions, (rows, groups, items) {shapes}, "
+          f"max abs err against float64 summation {err:.3g}; "
+          f"{collectives} collectives moving {moved:,} bytes between "
+          f"shards; {extra}; top kernels (name, ms, launches) {top}")
+    return rec
+
+
+def _mesh_oracles(tables):
+    """numpy oracles of phase 14 over lineitem and orders."""
+    li, orders = tables["lineitem"], tables["orders"]
+    c = li.columns
+    okey, qty = c["l_orderkey"], c["l_quantity"]
+    price, ship = c["l_extendedprice"], c["l_shipdate"]
+    n_ord = orders.num_rows
+    o = {"li": li, "orders": orders}
+
+    def grouped(g, size):
+        cnt = np.bincount(g, minlength=size)
+        mn = np.full(size, np.iinfo(np.int64).max)
+        mx = np.full(size, np.iinfo(np.int64).min)
+        np.minimum.at(mn, g, ship)
+        np.maximum.at(mx, g, ship)
+        return {"count": cnt,
+                "sum": np.bincount(g, weights=qty, minlength=size
+                                   ).astype(np.int64),
+                "price": np.bincount(g, weights=price, minlength=size),
+                "min": mn, "max": mx}
+
+    o["a"] = grouped(okey, n_ord)
+    n_ls = len(li.dicts["l_linestatus"])
+    o["n_ls"] = n_ls
+    o["b"] = grouped(c["l_returnflag"].astype(np.int64) * n_ls
+                     + c["l_linestatus"], len(li.dicts["l_returnflag"])
+                     * n_ls)
+    o_count = np.bincount(orders.columns["o_orderkey"], minlength=n_ord)
+    o["o_count"] = o_count
+    o["join"] = int(o_count[okey].sum())
+    o["sorted_price"] = np.sort(price)
+    o["sorted_okey"] = np.sort(okey)
+    owner = (_np_splitmix64(okey) % np.uint64(MESH_SHARDS)).astype(np.int64)
+    from query_engine_tpu_torch.parallel.overlap import BUCKET_CAP
+    flat = owner * BUCKET_CAP + (okey // MESH_SHARDS) % BUCKET_CAP
+    o["bucket_sums"] = np.bincount(flat, weights=qty, minlength=MESH_SHARDS
+                                   * BUCKET_CAP).astype(np.int64)
+    o["bucket_counts"] = np.bincount(flat, minlength=MESH_SHARDS * BUCKET_CAP)
+    return o
+
+
+def _check_grouped(tag, out, want, keys_of, n_keys):
+    """A distributed aggregate's outputs (COUNT(*), SUM(l_quantity),
+    AVG(l_extendedprice), MIN and MAX(l_shipdate)) against the oracle:
+    every group on one shard, each present group once."""
+    ng = _host(out[-1])
+    per = out[0].shape[0] // MESH_SHARDS
+    live = _shard_live(ng, per)
+    planes = [_host(p)[live] for p in out[:-1]]
+    for v in planes[n_keys: 2 * n_keys]:
+        check(v.all(), f"phase 14 ({tag}): a NULL group key")
+    g = keys_of(planes[:n_keys])
+    check(len(np.unique(g)) == len(g), f"phase 14 ({tag}): a group split "
+          "across shards")
+    present = np.nonzero(want["count"])[0]
+    check(np.array_equal(np.sort(g), present), f"phase 14 ({tag}): "
+          f"{len(g)} groups, the oracle {len(present)}")
+    cnt, sq, avs, avc, mn, mx = planes[2 * n_keys::2]
+    oks = planes[2 * n_keys + 1::2]
+    check(all(ok.all() for ok in oks), f"phase 14 ({tag}): a NULL "
+          "aggregate")
+    check(np.array_equal(cnt, want["count"][g]), f"phase 14 ({tag}): "
+          "COUNT(*) differs")
+    check(np.array_equal(sq, want["sum"][g]), f"phase 14 ({tag}): "
+          "SUM(l_quantity) differs")
+    check(np.array_equal(avc, want["count"][g].astype(np.float64)),
+          f"phase 14 ({tag}): AVG's count differs")
+    check(np.array_equal(mn, want["min"][g]) and np.array_equal(
+        mx, want["max"][g]), f"phase 14 ({tag}): MIN/MAX differ")
+    avg, want_avg = avs / avc, want["price"][g] / want["count"][g]
+    rel = float(np.max(np.abs(avg - want_avg) / np.abs(want_avg)))
+    check(rel <= RTOL, f"phase 14 ({tag}): AVG(l_extendedprice) max rel "
+          f"err {rel:.3g} above {RTOL}")
+    return {"groups": len(g), "avg_max_rel_err": rel}
+
+
+def phase14(tables, dev=None):
+    """The mesh building blocks at SF1 on a virtual mesh of MESH_SHARDS
+    shards on one card: the distributed aggregate by l_orderkey (a) and
+    by (l_returnflag, l_linestatus) (b), join counts of lineitem and
+    orders with salt 1 and 2 (c), the sampled range sort by
+    l_extendedprice (d), the overlapped and the sequential
+    exchange-aggregate (e), sharded string ingest (f), and one exchange
+    that overflows and is retried (g); each against a numpy oracle."""
+    import gc
+
+    import torch
+
+    from query_engine_tpu_torch.parallel import spmd
+    from query_engine_tpu_torch.parallel.dict_merge import (
+        ingest_sharded_strings,
+    )
+    from query_engine_tpu_torch.parallel.mesh import ShardedTable, make_mesh
+    from query_engine_tpu_torch.parallel.overlap import (
+        make_overlapped_exchange_aggregate,
+        make_sequential_exchange_aggregate,
+    )
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda") if dev is None else torch.device(dev)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_mesh([dev] * MESH_SHARDS)
+    t0 = time.perf_counter()
+    want = _mesh_oracles(tables)
+    li, orders = want["li"], want["orders"]
+    oracle_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    st = ShardedTable(li.to_batch(dev), mesh)
+    ost = ShardedTable(orders.to_batch(dev), mesh)
+    torch.cuda.synchronize()
+    shard_s = time.perf_counter() - t0
+    col = {f.name: i for i, f in enumerate(st.schema)}
+    ocol = {f.name: i for i, f in enumerate(ost.schema)}
+    rows = _host(st.shard_rows)
+    print(f"phase 14: {mesh}; lineitem {li.num_rows:,} rows in shards of "
+          f"{st.shard_capacity:,} (live {rows.tolist()}), orders "
+          f"{orders.num_rows:,} in shards of {ost.shard_capacity:,}; "
+          f"sharded in {shard_s:.2f} s, oracles {oracle_s:.2f} s")
+    spy = IndexAddSpy()
+    parts = {}
+
+    def d(name):
+        return st.datas[col[name]]
+
+    def v(name):
+        return st.valids[col[name]]
+
+    aggs = [("count_star", -1), ("sum", 0), ("avg", 1), ("min", 2),
+            ("max", 2)]
+    agg_args = [d("l_quantity"), d("l_extendedprice"), d("l_shipdate"),
+                v("l_quantity"), v("l_extendedprice"), v("l_shipdate")]
+
+    # (a) by l_orderkey, every live row its own potential group
+    prog_a = spmd.make_distributed_aggregate(mesh, aggs, 3)
+    okey_np = li.columns["l_orderkey"]
+    partial = sum(int(np.count_nonzero(np.bincount(
+        okey_np[s: s + int(k)]))) if k else 0 for s, k in zip(
+        np.concatenate([[0], np.cumsum(rows)[:-1]]), rows))
+    parts["a"] = _mesh_part(
+        "a: COUNT(*), SUM, AVG, MIN, MAX by l_orderkey",
+        lambda: prog_a(d("l_orderkey"), v("l_orderkey"), st.shard_rows,
+                       *agg_args),
+        lambda out: {**_check_grouped("a", out, want["a"],
+                                      lambda k: k[0], 1),
+                     "partial_groups_exchanged": partial},
+        mesh, spy, True)
+
+    # (b) by (l_returnflag, l_linestatus), group capacity 128
+    n_ls = want["n_ls"]
+    prog_b = spmd.make_distributed_aggregate(mesh, aggs, 3, n_keys=2,
+                                             group_capacity=MESH_GROUP_CAP)
+    parts["b"] = _mesh_part(
+        f"b: the same by (l_returnflag, l_linestatus), group capacity "
+        f"{MESH_GROUP_CAP}",
+        lambda: prog_b(d("l_returnflag"), d("l_linestatus"),
+                       v("l_returnflag"), v("l_linestatus"), st.shard_rows,
+                       *agg_args),
+        lambda out: _check_grouped(
+            "b", out, want["b"],
+            lambda k: k[0].astype(np.int64) * n_ls + k[1], 2),
+        mesh, spy, True)
+
+    # (c) lineitem join orders on the order key
+    join_args = [d("l_orderkey"), v("l_orderkey"), st.shard_rows,
+                 ost.datas[ocol["o_orderkey"]], ost.valids[ocol["o_orderkey"]],
+                 ost.shard_rows, d("l_extendedprice"), v("l_extendedprice"),
+                 ost.datas[ocol["o_totalprice"]],
+                 ost.valids[ocol["o_totalprice"]]]
+
+    def join_check(tag, salt):
+        def verify(res):
+            out, retries, factor = res
+            total = int(out[0].sum())
+            left, right = int(out[1].sum()), int(out[2].sum())
+            check(total == want["join"], f"phase 14 ({tag}): join size "
+                  f"{total:,}, the oracle {want['join']:,}")
+            check(left == li.num_rows and right == orders.num_rows * salt,
+                  f"phase 14 ({tag}): {left:,} left and {right:,} right "
+                  "rows arrived")
+            per = out[3].shape[0] // MESH_SHARDS
+            counts = _host(out[3])[_shard_live(_host(out[1]), per)]
+            check(int(counts.sum()) == total, f"phase 14 ({tag}): per-row "
+                  "counts do not add up to the total")
+            return {"join_rows": total, "rows_exchanged": left + right,
+                    "overflow_retries": retries, "recv_factor": factor}
+        return verify
+
+    for salt in (1, 2):
+        make = (lambda f, salt=salt: spmd.make_distributed_join_counts(
+            mesh, 1, 1, salt=salt, recv_factor=f))
+        parts[f"c salt={salt}"] = _mesh_part(
+            f"c: lineitem JOIN orders ON l_orderkey = o_orderkey, join "
+            f"counts, salt {salt}",
+            lambda make=make: _with_retry(make, join_args,
+                                          spmd.DEFAULT_RECV_FACTOR),
+            join_check(f"c salt={salt}", salt), mesh, spy, False)
+
+    # (d) the sampled range sort by l_extendedprice, l_orderkey carried
+    sort_factor = spmd.sort_recv_factor(MESH_SHARDS, 1024 * MESH_SHARDS)
+
+    def sort_check(res):
+        out, retries, factor = res
+        counts = _host(out[-2])
+        check(int(counts.sum()) == li.num_rows, f"phase 14 (d): "
+              f"{int(counts.sum()):,} rows after the sort")
+        per = out[0].shape[0] // MESH_SHARDS
+        keys, payload = _host(out[0]), _host(out[1])
+        lows, highs = [], []
+        for s in range(MESH_SHARDS):
+            k = keys[s * per: s * per + counts[s]]
+            check(bool(np.all(k[1:] >= k[:-1])), f"phase 14 (d): shard {s} "
+                  "is not sorted")
+            if len(k):
+                lows.append(k[0])
+                highs.append(k[-1])
+        check(all(h <= lo for h, lo in zip(highs, lows[1:])),
+              "phase 14 (d): a shard's largest key exceeds the next "
+              "shard's smallest")
+        live = _shard_live(counts, per)
+        check(np.array_equal(keys[live], want["sorted_price"]),
+              "phase 14 (d): the concatenated keys differ from np.sort")
+        check(np.array_equal(np.sort(payload[live]), want["sorted_okey"]),
+              "phase 14 (d): the carried l_orderkey rows differ")
+        return {"rows_exchanged": int(counts.sum()),
+                "rows_by_shard": counts.tolist(),
+                "overflow_retries": retries, "recv_factor": factor}
+
+    sort_args = [d("l_extendedprice"), v("l_extendedprice"), st.shard_rows,
+                 d("l_orderkey"), v("l_orderkey")]
+    parts["d"] = _mesh_part(
+        "d: ORDER BY l_extendedprice over the mesh",
+        lambda: _with_retry(lambda f: spmd.make_distributed_sort(
+            mesh, 1, recv_factor=f), sort_args, sort_factor),
+        sort_check, mesh, spy, False)
+
+    # (e) the overlapped and the sequential exchange-aggregate
+    ov = make_overlapped_exchange_aggregate(mesh, OVERLAP_CHUNKS)
+    exch, agg = make_sequential_exchange_aggregate(mesh)
+    e_args = [d("l_orderkey"), v("l_orderkey"), d("l_quantity"),
+              st.shard_rows]
+    e_out = {}
+
+    def bucket_check(tag):
+        def verify(out):
+            sums, cnts = _host(out[0]), _host(out[1])
+            check(np.array_equal(sums, want["bucket_sums"])
+                  and np.array_equal(cnts, want["bucket_counts"]),
+                  f"phase 14 ({tag}): bucket sums or counts differ")
+            e_out[tag] = (sums, cnts)
+            return {"rows_exchanged": int(cnts.sum())}
+        return verify
+
+    parts["e overlapped"] = _mesh_part(
+        f"e: overlapped exchange-aggregate, {OVERLAP_CHUNKS} chunks",
+        lambda: ov(*e_args), bucket_check("e overlapped"), mesh, spy, True)
+    parts["e sequential"] = _mesh_part(
+        "e: sequential exchange, then aggregate",
+        lambda: agg(*exch(*e_args)), bucket_check("e sequential"), mesh,
+        spy, True)
+    check(all(np.array_equal(a, b) for a, b in zip(
+        e_out["e overlapped"], e_out["e sequential"])),
+          "phase 14 (e): overlapped and sequential differ")
+
+    # (f) sharded string ingest of l_shipmode
+    modes = li.dicts["l_shipmode"][li.columns["l_shipmode"]]
+    shard_vals = [a.tolist() for a in np.array_split(modes, MESH_SHARDS)]
+    global_vals = np.unique(modes)
+
+    def ingest_check(res):
+        codes, valid, nrows, gdict = res
+        check(list(gdict.values) == list(global_vals), "phase 14 (f): the "
+              "merged dictionary differs from the sorted global values")
+        check(nrows.tolist() == [len(x) for x in shard_vals],
+              "phase 14 (f): rows per shard differ")
+        live = _shard_live(nrows, st.shard_capacity)
+        want_codes = np.searchsorted(global_vals, modes)
+        check(np.array_equal(_host(codes)[live], want_codes)
+              and bool(_host(valid)[live].all())
+              and not bool(_host(valid)[~live].any()),
+              "phase 14 (f): codes differ from the global sorted codes")
+        return {"values": len(gdict)}
+
+    parts["f"] = _mesh_part(
+        "f: ingest_sharded_strings of l_shipmode",
+        lambda: ingest_sharded_strings(mesh, shard_vals, st.shard_capacity),
+        ingest_check, mesh, spy, False)
+
+    # (g) a hot key overflows the default bound; grow and retry
+    air = li.code("l_shipmode", "AIR")
+    hot_key = int(orders.columns["o_orderkey"][0])
+    skew = torch.where(d("l_shipmode") == air, hot_key, d("l_orderkey"))
+    skew_np = np.where(li.columns["l_shipmode"] == air, hot_key, okey_np)
+    skew_join = int(want["o_count"][skew_np].sum())
+    g_args = [skew] + join_args[1:]
+    attempts = []
+    factor = spmd.DEFAULT_RECV_FACTOR
+    t0 = time.perf_counter()
+    with spy.active():
+        while True:
+            t1 = time.perf_counter()
+            out = spmd.make_distributed_join_counts(
+                mesh, 1, 1, recv_factor=factor)(*g_args)
+            ovf = int(out[-1].sum())
+            attempts.append({"recv_factor": factor, "overflow": ovf,
+                             "ms": (time.perf_counter() - t1) * 1e3})
+            if ovf == 0:
+                break
+            check(len(attempts) < RETRY_TRIES, "phase 14 (g): overflow "
+                  f"after {len(attempts)} attempts")
+            factor *= 2
+    g_total = int(out[0].sum())
+    check(attempts[0]["overflow"] > 0, "phase 14 (g): the skewed exchange "
+          "did not overflow at the default factor")
+    check(g_total == skew_join, f"phase 14 (g): join size {g_total:,} after "
+          f"the retry, the oracle {skew_join:,}")
+    parts["g"] = {"attempts": attempts, "join_rows": g_total,
+                  "ms": (time.perf_counter() - t0) * 1e3,
+                  "hot_rows": int((skew_np == hot_key).sum())}
+    print(f"phase 14 (g): {parts['g']['hot_rows']:,} rows on one key: "
+          f"overflow {attempts[0]['overflow']:,} at factor "
+          f"{attempts[0]['recv_factor']}, exact after "
+          f"{len(attempts) - 1} grow-and-retry ({g_total:,} rows == "
+          f"oracle); attempts {attempts}")
+    check(not spy.calls, f"phase 14: {spy.calls} index_add_ calls on the "
+          "card")
+    for tag in MESH_GROUP_AGG:
+        check(parts[tag]["group_agg"] > 0, f"phase 14 ({tag}): no group_agg "
+              "launch")
+    del st, ost, skew
+    gc.collect()
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    print(f"phase 14: {seconds:.1f} s; mesh stats {mesh.stats}")
+    timed = {k: r for k, r in parts.items() if "group_agg" in r}
+    return {"parts": parts, "seconds": seconds,
+            "launches": {k: r["group_agg"] for k, r in timed.items()},
+            "max_abs_err": max(r["max_abs_err"] for r in timed.values())}
+
+
 def main():
     import torch
 
@@ -3429,6 +3917,7 @@ def main():
         session_surface = phase11(sf1_tables)
         services = phase12(sf1_tables)
         distributed = phase13(sf1_tables)
+        mesh = phase14(sf1_tables)
     except CheckFailed as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -3445,6 +3934,7 @@ def main():
     p13 = distributed["launches"]
     p13_launches = sum(p13["13a"].values()) + sum(p13["13b"].values()) \
         + p13["13c"]
+    p14 = mesh["launches"]
     tpch_err = max((c["max_abs_err"] for calls in tpch_held.values()
                     for c in calls), default=0.0)
     print(json.dumps({"kernels": [{
@@ -3455,16 +3945,19 @@ def main():
         "launches": agg_launches + tpch_launches
         + sum(windows_by_query.values()) + sum(scalar_by_query.values())
         + sum(ordered_by_query.values()) + sum(surface_by_group.values())
-        + sum(services_by_part.values()) + p13_launches,
+        + sum(services_by_part.values()) + p13_launches
+        + sum(p14.values()),
         "launches_by_phase": {"4": agg_launches, "7": tpch_by_query,
                               "8": windows_by_query, "9": scalar_by_query,
                               "10": ordered_by_query,
                               "11": surface_by_group,
-                              "12": services_by_part, "13": p13},
+                              "12": services_by_part, "13": p13,
+                              "14": p14},
         "max_abs_err": max_err["plain"],
         "max_abs_err_vs_float64": {"1": max_err["float64"], "7": tpch_err,
                                    "12": services["max_abs_err"],
-                                   "13": distributed["max_abs_err"]},
+                                   "13": distributed["max_abs_err"],
+                                   "14": mesh["max_abs_err"]},
         "ms": main_shape["ms"],
         "plain_ms": main_shape["plain_ms"],
         "bound_ms": main_shape["bound_ms"],

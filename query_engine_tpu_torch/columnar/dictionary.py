@@ -36,12 +36,23 @@ class Dictionary:
         """Build a sorted dictionary from raw values; returns (dict, codes).
 
         None entries get code 0 (callers carry validity separately).
+        The sorted distinct values and each value's code come from a set and
+        a dict, np.unique's result on an object array; values that do not
+        hash (lists) take np.unique itself.
         """
-        arr = np.asarray(
-            ["" if v is None else v for v in values], dtype=object
-        )
-        uniq, codes = np.unique(arr, return_inverse=True)
-        return Dictionary(uniq), codes.astype(np.int32)
+        arr = ["" if v is None else v for v in values]
+        try:
+            uniq = sorted(set(arr))
+        except TypeError:
+            uniq, codes = np.unique(np.asarray(arr, dtype=object),
+                                    return_inverse=True)
+            return Dictionary(uniq), codes.astype(np.int32)
+        index = {v: i for i, v in enumerate(uniq)}
+        codes = np.fromiter(map(index.__getitem__, arr), dtype=np.int32,
+                            count=len(arr))
+        out = np.empty(len(uniq), dtype=object)
+        out[:] = uniq
+        return Dictionary(out), codes
 
     @staticmethod
     def from_sorted(values: np.ndarray) -> "Dictionary":

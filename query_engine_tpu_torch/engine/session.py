@@ -19,8 +19,10 @@ asks for the CPU with `device="cpu"`. DML does its row work there
 what ON CONFLICT's key match and an index build need. A stored batch is
 replaced, never written in place, so BEGIN's snapshot holds batches by
 reference. The JAX Session's `mesh` argument and `QE_MESH_DEVICES`
-(SPMD over a device mesh) have no counterpart yet: they wait for the
-port's `parallel/`.
+(plans as one SPMD program over a device mesh, mesh_pipeline.py) have no
+counterpart yet: the mesh's building blocks are in `parallel/` (mesh.py,
+spmd.py), and the pipeline over them waits for the compiled path's
+count->emit join and aggregate programs.
 """
 
 from __future__ import annotations

@@ -30,18 +30,21 @@ Which version runs is decided by the device of the tensors, nothing else:
 the same [R, G] rows and scales out, bit for bit); `fixed_point(items, gid,
 G, accumulate_plain)` is the card's route run on any device.
 
-`launches` counts the kernel's launches in this process.
+`launches` counts the kernel's launches in this process (from any
+thread: the virtual mesh's shards launch from threads of their own).
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+import threading
 from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 
 launches = 0
+_launches_lock = threading.Lock()
 
 Items = Sequence[Tuple[Optional[torch.Tensor], torch.Tensor]]
 
@@ -102,6 +105,26 @@ def quantize(values: torch.Tensor, ok: torch.Tensor):
     k = (frac_bits(n) - e.to(torch.int64)).clamp(-1000, 1000)
     q = torch.round(xf * _pow2(k)).to(torch.int64)
     return q, _pow2(-k)
+
+
+def two_words(values: torch.Tensor, ok: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A float plane as two float64 items whose fixed-point sums lose
+    nothing of it: hi = x rounded to a grid two bits coarser than the one
+    `quantize` gives x (so the kernel's own grid for hi, at most one bit
+    coarser than x's, holds hi exactly and its sums are exact), and lo =
+    x - hi (exact: hi and x are within a factor 2, or hi is 0), whose
+    quantum is 2^-frac_bits of hi's. Summing both items and adding the two
+    sums gives a group's float sum to float64 rounding, where one item's
+    error is max|x| * 2^-frac_bits, large against a group whose sum is
+    small or cancels. +-inf and NaN rows stay in hi (lo 0), so the flags
+    apply."""
+    x = values.to(torch.float64)
+    fin = ok & torch.isfinite(x)
+    _, inv = quantize(x, ok)
+    step = inv * 4
+    hi = torch.where(fin, torch.round(x / step) * step, x)
+    return hi, torch.where(fin, x - hi, 0.0)
 
 
 def finish_float(sums_q: torch.Tensor, flags: torch.Tensor,
@@ -215,7 +238,8 @@ def accumulate_kernel(items: Items, gid: torch.Tensor, num_groups: int
             )
             if rc != 0:
                 raise RuntimeError(f"qe_group_agg failed: cudaError {rc}")
-            launches += 1
+            with _launches_lock:
+                launches += 1
             row += sum(ROWS[x] for x in ks)
             fl += sum(x in (F64, F32) for x in ks)
     return out, inv_scale

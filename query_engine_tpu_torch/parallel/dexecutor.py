@@ -83,12 +83,17 @@ class DistributedExecutor:
                  mesh=None):
         """The stage walk over `coordinator`'s workers, on its device.
         mesh: the JAX package's route of a plan as one program over a
-        device mesh; not in this package, so anything but None raises."""
+        device mesh (mesh_pipeline.py); its building blocks are here
+        (parallel/mesh.py, spmd.py), the route is not, so anything but
+        None raises."""
         if mesh is not None:
             raise NotImplementedError(
                 "DistributedExecutor(mesh=...): the mesh route is not in "
-                "query_engine_tpu_torch yet (the mesh slice: parallel/mesh.py"
-                ", mesh_pipeline.py); the host stage walk runs with mesh=None")
+                "query_engine_tpu_torch yet. Its building blocks are "
+                "(parallel/mesh.py, spmd.py, overlap.py, dict_merge.py); "
+                "mesh_pipeline.py and Session(mesh=...) come in the mesh "
+                "slice's second part, after the pipeline's count->emit "
+                "programs; the host stage walk runs with mesh=None")
         self.coordinator = coordinator
         self.device = coordinator.device
         self.config = config or ExecutorConfig()
