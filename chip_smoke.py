@@ -262,6 +262,33 @@ Phase 14 runs the mesh building blocks (`parallel/mesh.py`, `spmd.py`,
          group_agg call of a first run is held against the plain versions;
          (a), (b) and (e) must launch group_agg; no `index_add_` on the
          card.
+Phase 15 runs the joins and aggregates the compiled pipeline sizes at run
+         time (`tpch/count_emit.py`) at SF1 on a Session of its own over
+         phase 7's host tables: J1 lineitem JOIN partsupp on the part key
+         (partsupp's side has multiplicity 2: a static emit at lineitem's
+         capacity x 2); J2 the same tables on the supplier key (no bounded
+         side: a count program on direct ranks, then the emit program);
+         J3 J2 on two key pairs (the count program's joint sort, which the
+         emit program reuses); J4a TPC-H Q13's shape with a numeric
+         residual (o_totalprice > 100000) in the program; J4b and J4c a
+         RIGHT and a FULL join of filtered sides with unmatched rows on
+         both; G1a and G1b GROUP BY a computed key and a float key (the
+         groups counted first, the aggregate at padded(ng) slots); Q3 and
+         Q10 with the GROUP BY keys that a unique-side join makes
+         dependent pruned. Each query's rows must equal its numpy oracle
+         on its first run and on COUNT_EMIT_WARM warm runs (integers
+         exactly, floats to rtol 1e-9). Prints per query the rows and the
+         largest relative error, the first run's ms and the warm median
+         and min-max, host syncs, the pipeline.stats of the first run and
+         per warm run, the eager leaves, group_agg's launches and slots,
+         every first-run group_agg call held against the plain versions,
+         and one profiled warm run's kernel ms. Fails if a join of J1-J4
+         runs as an eager leaf, J2, J3, J4b, J4c, G1a or G1b was not
+         sized by a count program, J3's emit did not reuse the count's
+         sort, G1's did not aggregate through group_agg at padded(ng)
+         slots with the count's grouping, J1 was counted, a warm run of a
+         query with no eager leaf compiled or captured anew, Q3's two
+         dependent keys were not pruned, or `index_add_` ran on the card.
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after; a kernel of the path that was not launched fails the run.
@@ -668,7 +695,8 @@ def profile_program(sess, tag, entry=None):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        pipe._body(entry, entry.planes, entry.n_bufs, entry.dyn_bufs)
+        pipe._body(entry, entry.planes, entry.n_bufs, entry.dyn_bufs,
+                   entry.xfer)
         torch.cuda.synchronize()
 
     # a range appears twice: as a CPU event, whose device time is the sum
@@ -1452,6 +1480,15 @@ def phase7():
     total = sum(r["ms"] for r in out.values())
     print(f"phase 7: the 22 queries: {total:.1f} ms in all (sum of the "
           f"medians); group_agg launched in {with_agg}")
+    print("phase 7: sized by a count program (joins_counted of the first "
+          "run): " + str({q: r["first"]["joins_counted"] for q, r in
+                          out.items() if r["first"].get("joins_counted")})
+          + "; GROUP BY keys pruned as dependent: "
+          + str({q: r["first"]["fd_pruned_keys"] for q, r in out.items()
+                 if r["first"].get("fd_pruned_keys")})
+          + "; eager HashJoin leaves: "
+          + str([q for q, r in out.items() if "HashJoin" in r[
+              "eager_leaves"]]))
     return out, held, tables, sess
 
 
@@ -3886,6 +3923,171 @@ def phase14(tables, dev=None):
             "max_abs_err": max(r["max_abs_err"] for r in timed.values())}
 
 
+# ---- phase 15: count->emit programs, outer joins, FD pruning --------------
+COUNT_EMIT_WARM = 5
+# the stats phase 15 prints per query (first run and per warm run)
+CE_STATS = ("joins_counted", "joins_inlined", "joins_demoted",
+            "join_sorts_reused", "group_sorts_reused", "fd_pruned_keys",
+            "compiles", "hits", "captures", "replays")
+
+
+def phase15(tables):
+    """The joins and aggregates the compiled pipeline sizes at run time
+    (`tpch/count_emit.py`: J1 a bounded-duplication emit, J2 and J3
+    counted joins on direct ranks and on the sorted path, J4a-c outer
+    joins with and without a residual, G1a-b group-space counting, Q3 and
+    Q10 with their GROUP BY keys pruned) at SF1 on a Session of its own,
+    each first and COUNT_EMIT_WARM times warm against its numpy oracle."""
+    import gc
+
+    import torch
+
+    from query_engine_tpu_torch.columnar.batch import padded_capacity
+    from query_engine_tpu_torch.engine.session import Session
+    from query_engine_tpu_torch.tpch import count_emit as CE
+    from query_engine_tpu_torch.tpch import data
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    sess = Session(device="cuda")
+    data.register(sess, tables)
+    torch.cuda.synchronize()
+    pipe = sess.executor.pipeline
+    timing = ("leaf_ms", "capture_ms")
+    out, held = {}, {}
+    for q, text in CE.QUERIES.items():
+        t0 = time.perf_counter()
+        want = CE.run(q, tables)
+        oracle_s = time.perf_counter() - t0
+        st0, syncs0 = dict(pipe.stats), sess.executor.host_syncs
+        kinds0 = collections.Counter(pipe.leaf_kinds)
+        keys0 = set(pipe._cache)
+        held[q] = []
+        spy = IndexAddSpy()
+        reset_counts()
+        with spy.active(), group_agg_held_against_plain(held[q], spy):
+            t0 = time.perf_counter()
+            rows = sess.sql(text).to_pylist()
+            first_ms = (time.perf_counter() - t0) * 1e3
+        launches = read_counts()["group_agg"]
+        first = _stats_change(st0, pipe.stats, timing)
+        first_syncs = sess.executor.host_syncs - syncs0
+        try:
+            err = CE.compare(q, rows, want)
+        except AssertionError as e:
+            raise CheckFailed(f"phase 15: {q} differs from the numpy "
+                              f"oracle: {e}") from None
+        check(rows, f"phase 15: {q} returned no rows")
+        walls = []
+        st1, syncs1 = dict(pipe.stats), sess.executor.host_syncs
+        for _ in range(COUNT_EMIT_WARM):
+            t0 = time.perf_counter()
+            with spy.active():
+                again = sess.sql(text).to_pylist()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            try:
+                CE.compare(q, again, want)
+            except AssertionError as e:
+                raise CheckFailed(f"phase 15: {q}: a warm run differs from "
+                                  f"the oracle: {e}") from None
+        warm = {k: v / COUNT_EMIT_WARM for k, v in
+                _stats_change(st1, pipe.stats, timing).items()}
+        syncs = (sess.executor.host_syncs - syncs1) / COUNT_EMIT_WARM
+        leaves = dict(pipe.leaf_kinds - kinds0)
+        busy, wall, names = device_ms(sess, text)
+        # each captured program's kernel time by operator: the count
+        # program's, then the emit program's
+        programs = {}
+        for key in sorted(set(pipe._cache) - keys0,
+                          key=lambda k: k[-1] != "count"):
+            entry = pipe._cache[key]
+            if entry.graph is not None:
+                kind = "count" if entry.counts else "emit"
+                programs[kind] = profile_program(
+                    sess, f"phase 15: {q}: {kind} program", entry)
+        r = out[q] = {
+            "rows": len(rows), "max_rel_err": err, "first_ms": first_ms,
+            "ms": statistics.median(walls), "min_ms": min(walls),
+            "max_ms": max(walls), "first_syncs": first_syncs,
+            "syncs": syncs, "first": {k: first.get(k, 0) for k in CE_STATS},
+            "warm": {k: warm.get(k, 0) for k in CE_STATS},
+            "eager_leaves": leaves, "group_agg": launches,
+            "group_agg_slots": sorted({c["groups"] for c in held[q]}),
+            "device_ms": busy, "profiled_wall_ms": wall,
+            "program_ms": {k: v[0] for k, v in programs.items()},
+            "by_operator_ms": {k: v[1] for k, v in programs.items()},
+            "group_agg_kernels": kernel_names(names, "sum_count_",
+                                              "float_absmax"),
+            "index_add_kernels": kernel_names(names, "indexFunc"),
+            "index_add_calls": spy.calls}
+        print(f"phase 15: {q}: {len(rows)} rows == numpy oracle (max rel err "
+              f"{err:.3g}, oracle {oracle_s:.2f} s); first run "
+              f"{first_ms:.1f} ms, {first_syncs} syncs, stats {r['first']}; "
+              f"warm {r['ms']:.3f} ms/query median of {COUNT_EMIT_WARM} "
+              f"({r['min_ms']:.3f}-{r['max_ms']:.3f}), {syncs:g} host "
+              f"syncs/query, stats per warm query {r['warm']}; eager leaves "
+              f"{leaves}; group_agg launches {launches} at slots "
+              f"{r['group_agg_slots']}; one profiled warm run: {busy:.3f} ms "
+              f"of kernel time in {wall:.3f} ms wall; index_add_ calls "
+              f"{spy.calls}")
+        for c in held[q]:
+            print(f"phase 15: {q}: group_agg == plain on the same tensors: "
+                  f"n={c['n']} G={c['groups']} {c['items']} items "
+                  f"({c['float_items']} float, {c['count_items']} count "
+                  f"only); max abs err against float64 summation "
+                  f"{c['max_abs_err']:.6g}")
+        check(not r["index_add_kernels"] and not spy.calls,
+              f"phase 15: {q}: index_add_ on the card ({spy.calls} calls, "
+              f"kernels {r['index_add_kernels']})")
+        check(not launches or held[q], f"phase 15: {q}: no group_agg call of "
+              "its first run was held against the plain version")
+        check(not first.get("fallbacks") and (first.get("compiles")
+                                               or first.get("hits")),
+              f"phase 15: {q} did not run in the compiled pipeline: {first}")
+        check(not first.get("joins_demoted"),
+              f"phase 15: {q}: a join was demoted: {first}")
+        if q in CE.JOINS:
+            check("HashJoin" not in leaves, f"phase 15: {q}: its join ran as "
+                  f"an eager leaf: {leaves}")
+        if q in CE.COUNTED:
+            check(first.get("joins_counted", 0) >= 1, f"phase 15: {q}: no "
+                  f"count program sized it: {first}")
+        if q in CE.SORT_REUSED:
+            check(first.get("join_sorts_reused", 0) >= 1, f"phase 15: {q}: "
+                  f"the emit program did not reuse the count's sort: {first}")
+        if q in CE.GROUPING_REUSED:
+            bucket = padded_capacity(len(rows))
+            check(first.get("group_sorts_reused", 0) >= 1
+                  and launches > 0 and r["group_agg_slots"] == [bucket],
+                  f"phase 15: {q}: not aggregated through group_agg at "
+                  f"padded(ng) = {bucket} slots with the count's grouping: "
+                  f"slots {r['group_agg_slots']}, {first}")
+        if not leaves:
+            check(not r["warm"]["captures"] and not r["warm"]["compiles"],
+                  f"phase 15: {q}: a warm run compiled or captured anew: "
+                  f"{r['warm']}")
+    check(out["J1"]["first"]["joins_counted"] == 0,
+          f"phase 15: J1's bounded-duplication join was counted: "
+          f"{out['J1']['first']}")
+    for q in CE.FD_QUERIES:
+        print(f"phase 15: {q}: GROUP BY keys pruned as dependent "
+              f"{out[q]['first']['fd_pruned_keys']} (first run's programs)")
+    check(out["Q3"]["first"]["fd_pruned_keys"] >= 2,
+          "phase 15: Q3's o_orderdate and o_shippriority were not pruned")
+    del sess, pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    total = sum(r["ms"] for r in out.values())
+    print(f"phase 15: {seconds:.1f} s; the {len(out)} queries "
+          f"{total:.1f} ms in all (sum of the warm medians)")
+    errs = [c["max_abs_err"] for calls in held.values() for c in calls]
+    return {"queries": out, "seconds": seconds,
+            "launches": {q: r["group_agg"] for q, r in out.items()},
+            "max_abs_err": max(errs, default=0.0)}
+
+
 def main():
     import torch
 
@@ -3918,6 +4120,7 @@ def main():
         services = phase12(sf1_tables)
         distributed = phase13(sf1_tables)
         mesh = phase14(sf1_tables)
+        count_emit = phase15(sf1_tables)
     except CheckFailed as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -3935,6 +4138,7 @@ def main():
     p13_launches = sum(p13["13a"].values()) + sum(p13["13b"].values()) \
         + p13["13c"]
     p14 = mesh["launches"]
+    p15 = count_emit["launches"]
     tpch_err = max((c["max_abs_err"] for calls in tpch_held.values()
                     for c in calls), default=0.0)
     print(json.dumps({"kernels": [{
@@ -3946,18 +4150,19 @@ def main():
         + sum(windows_by_query.values()) + sum(scalar_by_query.values())
         + sum(ordered_by_query.values()) + sum(surface_by_group.values())
         + sum(services_by_part.values()) + p13_launches
-        + sum(p14.values()),
+        + sum(p14.values()) + sum(p15.values()),
         "launches_by_phase": {"4": agg_launches, "7": tpch_by_query,
                               "8": windows_by_query, "9": scalar_by_query,
                               "10": ordered_by_query,
                               "11": surface_by_group,
                               "12": services_by_part, "13": p13,
-                              "14": p14},
+                              "14": p14, "15": p15},
         "max_abs_err": max_err["plain"],
         "max_abs_err_vs_float64": {"1": max_err["float64"], "7": tpch_err,
                                    "12": services["max_abs_err"],
                                    "13": distributed["max_abs_err"],
-                                   "14": mesh["max_abs_err"]},
+                                   "14": mesh["max_abs_err"],
+                                   "15": count_emit["max_abs_err"]},
         "ms": main_shape["ms"],
         "plain_ms": main_shape["plain_ms"],
         "bound_ms": main_shape["bound_ms"],

@@ -30,10 +30,24 @@ entry keeps those tensors alive and captures again when a leaf's planes
 change (a table registered anew); results are returned as copies, since
 the next replay overwrites the graph's outputs.
 
-Equi-joins with a statically unique side (a GROUP BY below the key, or a
-cached multiplicity stat of 1 on a leaf column) trace in-segment through
-the FK fast paths. Any other join is demoted to an eager leaf: the segment
-above it still compiles, with the join's result fed in as a leaf batch.
+Equi-joins (INNER, LEFT, RIGHT, FULL, with or without a residual ON
+condition) trace in-segment when one side's key multiplicity has a known
+provenance. A unique side (a GROUP BY below the key, or a cached
+multiplicity stat of 1 on a leaf column) takes the FK fast paths; a side
+whose stat is at most 16 emits at the static capacity probe rows x its
+bucketed multiplicity (1/2/4/8/16) plus the outer rows' slots. A join with
+no such bound, or one whose static emit would pass 2^26 slots, goes
+through the count->emit capacity sync: a COUNT program (the same segment,
+stopped at that join by `_CountReady`) returns the join's output size, the
+host reads that one scalar and the EMIT program runs the join at its pow2
+bucket, reusing the count program's joint sort (its sorted planes are
+emit-program inputs). An aggregate whose group keys carry no static range
+(a computed or float key) counts its groups the same way and aggregates
+at padded(ng) with the count program's group ids. A join is demoted to an
+eager leaf only when its count program fails or its counted size passes
+2^26; the segment above it still compiles, with the join's result fed in
+as a leaf batch. GROUP BY keys that a unique-side join makes functions of
+another group key are dropped from the grouping (`_fd_dependent_keys`).
 A derived table (a subquery in FROM) is a pass-through node that renames
 its child's columns. Window functions, DISTINCT and set operations trace
 too, all at their input's capacity with a selection mask: a window sorts
@@ -52,8 +66,9 @@ query and every reference reads that batch. A subquery expression's plan
 runs eagerly before the program runs or is captured, and its result batch
 is one more program input, read in the body through
 `Evaluator._subplans`: a program never runs a plan. Constructs outside the
-slice (outer, CROSS and general-emit joins, VALUES, generate_series, UDF
-calls, || and the expressions `_expr_traceable` keeps out) raise
+slice (CROSS joins, joins on keys of unknown provenance, VALUES,
+generate_series, UDF calls, || and the expressions `_expr_traceable` keeps
+out) raise
 _Unsupported and run eagerly, per subtree. On CUDA so do the expressions
 that build a table on the host (string comparisons, string IN, LIKE and
 the regex operators, the string, regex and JSON functions, string casts,
@@ -78,6 +93,7 @@ import time
 from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from query_engine_tpu_torch.core.errors import ExecutionError
@@ -99,6 +115,26 @@ from query_engine_tpu_torch.plan import physical as pp
 
 class _Unsupported(Exception):
     """Raised during segment analysis/tracing: run the subtree eagerly."""
+
+
+class _CountReady(Exception):
+    """Raised inside a COUNT program's body by the join (or aggregate) it
+    counts: carries that node's output size, a 0-d device tensor, up to
+    the body, which returns it with `extras`: the planes the emit program
+    reuses, the joint sort's (sperm, sorted_lead, change) or the grouping's
+    (gid, ng, rep); () when there is nothing to reuse (direct ranks)."""
+
+    def __init__(self, node, count, extras=()):
+        super().__init__("join count ready")
+        self.node = node
+        self.count = count
+        self.extras = extras
+
+
+# the largest emit the pipeline allocates, in rows: a static emit bound
+# (probe capacity x multiplicity bucket) above it counts instead, and a
+# counted size above it demotes the join to an eager leaf
+_MAX_EMIT = 1 << 26
 
 
 # failures of a program body that mean "not for this slice" — run eagerly.
@@ -642,6 +678,12 @@ class CompiledPipeline:
         self._graphs = executor.device.type == "cuda"
         self.stats = {"compiles": 0, "hits": 0, "fallbacks": 0,
                       "joins_inlined": 0, "joins_demoted": 0,
+                      # count->emit: sizes read from count programs (joins
+                      # and aggregates, per query); emit programs that
+                      # reuse the count program's join sort or grouping,
+                      # and GROUP BY keys pruned as dependent, per compile
+                      "joins_counted": 0, "join_sorts_reused": 0,
+                      "group_sorts_reused": 0, "fd_pruned_keys": 0,
                       "captures": 0, "replays": 0,
                       # window sorts made and OVER specs seen, per compile
                       "window_sorts": 0, "window_specs": 0,
@@ -651,13 +693,18 @@ class CompiledPipeline:
         self.leaf_kinds = collections.Counter()  # eager leaves by node type
         self._leaf_depth = 0
         self._compiling = False  # a program's first run (stats count once)
+        # while a body runs: its leaf node ids (`_fd_dependent_keys`), and
+        # counted node id -> the planes its count program handed over
+        self._leaf_ids = frozenset()
+        self._xfer_by_node = {}
 
     # ---- entry -----------------------------------------------------------
     def try_execute(self, plan: pp.PhysicalPlan) -> Optional[ColumnBatch]:
         """Returns the result batch, or None to run the eager path."""
         host = self.executor._host_list
         forced: set = set()
-        while True:  # joins without a unique side demote to eager leaves
+        subs_by_plan = {}  # a subquery's batch, kept across demotions
+        while True:  # a join whose count fails demotes to an eager leaf
             ctx = _SegCtx(forced)
             try:
                 key_body, leaf_nodes, n_compute = self._plan_key(plan, ctx)
@@ -674,60 +721,37 @@ class CompiledPipeline:
             for b in leaves:
                 ensure_bounds(b, host)  # one read per batch, cached
             batch_by_node = dict(zip(map(id, leaf_nodes), leaves))
+            res = self._resolve_checks(ctx, leaves, batch_by_node)
 
-            # resolve join duplication stats. Only unique sides (dup 1)
-            # trace in this slice; a join JAX would give a bounded emit or a
-            # count->emit program becomes an eager leaf instead
-            res = {}
-            demoted = False
-            for jnode, lprov, rprov in ctx.checks:
-                dr = self._prov_max_dup(rprov, batch_by_node, res)
-                # a unique right side wins every tie: the left side's stat
-                # (a sort of its key plane and a host read) is not needed
-                dl = None if dr == 1 else self._prov_max_dup(
-                    lprov, batch_by_node, res)
-                side = None
-                # prefer the right (build) side on ties
-                if dr is not None and (dl is None or dr <= dl):
-                    side = ("R", _dup_bucket(dr))
-                elif dl is not None:
-                    side = ("L", _dup_bucket(dl))
-                if side is None or side[1] != 1:
-                    forced.add(id(jnode))
-                    self.stats["joins_demoted"] += 1
-                    demoted = True
-                    break
-                res[id(jnode)] = side
-            if not demoted:
+            # subquery plans run now, before any program runs or is
+            # captured; their result batches are program inputs after the
+            # leaves
+            for x in ctx.sub_exprs:
+                if id(x.plan) not in subs_by_plan:
+                    subs_by_plan[id(x.plan)] = self._materialize_leaf(
+                        x.plan, "subplan")
+            subs = [subs_by_plan[id(x.plan)] for x in ctx.sub_exprs]
+            dyn_vals = tuple(ctx.dyn_vals)
+            sigs = (key_body, tuple(self._leaf_sig(b) for b in leaves),
+                    tuple(self._leaf_sig(b) for b in subs),
+                    tuple(tag for tag, _ in dyn_vals))
+            xfers = self._count_pending(plan, ctx, res, leaves, leaf_nodes,
+                                        subs, dyn_vals, sigs)
+            if xfers is not None:
                 break
 
-        # subquery plans run now, before the program runs or is captured;
-        # their result batches are program inputs after the leaves
-        subs = [self._materialize_leaf(x.plan, "subplan")
-                for x in ctx.sub_exprs]
-        dyn_vals = tuple(ctx.dyn_vals)
-        leaf_sigs = tuple(self._leaf_sig(b) for b in leaves)
-        sub_sigs = tuple(self._leaf_sig(b) for b in subs)
         sides = tuple(res[id(j)] for j, _, _ in ctx.checks)
-        key = (key_body, leaf_sigs, sub_sigs, sides,
-               tuple(tag for tag, _ in dyn_vals))
+        xfer_ords = tuple(sorted(xfers))
+        xfer = tuple(xfers[o] for o in xfer_ords)
+        key = sigs + (sides, xfer_ords)
         entry = self._cache.get(key)
         inputs = leaves + subs
 
         if entry is None:
-            entry = _Entry(plan, leaves)
-            entry.leaf_ids = frozenset(map(id, leaf_nodes))
-            entry.res = res
-            entry.dyn_exprs = list(ctx.dyn_exprs)
-            entry.sub_exprs = list(ctx.sub_exprs)
-            entry.subs = subs
-            entry.leaf_bounds = [
-                [None if (bb := _bucket_bounds(_col_bounds(c))) is None
-                 or bb == ("big",) else bb for c in b.columns]
-                for b in leaves
-            ]
+            entry = self._new_entry(plan, ctx, leaves, leaf_nodes, res, subs)
+            entry.xfer_ords = xfer_ords
             try:
-                out = self._first_run(entry, inputs, dyn_vals)
+                out = self._first_run(entry, inputs, dyn_vals, xfer)
             except _TRACE_ERRORS:
                 self._eager_bodies.add(key_body)
                 self.stats["fallbacks"] += 1
@@ -736,7 +760,7 @@ class CompiledPipeline:
             self.stats["compiles"] += 1
         else:
             self.stats["hits"] += 1
-            out = self._rerun(entry, inputs, dyn_vals)
+            out = self._rerun(entry, inputs, dyn_vals, xfer)
 
         datas, valids, sel, count = out
         count = self.executor._host_int(count)
@@ -764,6 +788,106 @@ class CompiledPipeline:
         ]
         return ColumnBatch(meta["schema"], cols, count)
 
+    def _resolve_checks(self, ctx, leaves, batch_by_node):
+        """Each checked join's resolution: ("R"|"L", bucket) for a side
+        whose key multiplicity is statically bounded (1 = unique, the FK
+        paths; 2-16, a static emit), ("C", None) for a join to count, and
+        ("C", None) for every aggregate that counts its groups."""
+        res = {}
+        for jnode, lprov, rprov in ctx.checks:
+            if lprov == "AGG":
+                res[id(jnode)] = ("C", None)
+                continue
+            dr = self._prov_max_dup(rprov, batch_by_node, res)
+            # a unique right side wins every tie: the left side's stat (a
+            # sort of its key plane and a host read) is not needed
+            dl = None if dr == 1 else self._prov_max_dup(
+                lprov, batch_by_node, res)
+            side = None
+            # prefer the right (build) side on ties; bucket to pow2 so data
+            # drift within a bucket reuses the program
+            if dr is not None and (dl is None or dr <= dl):
+                side = ("R", _dup_bucket(dr))
+            elif dl is not None:
+                side = ("L", _dup_bucket(dl))
+            # the static emit is the probe capacity times the bucket: count
+            # rather than allocate past _MAX_EMIT rows. The FK path emits
+            # nothing (its rows are the probe side's own), so a unique side
+            # taking it is left alone; the JAX package counts it too, and
+            # then demotes the join of a table past 2^26 rows
+            if side is not None and side[1] is not None and leaves \
+                    and not _fk_path(jnode.join_type, side) \
+                    and max(b.capacity for b in leaves) * side[1] > _MAX_EMIT:
+                side = (side[0], None)
+            res[id(jnode)] = (("C", None) if side is None or side[1] is None
+                              else side)
+        return res
+
+    def _count_pending(self, plan, ctx, res, leaves, leaf_nodes, subs,
+                       dyn_vals, sigs):
+        """The count->emit capacity sync. For each check still ("C", None),
+        first in trace order: a cached COUNT program returns its output
+        size, the host reads it (one sync), and the check resolves to ("E",
+        the pow2 bucket), so the emit program is static. Returns {check
+        ordinal: the planes the count program hands the emit program}, or
+        None after demoting a join to an eager leaf (its count program
+        failed, or its size passes _MAX_EMIT)."""
+        inputs = leaves + subs
+        xfers = {}
+        while True:
+            pending = [j for j, _, _ in ctx.checks
+                       if res[id(j)] == ("C", None)]
+            if not pending:
+                return xfers
+            ckey = sigs + (tuple(res[id(j)] for j, _, _ in ctx.checks),
+                           "count")
+            centry = self._cache.get(ckey)
+            out = None
+            if centry is None:
+                centry = self._new_entry(plan, ctx, leaves, leaf_nodes,
+                                         dict(res), subs)
+                centry.counts = True
+                try:
+                    out = self._first_run(centry, inputs, dyn_vals)
+                except _TRACE_ERRORS:
+                    out = None
+                if out is not None:
+                    self._cache[ckey] = centry
+                    self.stats["compiles"] += 1
+            else:
+                self.stats["hits"] += 1
+                out = self._rerun(centry, inputs, dyn_vals)
+            if out is None:
+                jnode, out_rows = pending[0], None
+            else:
+                count, extras = out
+                jnode = ctx.checks[centry.ordinal][0]
+                out_rows = self.executor._host_int(count)
+            bucket = padded_capacity(out_rows or 0)
+            if out_rows is None or bucket > _MAX_EMIT:
+                ctx.forced.add(id(jnode))
+                self.stats["joins_demoted"] += 1
+                return None
+            res[id(jnode)] = ("E", bucket)
+            if extras:
+                xfers[centry.ordinal] = extras
+            self.stats["joins_counted"] += 1
+
+    def _new_entry(self, plan, ctx, leaves, leaf_nodes, res, subs):
+        entry = _Entry(plan, leaves)
+        entry.leaf_ids = frozenset(map(id, leaf_nodes))
+        entry.res = res
+        entry.checks = [j for j, _, _ in ctx.checks]
+        entry.dyn_exprs = list(ctx.dyn_exprs)
+        entry.sub_exprs = list(ctx.sub_exprs)
+        entry.subs = subs
+        entry.leaf_bounds = [
+            [None if (bb := _bucket_bounds(_col_bounds(c))) is None
+             or bb == ("big",) else bb for c in b.columns]
+            for b in leaves
+        ]
+        return entry
+
     def drop_entries_reading(self, sources) -> int:
         """Drop the cached programs whose plan reads one of `sources` (the
         tables a DML or DDL statement or a ROLLBACK replaced). Such an
@@ -779,10 +903,15 @@ class CompiledPipeline:
         return len(dead)
 
     # ---- running a program -------------------------------------------------
-    def _body(self, entry, planes, n_bufs, dyn_bufs):
+    def _body(self, entry, planes, n_bufs, dyn_bufs, xfer=()):
         """The program: the plan segment over the input planes (the leaves',
-        then the subquery batches'), row-count tensors and literal tensors.
-        Reads nothing from the device."""
+        then the subquery batches'), row-count tensors, literal tensors and
+        the planes count programs handed over (`xfer`, one tuple per
+        counted check of `entry.xfer_ords`). Reads nothing from the device.
+
+        An emit program returns (datas, valids, sel, row count); a count
+        program (`entry.counts`) stops at the first node still to count
+        and returns (its output size, the planes it hands over)."""
         batches = entry.leaves + entry.subs
         bounds = entry.leaf_bounds + [[None] * len(b.columns)
                                       for b in entry.subs]
@@ -809,12 +938,32 @@ class CompiledPipeline:
             id(x.plan): _ShimBatch(t)
             for x, t in zip(entry.sub_exprs, tables[n_leaves:])
         }
+        self._leaf_ids = entry.leaf_ids
+        self._xfer_by_node = {id(entry.checks[o]): x
+                              for o, x in zip(entry.xfer_ords, xfer)}
         try:
             t = self._trace(entry.plan, iter(tables[:n_leaves]),
                             entry.leaf_ids, entry.res)
+        except _CountReady as e:
+            # caught here, inside the body: a capture around the body ends
+            # normally, its outputs the count and the handed-over planes
+            ordinal = next((i for i, j in enumerate(entry.checks)
+                            if j is e.node), None)
+            if not entry.counts or ordinal is None:
+                raise _Unsupported("a count outside a count program")
+            entry.ordinal = ordinal
+            count = e.count
+            if not isinstance(count, torch.Tensor):
+                count = torch.full((), int(count), dtype=torch.int64,
+                                   device=self.executor.device)
+            return count.to(torch.int64), tuple(e.extras)
         finally:
             ev._dyn_literals = None
             ev._subplans = None
+            self._leaf_ids = frozenset()
+            self._xfer_by_node = {}
+        if entry.counts:
+            raise _Unsupported("no counted node reached in the trace")
         if not entry.meta:
             entry.meta.update(
                 schema=t.schema,
@@ -835,27 +984,35 @@ class CompiledPipeline:
                     for tag, v in dyn_vals]
         return planes, n_bufs, dyn_bufs
 
-    def _first_run(self, entry, batches, dyn_vals):
-        """Run the body once eagerly; on CUDA, then capture it."""
+    def _first_run(self, entry, batches, dyn_vals, xfer=()):
+        """Run the body once eagerly; on CUDA, then capture it. A count
+        program's first run returns the graph's own output tensors (filled
+        with the eager run's values), so the emit program that reads them
+        is captured over the addresses later replays write."""
         planes, n_bufs, dyn_bufs = self._inputs(batches, dyn_vals)
         self._compiling = True
         try:
-            out = self._body(entry, planes, n_bufs, dyn_bufs)
+            out = self._body(entry, planes, n_bufs, dyn_bufs, xfer)
         finally:
             self._compiling = False
         if self._graphs:
-            self._capture(entry, planes, n_bufs, dyn_bufs)
+            self._capture(entry, planes, n_bufs, dyn_bufs, xfer)
+            if entry.counts and entry.outputs is not None:
+                for dst, src in zip(_flat(entry.outputs), _flat(out)):
+                    dst.copy_(src)
+                return entry.outputs
         return out
 
-    def _rerun(self, entry, batches, dyn_vals):
+    def _rerun(self, entry, batches, dyn_vals, xfer=()):
         if entry.graph is None:  # CPU: run the body again
-            return self._body(entry, *self._inputs(batches, dyn_vals))
+            return self._body(entry, *self._inputs(batches, dyn_vals), xfer)
         planes = [[(c.data, c.validity) for c in b.columns] for b in batches]
-        if _ptrs(planes) != entry.ptrs:
+        if _ptrs(planes, xfer) != entry.ptrs:
             # an input's planes changed (a table registered anew, an eager
-            # leaf's or a subquery's new batch): the graph would read the
-            # old addresses, so capture over the new ones
-            self._capture(entry, planes, entry.n_bufs, entry.dyn_bufs)
+            # leaf's or a subquery's new batch, a count program captured
+            # anew): the graph would read the old addresses, so capture
+            # over the new ones
+            self._capture(entry, planes, entry.n_bufs, entry.dyn_bufs, xfer)
         for buf, b in zip(entry.n_bufs, batches):
             buf.fill_(b.num_rows)
         for buf, (_, v) in zip(entry.dyn_bufs, dyn_vals):
@@ -864,7 +1021,7 @@ class CompiledPipeline:
         self.stats["replays"] += 1
         return entry.outputs
 
-    def _capture(self, entry, planes, n_bufs, dyn_bufs):
+    def _capture(self, entry, planes, n_bufs, dyn_bufs, xfer=()):
         """Capture the body into a CUDA graph over these inputs. The entry
         keeps the input tensors alive: the graph reads their addresses."""
         t0 = time.perf_counter()
@@ -886,7 +1043,8 @@ class CompiledPipeline:
             try:
                 with torch.cuda.graph(graph,
                                       capture_error_mode="thread_local"):
-                    outputs = self._body(entry, planes, n_bufs, dyn_bufs)
+                    outputs = self._body(entry, planes, n_bufs, dyn_bufs,
+                                         xfer)
             finally:
                 if collecting:
                     gc.enable()
@@ -895,7 +1053,8 @@ class CompiledPipeline:
         entry.graph = graph
         entry.outputs = outputs
         entry.planes = planes
-        entry.ptrs = _ptrs(planes)
+        entry.xfer = xfer
+        entry.ptrs = _ptrs(planes, xfer)
         entry.n_bufs = n_bufs
         entry.dyn_bufs = dyn_bufs
         self.stats["captures"] += 1
@@ -978,6 +1137,11 @@ class CompiledPipeline:
             if not all(self._traceable(e) for e in exprs):
                 raise _Unsupported("aggregate exprs")
             body, leaves, n = self._child(plan.input, ctx)
+            # group-space count->emit: keys with no static range would run
+            # every plane above at row capacity; a count program returns ng
+            # once and the emit program aggregates at padded(ng)
+            if plan.group_exprs and self._agg_needs_count(plan):
+                ctx.checks.append((plan, "AGG", None))
             return (
                 (
                     "agg",
@@ -1029,15 +1193,34 @@ class CompiledPipeline:
         # anything else: an eager leaf boundary (CROSS join, VALUES, ...)
         raise _Unsupported(type(plan).__name__)
 
+    @staticmethod
+    def _agg_needs_count(plan: pp.PHashAggregate) -> bool:
+        """A static proxy for "this aggregate would group at S = capacity":
+        some group key is not a bare integer, bool or string column (whose
+        stats or dictionary size give a static range). A needless check
+        costs one cached count program; a missed one keeps S = capacity."""
+        for g in plan.group_exprs:
+            e = g
+            while isinstance(e, lp.AliasExpr):
+                e = e.expr
+            if not isinstance(e, lp.ColumnRef):
+                return True
+            if e.dtype.is_dictionary:
+                continue
+            dt = e.dtype.device_dtype
+            if not (np.issubdtype(dt, np.integer) or dt == np.bool_):
+                return True
+        return False
+
     def _plan_key_join(self, plan: pp.PHashJoin, ctx):
-        """An INNER equi-join joins the segment when one side's key is
-        statically unique: a GROUP BY above the key (structural) or a cached
-        multiplicity stat of 1 on the leaf column (valid under the
-        filters/sorts/limits between leaf and join — subsets only shrink
-        multiplicities). Other joins are demoted to eager leaves by
-        try_execute (the segment above still compiles)."""
-        if plan.join_type is not lp.JoinType.INNER or not plan.key_pairs:
-            raise _Unsupported(f"{plan.join_type.value} join")
+        """An equi-join (INNER, LEFT, RIGHT or FULL) joins the segment when
+        its key tuple has a known provenance on one side: a GROUP BY above
+        the key (structural) or leaf columns whose cached multiplicity stat
+        try_execute reads (valid under the filters/sorts/limits between
+        leaf and join — subsets only shrink multiplicities). try_execute
+        resolves it to a static emit or to the count->emit sync."""
+        if plan.join_type is lp.JoinType.CROSS or not plan.key_pairs:
+            raise _Unsupported("cross join")
         for le, re_ in plan.key_pairs:
             if not (self._traceable(le) and self._traceable(re_)) or (
                 self._graphs
@@ -1167,8 +1350,8 @@ class CompiledPipeline:
             if d is None:
                 return None
             r = res.get(id(jnode))
-            if r is None:
-                return None  # child join demoted
+            if r is None or r[0] not in ("L", "R"):
+                return None  # child join demoted, or counted
             bounded_side, bdup = r
             # each row of side X appears <= (other side's key dup) times;
             # known only when the child's bounded side IS the other side
@@ -1284,19 +1467,40 @@ class CompiledPipeline:
 
     def _trace_join(self, plan: pp.PHashJoin, lt: _TTable, rt: _TTable,
                     res) -> _TTable:
-        """INNER equi-join with a statically unique side: each probe row
-        has at most one match, so the build side's columns gather straight
-        to the probe rows (fk_gather_by_rank, or fk_join_right_lookup +
-        gather_columns_packed when a build column does not pack) and the
-        probe planes pass through — no counts, no emit, no host read.
-        Output rows sit at the probe side's positions."""
+        """An equi-join inside a program, by its resolution:
+
+          * a unique side ("R"|"L", 1) of an INNER join, or of a LEFT
+            (RIGHT) join whose unique side is the right (left): the FK fast
+            path (`_trace_fk_join`), no counts and no emit;
+          * ("C", None), in a count program: the join's output size raised
+            as _CountReady — join_count_total on the sorted path (with its
+            sorted space, which the emit program reuses), join_counts on
+            direct ranks;
+          * otherwise the general emit: match counts (join_ranks_counts,
+            over the count program's sort when one was handed over, or
+            join_counts on direct ranks), the (left, right) pairs
+            left-major by join_emit_inner, then an outer side's unmatched
+            rows after the pairs. Its static capacity is the counted
+            bucket ("E", bucket), or the probe side's capacity times the
+            multiplicity bucket of the bounded side plus the slots of the
+            outer rows that side can leave unmatched.
+
+        An outer join's residual ON condition decides matched-ness: it is
+        evaluated on the emitted pairs before the unmatched rows are
+        chosen (PG ON semantics; TPC-H Q13), so the output has holes and is
+        not dense. The eager executor's join is the oracle."""
         ev = self.executor.evaluator
         self.stats["joins_inlined"] += 1
         resolution = (res or {}).get(id(plan))
-        if resolution is None or resolution[1] != 1:
+        if resolution is None:
             raise _Unsupported("join resolution missing")
-        side = resolution[0]
+        side, dup = resolution
+        J = lp.JoinType
+        jt = plan.join_type
         cap_l, cap_r = lt.capacity, rt.capacity
+        left_outer = jt in (J.LEFT, J.FULL)
+        right_outer = jt in (J.RIGHT, J.FULL)
+        residual_outer = plan.residual is not None and jt is not J.INNER
 
         lkeys, rkeys = [], []
         for le, re_ in plan.key_pairs:
@@ -1314,10 +1518,163 @@ class CompiledPipeline:
             n_ranks, lr, rr = self._direct_join_ranks(
                 plan, lkeys[0], rkeys[0], lt, rt
             )
-        if n_ranks is None:
-            lr, rr = K.join_ranks(lkeys, rkeys, lt.sel, rt.sel)
-        n_eff = n_ranks if n_ranks is not None else cap_l + cap_r
 
+        if side == "C":
+            # the count program's one scalar: pairs plus the outer rows
+            # (with a residual, a row whose pairs all fail it pads too; the
+            # pairs' columns are not at hand here, so every live row of an
+            # outer side is counted)
+            n_l = lt.sel.sum(dtype=torch.int64)
+            n_r = rt.sel.sum(dtype=torch.int64)
+            if n_ranks is None:
+                total, ml, mr, space = K.join_count_total(
+                    lkeys, rkeys, lt.sel, rt.sel, return_space=True)
+            else:
+                total, _, _, _, _, lm_c, rm_c = K.join_counts(
+                    lr, rr, lt.sel, rt.sel)
+                ml = (lm_c & lt.sel).sum(dtype=torch.int64)
+                mr = (rm_c & rt.sel).sum(dtype=torch.int64)
+                space = ()
+            out_rows = total
+            if left_outer:
+                out_rows = out_rows + n_l - (0 if residual_outer else ml)
+            if right_outer:
+                out_rows = out_rows + n_r - (0 if residual_outer else mr)
+            raise _CountReady(plan, out_rows, extras=space)
+
+        if _fk_path(jt, resolution):
+            if n_ranks is None:
+                lr, rr = K.join_ranks(lkeys, rkeys, lt.sel, rt.sel)
+            return self._trace_fk_join(plan, lt, rt, side, lr, rr, n_ranks)
+
+        if side == "E":
+            out_cap = dup
+        else:
+            probe_cap = cap_l if side == "R" else cap_r
+            out_cap = probe_cap * dup
+            # the bounded side's unmatched rows, and with a residual the
+            # probe side's rows whose pairs all fail it, need slots of
+            # their own
+            if right_outer and (side == "R" or residual_outer):
+                out_cap += cap_r
+            if left_outer and (side == "L" or residual_outer):
+                out_cap += cap_l
+
+        if n_ranks is None:
+            space = self._xfer_by_node.get(id(plan))
+            if space is not None and self._compiling:
+                self.stats["join_sorts_reused"] += 1
+            (lr, rr, total, counts, _, rank_start, right_by_rank,
+             lmatched, rmatched) = K.join_ranks_counts(
+                lkeys, rkeys, lt.sel, rt.sel, space=space)
+        else:
+            (total, counts, _, rank_start, right_by_rank, lmatched,
+             rmatched) = K.join_counts(lr, rr, lt.sel, rt.sel)
+        li, ri, valid = K.join_emit_inner(
+            counts, rank_start, right_by_rank, lr, total, out_cap)
+        keep = valid
+        if residual_outer:
+            keep = valid & self._residual_on_pairs(plan, lt, rt, li, ri,
+                                                   valid, out_cap)
+            # matched-ness from the pairs that survive the residual
+            lmatched = K._scatter_drop(cap_l, torch.where(keep, li, -1),
+                                       True, False, torch.bool)
+            rmatched = K._scatter_drop(cap_r, torch.where(keep, ri, -1),
+                                       True, False, torch.bool)
+        dev = valid.device
+        pos = torch.arange(out_cap, device=dev)
+        lvalid, rvalid, pad = valid, valid, torch.zeros_like(valid)
+        out_rows = total
+        for outer, matched, t, is_left in ((left_outer, lmatched, lt, True),
+                                           (right_outer, rmatched, rt, False)):
+            if not outer:
+                continue
+            # the unmatched live rows, after the pairs (and the left ones)
+            um = ~matched & t.sel
+            idx = K.compaction_indices(um, um, out_cap)
+            here = (pos >= out_rows) & (pos < out_rows + um.sum(
+                dtype=torch.int64))
+            picked = idx[(pos - out_rows).clamp(0, out_cap - 1)]
+            if is_left:
+                li = torch.where(here, picked, li)
+                lvalid = lvalid | here
+            else:
+                ri = torch.where(here, picked, ri)
+                rvalid = rvalid | here
+            pad = pad | here
+            out_rows = out_rows + um.sum(dtype=torch.int64)
+        gl_d, gl_v = K.gather_columns_packed(
+            [c.data for c in lt.cols], [c.validity for c in lt.cols],
+            _gather_bounds(lt), li, lvalid)
+        gr_d, gr_v = K.gather_columns_packed(
+            [c.data for c in rt.cols], [c.validity for c in rt.cols],
+            _gather_bounds(rt), ri, rvalid)
+        cols = [
+            Column(d, v, c.dtype, c.dictionary)
+            for d, v, c in zip(gl_d + gr_d, gl_v + gr_v,
+                               list(lt.cols) + list(rt.cols))
+        ]
+        # residual outer: the surviving pairs and the unmatched rows, with
+        # holes where the residual rejected a pair (not dense: the result
+        # is compacted); otherwise every emitted row up to out_rows is live
+        sel = (keep | pad) if residual_outer else pos < out_rows
+        # gathered columns keep their source value covers
+        out = _TTable(plan.out_schema, cols, sel, out_cap,
+                      not residual_outer, lt.bounds + rt.bounds)
+        if plan.residual is not None and not residual_outer:
+            mask = ev.eval_predicate_mask(plan.residual, _ShimBatch(out))
+            out = _TTable(out.schema, out.cols, out.sel & mask, out_cap,
+                          False, out.bounds)
+        return out
+
+    def _residual_on_pairs(self, plan, lt, rt, li, ri, valid, out_cap):
+        """The residual ON condition over the emitted pairs: only the
+        columns it reads are gathered (the full gather comes once the
+        unmatched rows are merged in)."""
+        refs = set()
+        lp.walk_exprs(plan.residual, lambda x: refs.add(x.index)
+                      if isinstance(x, lp.ColumnRef) else None)
+        nlc = len(lt.cols)
+        cols = {}
+        for t, idx, sel_cols, off in (
+                (lt, li, [i for i in sorted(refs) if i < nlc], 0),
+                (rt, ri, [i - nlc for i in sorted(refs) if i >= nlc], nlc)):
+            if not sel_cols:
+                continue
+            bounds = _gather_bounds(t)
+            gd, gv = K.gather_columns_packed(
+                [t.cols[i].data for i in sel_cols],
+                [t.cols[i].validity for i in sel_cols],
+                [bounds[i] for i in sel_cols], idx, valid)
+            for i, d, v in zip(sel_cols, gd, gv):
+                cols[i + off] = Column(d, v, t.cols[i].dtype,
+                                       t.cols[i].dictionary)
+        dev = valid.device
+        all_cols = [
+            cols.get(i, Column(torch.zeros(out_cap, dtype=torch.int32,
+                                           device=dev),
+                               torch.zeros(out_cap, dtype=torch.bool,
+                                           device=dev), f.data_type, None))
+            for i, f in enumerate(plan.out_schema)
+        ]
+        pairs = _TTable(plan.out_schema, all_cols, valid, out_cap, True,
+                        [None] * len(all_cols))
+        return self.executor.evaluator.eval_predicate_mask(
+            plan.residual, _ShimBatch(pairs))
+
+    def _trace_fk_join(self, plan, lt, rt, side, lr, rr, n_ranks):
+        """A join with a unique side whose unmatched rows it drops (INNER,
+        or LEFT/RIGHT with the unique side inner): each probe row has at
+        most one match, so the build side's columns gather straight to the
+        probe rows (fk_gather_by_rank, or fk_join_right_lookup +
+        gather_columns_packed when a build column does not pack) and the
+        probe planes pass through — no counts, no emit, no host read.
+        Output rows sit at the probe side's positions; an outer join keeps
+        every probe row, its unmatched ones with NULL build columns, and a
+        residual that fails un-matches the pair (the build columns go
+        NULL) instead of dropping the row."""
+        ev = self.executor.evaluator
+        n_eff = n_ranks if n_ranks is not None else lt.capacity + rt.capacity
         if side == "L":
             # mirrored FK path: the UNIQUE side is the LEFT (dim JOIN
             # fact): left columns gather by the right rows' ranks, the
@@ -1346,16 +1703,28 @@ class CompiledPipeline:
             Column(d, v, c.dtype, c.dictionary)
             for d, v, c in zip(g_d, g_v, build.cols)
         ]
-        if side == "L":
-            cols = gathered + list(rt.cols)
-        else:
-            cols = list(lt.cols) + gathered
-        out = _TTable(plan.out_schema, cols, probe.sel & matched,
+        cols = gathered + list(rt.cols) if side == "L" \
+            else list(lt.cols) + gathered
+        outer = plan.join_type is not lp.JoinType.INNER
+        out = _TTable(plan.out_schema, cols,
+                      probe.sel if outer else probe.sel & matched,
                       probe.capacity, False, lt.bounds + rt.bounds)
         if plan.residual is not None:
             mask = ev.eval_predicate_mask(plan.residual, _ShimBatch(out))
-            out = _TTable(out.schema, out.cols, out.sel & mask,
-                          out.capacity, False, out.bounds)
+            if outer:
+                # a failing residual un-matches the pair: the probe row
+                # stays, its gathered build columns go NULL
+                lo = 0 if side == "L" else len(lt.cols)
+                cols = [
+                    Column(c.data, c.validity & mask, c.dtype, c.dictionary)
+                    if lo <= i < lo + len(build.cols) else c
+                    for i, c in enumerate(out.cols)
+                ]
+                out = _TTable(out.schema, cols, out.sel, out.capacity,
+                              False, out.bounds)
+            else:
+                out = _TTable(out.schema, out.cols, out.sel & mask,
+                              out.capacity, False, out.bounds)
         return out
 
     def _trace_sort_perm(self, keys, t: _TTable) -> torch.Tensor:
@@ -1596,6 +1965,103 @@ class CompiledPipeline:
                        lt.bounds)
 
     # ---- aggregate ---------------------------------------------------------
+    @staticmethod
+    def _key_bounds(e, v, t):
+        """A group key's static cover for the packed gather: its
+        dictionary's size, or its column's bounds."""
+        if v.dictionary is not None:
+            return (0, max(len(v.dictionary), 1))
+        return _group_key_bounds(e, t)
+
+    def _fd_dependent_keys(self, plan, leaf_ids, res):
+        """Group keys functionally dependent on other group keys through a
+        unique-side equi-join — TPC-H Q3's shape: GROUP BY l_orderkey,
+        o_orderdate, o_shippriority where orders is unique on o_orderkey,
+        so the o_* keys are determined by l_orderkey. Dropping them from
+        the grouping keys turns a multi-key grouping into a single-key one
+        (sort-free when the key is bounded); their values come from a
+        representative row of each group.
+
+        Sound because on the join's unique (multiplicity 1) side one key
+        value matches at most one build row, so each of that side's
+        columns is single-valued per probe-key value. Outer rows are safe
+        only when the probe side is the outer side (their dependent
+        columns are all NULL, still single-valued per key): hence the gate
+        on the join type. Returns the positions of the dependent keys."""
+        exprs = plan.group_exprs
+        if len(exprs) < 2 or not res:
+            return frozenset()
+
+        def unwrap(e):
+            while isinstance(e, lp.AliasExpr):
+                e = e.expr
+            return e
+
+        def resolve(node, idx):
+            """-> (terminal node id, column, [(join, side) crossed])"""
+            crossings = []
+            while True:
+                if id(node) in leaf_ids:
+                    return (id(node), idx, crossings)
+                if isinstance(node, (pp.PFilter, pp.PSort, pp.PLimit,
+                                     pp.PDistinct, pp.PSubquery)):
+                    node = node.input
+                elif isinstance(node, pp.PProjection):
+                    pe = unwrap(node.exprs[idx])
+                    if not isinstance(pe, lp.ColumnRef):
+                        return None
+                    node, idx = node.input, pe.index
+                elif isinstance(node, pp.PHashJoin):
+                    n_left = len(node.left.schema())
+                    if idx < n_left:
+                        crossings.append((node, "L"))
+                        node = node.left
+                    else:
+                        crossings.append((node, "R"))
+                        node, idx = node.right, idx - n_left
+                else:
+                    return (id(node), idx, crossings)
+
+        provs = []
+        for e in exprs:
+            ee = unwrap(e)
+            provs.append(resolve(plan.input, ee.index)
+                         if isinstance(ee, lp.ColumnRef) else None)
+        dep: set = set()
+        joins = {id(j): j for p in provs if p for j, _ in p[2]}
+        for jid, join in joins.items():
+            r = res.get(jid)
+            if r is None or r[0] not in ("L", "R") or r[1] != 1:
+                continue
+            side_b = r[0]
+            jt = join.join_type
+            if not (jt is lp.JoinType.INNER
+                    or (jt is lp.JoinType.LEFT and side_b == "R")
+                    or (jt is lp.JoinType.RIGHT and side_b == "L")):
+                continue
+            cand = [i for i, p in enumerate(provs)
+                    if p and any(j is join and s == side_b for j, s in p[2])]
+            if not cand:
+                continue
+            # every probe-side join key must be among the kept group keys
+            probe_child = join.left if side_b == "R" else join.right
+            probe_terms = []
+            for le, re_ in join.key_pairs:
+                pe = unwrap(le if side_b == "R" else re_)
+                term = (resolve(probe_child, pe.index)
+                        if isinstance(pe, lp.ColumnRef) else None)
+                if term is None:
+                    break
+                probe_terms.append(term[:2])
+            else:
+                kept = {p[:2] for i, p in enumerate(provs)
+                        if p and i not in cand and i not in dep}
+                if all(t in kept for t in probe_terms):
+                    dep.update(cand)
+        if not dep or len(dep) >= len(exprs):
+            return frozenset()
+        return frozenset(dep)
+
     def _trace_aggregate(self, plan: pp.PHashAggregate, t: _TTable,
                          res) -> _TTable:
         ex = self.executor
@@ -1608,27 +2074,37 @@ class CompiledPipeline:
 
         kernel_bound = None  # static dense-gid bound enabling the kernel
         bucket_mode = False
+        resolution = (res or {}).get(id(plan))  # group-space count->emit
+        dep_keys = self._fd_dependent_keys(plan, self._leaf_ids, res)
+        if self._compiling:
+            self.stats["fd_pruned_keys"] += len(dep_keys)
         if plan.group_exprs:
             gvals = [ev.eval(g, shim) for g in plan.group_exprs]
+            # only the independent keys group: dense ids sorted by them
+            # equal those sorted by every key, the dependent keys being
+            # functions of them
+            ind = [i for i in range(len(gvals)) if i not in dep_keys]
+            gvals_i = [gvals[i] for i in ind]
             # direct (sort-free) grouping when the keys' value ranges are
             # statically bounded: dictionary codes (range = dict size) or
             # integer columns with leaf min/max stats
             direct = None  # (key plane, validity, lo, num_buckets)
-            ranges = []  # per key: (lo, range) or None
-            for g, v in zip(plan.group_exprs, gvals):
+            ranges = []  # per independent key: (lo, range) or None
+            for i, v in zip(ind, gvals_i):
                 if v.dictionary is not None:
                     ranges.append((0, max(len(v.dictionary), 1)))
                 elif v.data.dtype == torch.bool:
                     ranges.append((0, 2))
                 elif _is_int(v.data):
-                    ranges.append(_group_key_bounds(g, t))
+                    ranges.append(_group_key_bounds(plan.group_exprs[i], t))
                 else:
                     ranges.append(None)
             max_range = ex._DIRECT_GROUP_MAX_RANGE
-            if len(gvals) == 1:
+            if len(gvals_i) == 1:
                 r0 = ranges[0]
                 if r0 is not None and r0[1] + 1 <= max_range:
-                    direct = (gvals[0].data, gvals[0].validity, r0[0], r0[1])
+                    direct = (gvals_i[0].data, gvals_i[0].validity, r0[0],
+                              r0[1])
             elif all(r is not None for r in ranges):
                 # combined code: lexicographic packing with a null slot per
                 # key (code R_i), matching the sort-based group order
@@ -1639,7 +2115,7 @@ class CompiledPipeline:
                         break
                 if prod <= max_range:
                     combined = None
-                    for v, (lo_i, rng_i) in zip(gvals, ranges):
+                    for v, (lo_i, rng_i) in zip(gvals_i, ranges):
                         code = torch.where(
                             v.validity,
                             (v.data.to(torch.int64) - lo_i).clamp(
@@ -1670,13 +2146,30 @@ class CompiledPipeline:
                 S = min(padded_capacity(nb + 1), cap)
                 kernel_bound = S
             else:
-                # unbounded keys: sort-based grouping at S = capacity (the
-                # group-space count->emit program is not in this slice)
-                gid, ng, rep = K.group_ids(
-                    [v.data for v in gvals], [v.validity for v in gvals], sel,
-                    ranges=ranges,
-                )
+                # the sort-based grouping at S = capacity; a counted
+                # aggregate reuses the count program's grouping (handed
+                # over as planes) and skips the sort
+                space = self._xfer_by_node.get(id(plan))
+                if space is not None:
+                    gid, ng, rep = space
+                    if self._compiling:
+                        self.stats["group_sorts_reused"] += 1
+                else:
+                    gid, ng, rep = K.group_ids(
+                        [v.data for v in gvals_i],
+                        [v.validity for v in gvals_i], sel, ranges=ranges,
+                    )
                 S = cap
+            if resolution == ("C", None):
+                # the count program's scalar: the groups (a bucket bound
+                # met at run time caps the groups statically)
+                if bucket_mode:
+                    raise _CountReady(plan, S)
+                raise _CountReady(plan, ng, extras=(gid, ng, rep))
+            if resolution is not None and not bucket_mode:
+                # the emit program aggregates at the counted bucket
+                S = min(resolution[1], S)
+                kernel_bound = S
         else:
             gvals = []
             gid = torch.zeros(cap, dtype=torch.int64, device=dev)
@@ -1687,11 +2180,11 @@ class CompiledPipeline:
         cols: List[Column] = []
         if bucket_mode:
             iota_s = torch.arange(S, device=dev)
-            if len(gvals) == 1:
-                v = gvals[0]
-                cols.append(Column((iota_s + lo).to(v.data.dtype),
-                                   iota_s < nb, schema.field(0).data_type,
-                                   v.dictionary))
+            key_cols = {}  # group-key position -> (data, validity, dict)
+            if len(gvals_i) == 1:
+                v = gvals_i[0]
+                key_cols[ind[0]] = ((iota_s + lo).to(v.data.dtype),
+                                    iota_s < nb, v.dictionary)
             else:
                 # decompose the combined lexicographic code per key
                 rem = iota_s
@@ -1700,23 +2193,38 @@ class CompiledPipeline:
                     codes.append(rem % (rng_i + 1))
                     rem = rem // (rng_i + 1)
                 codes.reverse()
-                for i, (v, code, (lo_i, rng_i)) in enumerate(
-                        zip(gvals, codes, ranges)):
-                    cols.append(Column((code + lo_i).to(v.data.dtype),
-                                       code < rng_i,
-                                       schema.field(i).data_type,
-                                       v.dictionary))
+                for i, v, code, (lo_i, rng_i) in zip(ind, gvals_i, codes,
+                                                     ranges):
+                    key_cols[i] = ((code + lo_i).to(v.data.dtype),
+                                   code < rng_i, v.dictionary)
+            if dep_keys:
+                # the dependent keys are single-valued per bucket, so any
+                # live row of the bucket gives them: one scatter of row
+                # indices makes the representative rows (the rows not
+                # selected into spill slots of their own, not one shared)
+                rows = torch.arange(cap, device=dev)
+                rep_b = K._scatter_drop(
+                    S + cap, torch.where(K.live_mask(cap, sel), gid,
+                                         S + rows),
+                    rows, 0, torch.int64, reduce="amax")[:S]
+                dpos = sorted(dep_keys)
+                g_d, g_v = K.gather_columns_packed(
+                    [gvals[i].data for i in dpos],
+                    [gvals[i].validity for i in dpos],
+                    [self._key_bounds(plan.group_exprs[i], gvals[i], t)
+                     for i in dpos], rep_b)
+                for i, d, vv in zip(dpos, g_d, g_v):
+                    key_cols[i] = (d, vv, gvals[i].dictionary)
+            for i in range(len(gvals)):
+                d, vv, dic = key_cols[i]
+                cols.append(Column(d, vv, schema.field(i).data_type, dic))
         elif gvals:
             # representative-row gather of the group keys, packed
-            kb = []
-            for g, v in zip(plan.group_exprs, gvals):
-                if v.dictionary is not None:
-                    kb.append((0, max(len(v.dictionary), 1)))
-                else:
-                    kb.append(_group_key_bounds(g, t))
             g_d, g_v = K.gather_columns_packed(
                 [v.data for v in gvals], [v.validity for v in gvals],
-                kb, rep[:S],
+                [self._key_bounds(g, v, t)
+                 for g, v in zip(plan.group_exprs, gvals)],
+                rep[:S],
             )
             for d, vd, v, f in zip(g_d, g_v, gvals, schema):
                 cols.append(Column(d, vd, f.data_type, v.dictionary))
@@ -1834,6 +2342,17 @@ class CompiledPipeline:
         return _TTable(schema, cols, sel_out, S, True, [None] * len(cols))
 
 
+def _fk_path(join_type, resolution) -> bool:
+    """A join resolved to a unique side that drops that side's unmatched
+    rows (INNER, or LEFT/RIGHT with the unique side inner) takes the FK
+    path: the unique side gathers to the probe rows, with no emit."""
+    side, dup = resolution
+    J = lp.JoinType
+    return dup == 1 and (
+        (side == "R" and join_type in (J.INNER, J.LEFT))
+        or (side == "L" and join_type in (J.INNER, J.RIGHT)))
+
+
 def _sources_read(plan, sub_exprs=()) -> set:
     """id()s of the table sources a physical plan reads, its expressions'
     subquery plans included."""
@@ -1859,24 +2378,40 @@ def _sources_read(plan, sub_exprs=()) -> set:
     return out
 
 
-def _ptrs(planes):
-    return tuple((d.data_ptr(), v.data_ptr())
-                 for pl in planes for d, v in pl)
+def _ptrs(planes, xfer=()):
+    """The addresses a graph reads: the input planes' and the handed-over
+    planes'."""
+    return (tuple((d.data_ptr(), v.data_ptr()) for pl in planes
+                  for d, v in pl),
+            tuple(t.data_ptr() for t in _flat(xfer)))
+
+
+def _flat(obj):
+    """The tensors of a nest of lists and tuples, in order."""
+    if isinstance(obj, torch.Tensor):
+        return [obj]
+    return [t for x in obj for t in _flat(x)]
 
 
 class _Entry:
     """A cached program: the plan segment, its leaves' static facts and,
     on CUDA, the captured graph with the tensors it reads and writes."""
 
-    __slots__ = ("plan", "leaves", "leaf_ids", "res", "dyn_exprs",
-                 "sub_exprs", "subs", "leaf_bounds", "meta", "graph",
-                 "outputs", "planes", "ptrs", "n_bufs", "dyn_bufs")
+    __slots__ = ("plan", "leaves", "leaf_ids", "res", "checks", "counts",
+                 "ordinal", "xfer_ords", "dyn_exprs", "sub_exprs", "subs",
+                 "leaf_bounds", "meta", "graph", "outputs", "planes", "xfer",
+                 "ptrs", "n_bufs", "dyn_bufs")
 
     def __init__(self, plan, leaves):
         self.plan = plan
         self.leaves = leaves  # holds dictionary refs so leaf ids stay unique
         self.leaf_ids = frozenset()
         self.res = {}
+        self.checks = []      # the checked join/aggregate nodes, in order
+        self.counts = False   # a count program (else an emit program)
+        self.ordinal = None   # count program: the check it counts
+        self.xfer_ords = ()   # emit program: the checks whose count
+        # programs' planes it takes as inputs
         self.dyn_exprs = []
         self.sub_exprs = []  # subquery exprs of `plan`, traversal order
         self.subs = []  # their first batches (schemas, dictionary refs)
@@ -1885,6 +2420,7 @@ class _Entry:
         self.graph = None     # torch.cuda.CUDAGraph once captured
         self.outputs = None   # the graph's output tensors (overwritten)
         self.planes = None    # leaf planes the graph reads (kept alive)
+        self.xfer = ()        # handed-over planes the graph reads
         self.ptrs = None      # their data_ptr()s at capture
         self.n_bufs = None    # leaf row counts, 0-d int64, filled per call
         self.dyn_bufs = None  # literal values, 0-d, filled per call

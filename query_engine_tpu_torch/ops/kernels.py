@@ -839,18 +839,55 @@ def join_ranks(
     return out[0], out[1]
 
 
+def _any_null(left_keys, right_keys) -> torch.Tensor:
+    """Per row of the left ++ right concatenation: some key is NULL."""
+    any_null = None
+    for (_, lv), (_, rv) in zip(left_keys, right_keys):
+        n = ~torch.cat([lv, rv])
+        any_null = n if any_null is None else any_null | n
+    return any_null
+
+
 def _join_ranks_full(left_keys, right_keys, n_left, n_right,
-                     null_equal: bool = False):
+                     null_equal: bool = False, space=None):
     """Also returns (sorted perm, sorted null-or-pad flag, change flags) of
-    the joint sort."""
+    the joint sort. `space` = (sperm, sorted_lead, change) of an earlier
+    joint sort of the SAME inputs (the count program's, handed to the emit
+    program) skips the sort: the ranks come from its segment ids."""
+    if space is not None:
+        cap_l = left_keys[0][0].shape[0]
+        sperm, sorted_lead, change = space
+        ranks = torch.zeros_like(sperm)
+        ranks[sperm] = _run_ids(change) - 1
+        if not null_equal:
+            ranks = torch.where(_any_null(left_keys, right_keys),
+                                -(torch.arange(sperm.shape[0],
+                                               device=sperm.device) + 2),
+                                ranks)
+        return ranks[:cap_l], ranks[cap_l:], sperm, sorted_lead, change
+    sperm, sorted_lead, change, seg = _joint_sort(
+        left_keys, right_keys, n_left, n_right, null_equal)
+    cap_l = left_keys[0][0].shape[0]
+    ranks = torch.zeros_like(sperm)
+    ranks[sperm] = seg
+    if not null_equal:
+        # null keys never match: unique negative rank per row
+        ranks = torch.where(
+            _any_null(left_keys, right_keys),
+            -(torch.arange(sperm.shape[0], device=sperm.device) + 2), ranks)
+    return ranks[:cap_l], ranks[cap_l:], sperm, sorted_lead, change
+
+
+def _joint_sort(left_keys, right_keys, n_left, n_right, null_equal: bool):
+    """The stable joint sort of the left ++ right key rows: (sorted perm,
+    sorted null-or-pad flag, change flags, segment ids), live non-null rows
+    first grouped by key, then NULL-key rows, then pad rows. Within a key
+    segment the left rows precede the right rows (stable over the
+    concatenation)."""
     device = left_keys[0][0].device
     cap_l = left_keys[0][0].shape[0]
     cap_r = right_keys[0][0].shape[0]
-    cap = cap_l + cap_r
-    any_null = torch.zeros(cap, dtype=torch.bool, device=device)
-    for (_, lv), (_, rv) in zip(left_keys, right_keys):
-        any_null = any_null | ~torch.cat([lv, rv])
-    perm = torch.arange(cap, device=device)
+    any_null = _any_null(left_keys, right_keys)
     pad = torch.cat([~live_mask(cap_l, n_left, device),
                      ~live_mask(cap_r, n_right, device)])
     datas: List[torch.Tensor] = []
@@ -893,12 +930,95 @@ def _join_ranks_full(left_keys, right_keys, n_left, n_right,
     first_cls = first >> 32 if datas[0].dtype == torch.int32 else first
     sorted_lead = (first_cls >= lead_thr).to(torch.int32)
     change, seg = _segment_ids_from_sorted(sorted_ops, sorted_lead > 0)
-    ranks = torch.zeros(cap, dtype=torch.int64, device=device)
-    ranks[sperm] = seg
-    if not null_equal:
-        # null keys never match: unique negative rank per row
-        ranks = torch.where(any_null, -(perm + 2), ranks)
-    return ranks[:cap_l], ranks[cap_l:], sperm, sorted_lead, change
+    return sperm, sorted_lead, change, seg
+
+
+def _segment_sides(sperm, sorted_lead, change, cap_l: int):
+    """Per sorted position of a joint sort: whether it is a live non-null
+    left row and a live non-null right row, the inclusive running counts of
+    such left and right rows (L, R), and the first and last position of its
+    key segment. Each segment's counts are differences of L and R at its
+    ends; no encoded scan is needed."""
+    valid = sorted_lead == 0
+    is_right = sperm >= cap_l
+    left = valid & ~is_right
+    right = valid & is_right
+    L = torch.cumsum(left.to(torch.int64), 0)
+    R = torch.cumsum(right.to(torch.int64), 0)
+    return left, right, L, R, _seg_start_pos(change), _seg_end_pos(change)
+
+
+def join_ranks_counts(
+    left_keys: Sequence[Tuple[torch.Tensor, torch.Tensor]],
+    right_keys: Sequence[Tuple[torch.Tensor, torch.Tensor]],
+    n_left,
+    n_right,
+    space=None,
+):
+    """join_ranks + join_counts from ONE joint sort: the per-left-row match
+    counts and the right rows' matched flags come from the sorted space
+    (each key segment's left and right counts, from the running counts at
+    its ends) and are scattered once to row order. `space` is as in
+    `_join_ranks_full`.
+
+    Returns (lr, rr, total, counts, offsets, rank_start, right_by_rank,
+    left_matched, right_matched): the contract of join_ranks followed by
+    join_counts (NULL keys never match)."""
+    cap_l = left_keys[0][0].shape[0]
+    cap_r = right_keys[0][0].shape[0]
+    n_ranks = cap_l + cap_r
+    lr, rr, sperm, sorted_lead, change = _join_ranks_full(
+        left_keys, right_keys, n_left, n_right, space=space)
+    left, right, L, R, start, end = _segment_sides(sperm, sorted_lead,
+                                                   change, cap_l)
+    # the rights of a segment all follow its lefts: a left row matches
+    # every right row of its segment
+    n_right_here = R[end] - R[start] + right[start].to(torch.int64)
+    counts = _scatter_drop(cap_l, torch.where(left, sperm, -1),
+                           torch.where(left, n_right_here, 0), 0, torch.int64)
+    offsets = torch.cumsum(counts, 0) - counts
+    total = counts.sum()
+    n_left_here = L[end] - L[start] + left[start].to(torch.int64)
+    right_matched = _scatter_drop(cap_r, torch.where(right, sperm - cap_l,
+                                                     -1),
+                                  n_left_here > 0, False, torch.bool)
+    # emit machinery: right rows grouped by rank
+    r_ok = live_mask(cap_r, n_right, rr.device) & (rr >= 0)
+    rr_c = torch.where(r_ok, rr, n_ranks - 1)
+    cnt_r = _segment_count(r_ok, rr_c, n_ranks)
+    rank_start = torch.cumsum(cnt_r, 0) - cnt_r
+    right_by_rank = torch.sort(rr_c, stable=True).indices
+    return (lr, rr, total, counts, offsets, rank_start, right_by_rank,
+            counts > 0, right_matched)
+
+
+def join_count_total(
+    left_keys: Sequence[Tuple[torch.Tensor, torch.Tensor]],
+    right_keys: Sequence[Tuple[torch.Tensor, torch.Tensor]],
+    n_left,
+    n_right,
+    return_space: bool = False,
+):
+    """The join's size for the count program, from one joint sort and
+    reductions over the sorted space (no rank plane, no scatter to row
+    order): (total matches, matched left rows, matched right rows) as 0-d
+    int64 tensors, plus (sperm, sorted_lead, change) when `return_space`,
+    for the emit program to skip its own sort."""
+    cap_l = left_keys[0][0].shape[0]
+    sperm, sorted_lead, change, _ = _joint_sort(
+        left_keys, right_keys, n_left, n_right, null_equal=False)
+    left, right, L, R, start, end = _segment_sides(sperm, sorted_lead,
+                                                   change, cap_l)
+    n_left_here = L[end] - L[start] + left[start].to(torch.int64)
+    n_right_here = R[end] - R[start] + right[start].to(torch.int64)
+    # each right row meets every left row of its segment
+    total = torch.where(right, n_left_here, 0).sum()
+    matched_right = (right & (n_left_here > 0)).sum()
+    matched_left = (left & (n_right_here > 0)).sum()
+    if return_space:
+        return total, matched_left, matched_right, (sperm, sorted_lead,
+                                                    change)
+    return total, matched_left, matched_right
 
 
 def join_counts(
@@ -952,15 +1072,21 @@ def join_emit_inner(
 
     out_capacity >= total (the host chose it after pass 1). The owning left
     row of each output slot comes from a scatter of row ids at each row's
-    output offset followed by a running max — no searchsorted.
+    output offset followed by a running max (row-wise, `_cummax`: a 1-D
+    torch.cummax on CUDA is one thread block's scan) — no searchsorted.
+    The offsets of rows with matches are distinct, so the scatter is a
+    plain store, and each row without one stores into a spill slot of its
+    own: on the card an atomic max of millions of rows into one shared
+    spill slot took 270-300 ms at 2^23 left rows.
     """
     device = counts.device
     cap_l = counts.shape[0]
     starts = torch.cumsum(counts, 0) - counts
     rows = torch.arange(cap_l, device=device)
-    mark = _scatter_drop(out_capacity, torch.where(counts > 0, starts, -1),
-                         rows, 0, torch.int64, reduce="amax")
-    owner = torch.cummax(mark, 0).values
+    mark = _scatter_drop(out_capacity + cap_l,
+                         torch.where(counts > 0, starts, out_capacity + rows),
+                         rows, 0, torch.int64)[:out_capacity]
+    owner = _cummax(mark)
     t = torch.arange(out_capacity, device=device)
     j = t - starts[owner]
     lrank = left_ranks[owner].clamp(0, rank_start.shape[0] - 1)

@@ -88,10 +88,10 @@ QUERIES = [
     # multi-key join with a unique composite build side (id, dept_id)
     ("SELECT a.name, b.salary FROM employees a JOIN employees b "
      "ON a.id = b.id AND a.dept_id = b.dept_id ORDER BY a.id", 1),
-    # self-join on a non-unique key: demoted to an eager leaf, the segment
-    # above still compiles
+    # self-join on a non-unique key (multiplicity 2): a bounded emit in the
+    # program, as the JAX package's pipeline runs it
     ("SELECT a.name, b.name FROM employees a JOIN employees b "
-     "ON a.dept_id = b.dept_id WHERE a.id < b.id ORDER BY a.id, b.id", 0),
+     "ON a.dept_id = b.dept_id WHERE a.id < b.id ORDER BY a.id, b.id", 1),
     # null semantics on a table with NULL keys and values
     ("SELECT k, COUNT(*), SUM(v), AVG(v), MIN(v), MAX(v) FROM nv "
      "GROUP BY k ORDER BY k", 0),
