@@ -289,6 +289,25 @@ Phase 15 runs the joins and aggregates the compiled pipeline sizes at run
          slots with the count's grouping, J1 was counted, a warm run of a
          query with no eager leaf compiled or captured anew, Q3's two
          dependent keys were not pruned, or `index_add_` ran on the card.
+Phase 16 runs the mesh pipeline (`parallel/mesh_pipeline.py`) at SF1 on 4
+         virtual shards of the card (`make_mesh(["cuda:0"] * 4)`, one
+         host thread a shard) over phase 7's host tables. 16a: the 22
+         TPC-H queries through `Session(device="cuda", mesh=...)`, each
+         first (every group_agg call outside a capture held against the
+         plain versions), MESH_TPCH_WARM times warm and once profiled, its
+         rows against the numpy oracle (floats to rtol 1e-9); per query it
+         prints whether it lowered to the mesh or fell back, the change in
+         `mesh_pipeline.stats`, the rows (`Mesh.rows_exchanged()`) and
+         bytes exchanged, first and warm ms, and the profiled run's kernel
+         ms and group_agg launches, beside the card's name and power limit.
+         16b: phase 15's J2 (no bounded side) through the mesh, which must
+         size it by a count program (`joins_counted`). 16c: Q1, Q6 and Q14
+         over pgwire from one client to a Session that `QE_MESH_DEVICES=4`
+         makes (4 virtual shards of the card), and Q1 and Q6 through
+         `DistributedExecutor(mesh=...)`, which must not take the stage
+         walk. Fails on any row that differs from its oracle, unless Q1
+         lowered and launched group_agg, or if `index_add_` ran on the
+         card.
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after; a kernel of the path that was not launched fails the run.
@@ -4123,6 +4142,305 @@ def phase15(tables):
             "max_abs_err": max(errs, default=0.0)}
 
 
+MESH_TPCH_WARM = 3        # phase 16a: warm runs a query (median)
+MESH_MS_KEYS = ("compiles", "hits", "fallbacks", "exchanges",
+                "overflow_retries", "joins_counted", "eager_leaves",
+                "eager_rows", "agg_partial_final")
+MESH_SERVED = ("Q1", "Q6", "Q14")      # 16c over pgwire
+MESH_STAGED = ("Q1", "Q6")             # 16c through DistributedExecutor
+_CARD = []
+
+
+def card_label():
+    """The card's name and power limit as nvidia-smi gives them (read
+    once)."""
+    if not _CARD:
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60)
+        check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
+        _CARD.append(smi.stdout.strip().splitlines()[0])
+    return _CARD[0]
+
+
+def _mesh_run(sess, text, spy, held=None):
+    """One query through a mesh Session: (rows, ms to the end of a
+    synchronize, mesh stats change, rows and bytes exchanged, group_agg
+    launches); its group_agg calls held against the plain versions when
+    `held` is a list."""
+    import torch
+
+    mp = sess.mesh_pipeline
+    mesh = mp.mesh
+    st0 = dict(mp.stats)
+    rows0, bytes0 = mesh.rows_exchanged(), mesh.stats["bytes_exchanged"]
+    hold = (group_agg_held_against_plain(held, spy) if held is not None
+            else contextlib.nullcontext())
+    reset_counts()
+    torch.cuda.synchronize()
+    with spy.active(), hold:
+        t0 = time.perf_counter()
+        rows = sess.sql(text).to_pylist()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    launches = read_counts()["group_agg"]
+    delta = {k: mp.stats[k] - st0[k] for k in MESH_MS_KEYS}
+    moved = (mesh.rows_exchanged() - rows0,
+             mesh.stats["bytes_exchanged"] - bytes0)
+    return rows, ms, delta, moved, launches
+
+
+def phase16a(tables, card, spy):
+    """The 22 TPC-H queries at SF1 through a 4-shard virtual mesh on the
+    card, each against the numpy oracle."""
+    import torch
+
+    from query_engine_tpu_torch.engine.session import Session
+    from query_engine_tpu_torch.ops import group_agg
+    from query_engine_tpu_torch.parallel.mesh import make_mesh
+    from query_engine_tpu_torch.tpch import data, oracle, queries
+
+    mesh = make_mesh(["cuda:0"] * MESH_SHARDS)
+    sess = Session(device="cuda", mesh=mesh)
+    data.register(sess, tables)
+    torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    out, held = {}, {}
+    for q, text in queries.QUERIES.items():
+        want = oracle.run(q, tables)
+        keys = oracle.FLOAT_SORT_KEYS.get(q, ())
+        held[q] = []
+        rows, first_ms, delta, (rx, bx), launches = _mesh_run(
+            sess, text, spy, held[q])
+        err = _oracle_equal(f"phase 16a: {q} through the mesh", rows, want,
+                            keys)
+        check(len(rows) > 0 or q in TPCH_NO_ROWS_AT_SF1,
+              f"phase 16a: {q} returned no rows")
+        lowered = delta["compiles"] + delta["hits"] > 0
+        walls = []
+        for _ in range(MESH_TPCH_WARM):
+            again, ms, _, _, _ = _mesh_run(sess, text, spy)
+            walls.append(ms)
+        _oracle_equal(f"phase 16a: {q}: a warm run", again, want, keys)
+
+        def run():
+            l0 = group_agg.launches
+            sess.sql(text).to_pylist()
+            torch.cuda.synchronize()
+            return group_agg.launches - l0
+
+        with spy.active():
+            prof, tries, prof_launches = profiled(run)
+        events = prof.key_averages()
+        kernel_ms = sum(e.self_device_time_total for e in events
+                        if e.device_type == cuda) / 1e3
+        agg_ms = sum(e.self_device_time_total for e in events
+                     if e.device_type == cuda and (
+                         "sum_count_" in e.key or "float_absmax" in e.key)
+                     ) / 1e3
+        check(not launches or held[q], f"phase 16a: {q}: no group_agg call "
+              "of its first run was held against the plain versions")
+        r = out[q] = {
+            "rows": len(rows), "lowered": lowered, "max_rel_err": err,
+            "first_ms": first_ms, "ms": statistics.median(walls),
+            "min_ms": min(walls), "max_ms": max(walls), "stats": delta,
+            "rows_exchanged": rx, "bytes_exchanged": bx,
+            "group_agg": launches, "held": len(held[q]),
+            "profiled_group_agg": prof_launches, "kernel_ms": kernel_ms,
+            "group_agg_kernel_ms": agg_ms}
+        print(f"phase 16a: {q}: {len(rows)} rows == numpy oracle (max rel "
+              f"err {err:.3g}); {'lowered to the mesh' if lowered else 'fell back to one device'}; "
+              f"stats {delta}; {rx:,} rows and {bx:,} bytes exchanged; first "
+              f"run {first_ms:.1f} ms, warm {r['ms']:.3f} ms median of "
+              f"{MESH_TPCH_WARM} ({r['min_ms']:.3f}-{r['max_ms']:.3f}, host "
+              f"clock to a synchronize); first run's group_agg launches "
+              f"{launches}, {len(held[q])} held against the plain versions; "
+              f"one profiled warm run: {kernel_ms:.3f} ms of kernel time, "
+              f"group_agg {agg_ms:.3f} ms in {prof_launches} launches "
+              f"({tries} profile tries) [{card}]")
+    lowered = [q for q, r in out.items() if r["lowered"]]
+    print(f"phase 16a: {len(lowered)} of {len(out)} queries lowered to the "
+          f"mesh ({', '.join(q for q in out if q not in lowered) or 'none'} "
+          f"fell back); stats {sess.mesh_pipeline.stats}")
+    check("Q1" in lowered and out["Q1"]["group_agg"] > 0,
+          f"phase 16a: Q1 did not run on the mesh through group_agg: "
+          f"{out['Q1']}")
+    check(not spy.calls, f"phase 16a: {spy.calls} index_add_ calls on the "
+          "card")
+    del sess
+    return out, held
+
+
+def phase16b(tables, card, spy):
+    """Phase 15's J2 (no bounded side) through the mesh: the mesh's
+    count program, then the emit program."""
+    import torch
+
+    from query_engine_tpu_torch.engine.session import Session
+    from query_engine_tpu_torch.parallel.mesh import make_mesh
+    from query_engine_tpu_torch.tpch import count_emit as CE
+    from query_engine_tpu_torch.tpch import data
+
+    sess = Session(device="cuda", mesh=make_mesh(["cuda:0"] * MESH_SHARDS))
+    data.register(sess, tables)
+    torch.cuda.synchronize()
+    want = CE.run("J2", tables)
+    held = []
+    rows, first_ms, delta, (rx, bx), launches = _mesh_run(
+        sess, CE.QUERIES["J2"], spy, held)
+    try:
+        err = CE.compare("J2", rows, want)
+    except AssertionError as e:
+        raise CheckFailed(f"phase 16b: J2 through the mesh differs from the "
+                          f"numpy oracle: {e}") from None
+    check(delta["joins_counted"] >= 1 and delta["fallbacks"] == 0,
+          f"phase 16b: J2 was not sized by the mesh's count program: {delta}")
+    walls = []
+    for _ in range(MESH_TPCH_WARM):
+        again, ms, wdelta, _, _ = _mesh_run(sess, CE.QUERIES["J2"], spy)
+        walls.append(ms)
+    CE.compare("J2", again, want)
+    print(f"phase 16b: J2: {len(rows)} rows == numpy oracle (max rel err "
+          f"{err:.3g}); stats {delta}, a warm run's {wdelta}; {rx:,} rows and "
+          f"{bx:,} bytes exchanged; first run {first_ms:.1f} ms, warm "
+          f"{statistics.median(walls):.3f} ms median of {MESH_TPCH_WARM}; "
+          f"group_agg launches {launches}, {len(held)} held [{card}]")
+    return {"rows": len(rows), "stats": delta, "first_ms": first_ms,
+            "ms": statistics.median(walls), "group_agg": launches,
+            "held": held, "max_rel_err": err}
+
+
+def phase16c(tables, card, spy):
+    """A pgwire server over a Session that QE_MESH_DEVICES=4 makes (4
+    virtual shards of the one card), and DistributedExecutor(mesh=...)."""
+    import torch
+
+    from query_engine_tpu_torch.engine.session import Session
+    from query_engine_tpu_torch.parallel.coordinator import Coordinator
+    from query_engine_tpu_torch.parallel.dexecutor import DistributedExecutor
+    from query_engine_tpu_torch.parallel.mesh import make_mesh
+    from query_engine_tpu_torch.pgwire import server as pg
+    from query_engine_tpu_torch.sql.parser import parse_sql
+    from query_engine_tpu_torch.tpch import data, oracle, queries
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tests"))
+    from torch_pg_wire import ServerThread, WireClient
+
+    saved = os.environ.get("QE_MESH_DEVICES")
+    os.environ["QE_MESH_DEVICES"] = str(MESH_SHARDS)
+    try:
+        sess = Session(device="cuda")
+    finally:
+        if saved is None:
+            del os.environ["QE_MESH_DEVICES"]
+        else:
+            os.environ["QE_MESH_DEVICES"] = saved
+    mp = sess.mesh_pipeline
+    check(mp is not None and mp.n == MESH_SHARDS
+          and all(d.type == "cuda" for d in mp.mesh.devices),
+          f"phase 16c: QE_MESH_DEVICES={MESH_SHARDS} made no mesh of the "
+          f"card: {None if mp is None else mp.mesh}")
+    data.register(sess, tables)
+    torch.cuda.synchronize()
+    out = {"served": {}, "staged": {}}
+    held = []
+    launches = 0
+    srv = ServerThread(pg.PgServer(sess, "127.0.0.1", 0)).start()
+    try:
+        c = WireClient("127.0.0.1", srv.port)
+        for q in MESH_SERVED:
+            st0 = dict(mp.stats)
+            reset_counts()
+            with spy.active(), group_agg_held_against_plain(held, spy):
+                t0 = time.perf_counter()
+                _, rows, tags = c.typed_query(queries.QUERIES[q])
+                ms = (time.perf_counter() - t0) * 1e3
+            launches += read_counts()["group_agg"]
+            err = _oracle_equal(f"phase 16c: {q} over pgwire", rows,
+                                oracle.run(q, tables),
+                                oracle.FLOAT_SORT_KEYS.get(q, ()))
+            delta = {k: mp.stats[k] - st0[k] for k in MESH_MS_KEYS}
+            check(delta["compiles"] + delta["hits"] > 0,
+                  f"phase 16c: {q} over pgwire did not run on the mesh: "
+                  f"{delta}")
+            out["served"][q] = {"rows": len(rows), "wire_ms": ms,
+                                "stats": delta}
+            print(f"phase 16c: {q} over pgwire (Session by QE_MESH_DEVICES="
+                  f"{MESH_SHARDS}): {len(rows)} rows == numpy oracle (max rel "
+                  f"err {err:.3g}), {tags}; first run's wire {ms:.1f} ms; "
+                  f"stats {delta} [{card}]")
+        c.close()
+    finally:
+        srv.stop()
+    coord = Coordinator(device="cuda")
+    for i in range(STAGE_WORKERS):
+        coord.register_worker(f"worker{i}")
+    dx = DistributedExecutor(coord, mesh=make_mesh(["cuda:0"] * MESH_SHARDS))
+    for q in MESH_STAGED:
+        plan = sess.optimizer.optimize(
+            sess.planner.create_logical_plan(parse_sql(queries.QUERIES[q])))
+        reset_counts()
+        with spy.active(), group_agg_held_against_plain(held, spy):
+            t0 = time.perf_counter()
+            rows = dx.execute(plan, sess.sources).to_pylist()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        launches += read_counts()["group_agg"]
+        err = _oracle_equal(f"phase 16c: {q} through DistributedExecutor"
+                            "(mesh=...)", rows, oracle.run(q, tables),
+                            oracle.FLOAT_SORT_KEYS.get(q, ()))
+        st = dx._mesh_pipeline.stats
+        check(not dx.last_stages and st["compiles"] + st["hits"] > 0,
+              f"phase 16c: {q}: DistributedExecutor(mesh=...) took the stage "
+              f"walk: {dx.last_stages}, {st}")
+        out["staged"][q] = {"rows": len(rows), "ms": ms}
+        print(f"phase 16c: {q} through DistributedExecutor(mesh=4 shards): "
+              f"{len(rows)} rows == numpy oracle (max rel err {err:.3g}); "
+              f"first run {ms:.1f} ms [{card}]")
+    print(f"phase 16c: the mesh executor's stats {dx._mesh_pipeline.stats}")
+    out["group_agg"] = launches
+    out["held"] = held
+    return out
+
+
+def phase16(tables):
+    """The mesh pipeline at SF1 on 4 virtual shards of the card: the 22
+    TPC-H queries (16a), a counted join (16b), pgwire over a
+    QE_MESH_DEVICES Session and DistributedExecutor(mesh=...) (16c)."""
+    import gc
+
+    import torch
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    card = card_label()
+    spy = IndexAddSpy()
+    tpch, held_a = phase16a(tables, card, spy)
+    gc.collect()
+    torch.cuda.empty_cache()
+    j2 = phase16b(tables, card, spy)
+    gc.collect()
+    torch.cuda.empty_cache()
+    served = phase16c(tables, card, spy)
+    check(not spy.calls, f"phase 16: {spy.calls} index_add_ calls on the "
+          "card")
+    gc.collect()
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    total = sum(r["ms"] for r in tpch.values())
+    print(f"phase 16: {seconds:.1f} s; the 22 queries {total:.1f} ms in all "
+          f"(sum of the warm medians) [{card}]")
+    errs = [c["max_abs_err"] for calls in held_a.values() for c in calls]
+    errs += [c["max_abs_err"] for c in j2["held"] + served["held"]]
+    launches = {q: r["group_agg"] for q, r in tpch.items()}
+    launches["J2"] = j2["group_agg"]
+    launches["16c"] = served["group_agg"]
+    return {"queries": tpch, "j2": j2, "seconds": seconds,
+            "launches": launches, "max_abs_err": max(errs, default=0.0)}
+
+
 def main():
     import torch
 
@@ -4156,6 +4474,7 @@ def main():
         distributed = phase13(sf1_tables)
         mesh = phase14(sf1_tables)
         count_emit = phase15(sf1_tables)
+        mesh_sql = phase16(sf1_tables)
     except CheckFailed as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -4174,6 +4493,7 @@ def main():
         + p13["13c"]
     p14 = mesh["launches"]
     p15 = count_emit["launches"]
+    p16 = mesh_sql["launches"]
     tpch_err = max((c["max_abs_err"] for calls in tpch_held.values()
                     for c in calls), default=0.0)
     print(json.dumps({"kernels": [{
@@ -4185,19 +4505,20 @@ def main():
         + sum(windows_by_query.values()) + sum(scalar_by_query.values())
         + sum(ordered_by_query.values()) + sum(surface_by_group.values())
         + sum(services_by_part.values()) + p13_launches
-        + sum(p14.values()) + sum(p15.values()),
+        + sum(p14.values()) + sum(p15.values()) + sum(p16.values()),
         "launches_by_phase": {"4": agg_launches, "7": tpch_by_query,
                               "8": windows_by_query, "9": scalar_by_query,
                               "10": ordered_by_query,
                               "11": surface_by_group,
                               "12": services_by_part, "13": p13,
-                              "14": p14, "15": p15},
+                              "14": p14, "15": p15, "16": p16},
         "max_abs_err": max_err["plain"],
         "max_abs_err_vs_float64": {"1": max_err["float64"], "7": tpch_err,
                                    "12": services["max_abs_err"],
                                    "13": distributed["max_abs_err"],
                                    "14": mesh["max_abs_err"],
-                                   "15": count_emit["max_abs_err"]},
+                                   "15": count_emit["max_abs_err"],
+                                   "16": mesh_sql["max_abs_err"]},
         "ms": main_shape["ms"],
         "plain_ms": main_shape["plain_ms"],
         "bound_ms": main_shape["bound_ms"],

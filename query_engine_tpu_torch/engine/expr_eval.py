@@ -40,6 +40,7 @@ import datetime
 import json as _json
 import math
 import re
+import threading
 from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
@@ -599,7 +600,10 @@ class Evaluator:
     UdfRegistry."""
 
     def __init__(self, device, udfs=None, subquery_exec=None):
-        self.device = torch.device(device)
+        # what a program body sets is per thread: a mesh program runs one
+        # body per shard, each in a thread of its own, on its shard's device
+        self._tls = threading.local()
+        self._device = torch.device(device)
         self.udfs = udfs
         self.subquery_exec = subquery_exec
         # per query: the rank match of an outer batch's keys against a
@@ -607,13 +611,42 @@ class Evaluator:
         # correlated lookups rooted at one shared aggregate repeat (Q21's
         # EXISTS and MIN/MAX bounds); the Session clears it around a query
         self._corr_match_memo = {}
-        # while the compiled pipeline runs a program body: id(Literal) ->
-        # 0-d tensor holding its value, so one program serves every value
-        # of the literal (engine/pipeline.py)
-        self._dyn_literals = None
-        # while the compiled pipeline runs a program body: id(subplan) ->
-        # the batch the pipeline materialized for it before the program ran
-        self._subplans = None
+
+    @property
+    def device(self) -> torch.device:
+        """Where literals are made: the shard's device inside a mesh
+        program's body, else the evaluator's."""
+        return getattr(self._tls, "device", None) or self._device
+
+    @property
+    def _shard_device(self):
+        return getattr(self._tls, "device", None)
+
+    @_shard_device.setter
+    def _shard_device(self, value) -> None:
+        self._tls.device = value
+
+    @property
+    def _dyn_literals(self):
+        """While the compiled pipeline runs a program body: id(Literal) ->
+        0-d tensor holding its value, so one program serves every value of
+        the literal (engine/pipeline.py)."""
+        return getattr(self._tls, "dyn_literals", None)
+
+    @_dyn_literals.setter
+    def _dyn_literals(self, value) -> None:
+        self._tls.dyn_literals = value
+
+    @property
+    def _subplans(self):
+        """While the compiled pipeline runs a program body: id(subplan) ->
+        the batch the pipeline materialized for it before the program
+        ran."""
+        return getattr(self._tls, "subplans", None)
+
+    @_subplans.setter
+    def _subplans(self, value) -> None:
+        self._tls.subplans = value
 
     # ---- public --------------------------------------------------------
     def eval(self, e: lp.LogicalExpr, batch: ColumnBatch) -> Val:

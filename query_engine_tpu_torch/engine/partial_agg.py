@@ -86,6 +86,11 @@ def build_partial_final(plan: pp.PHashAggregate):
         input=partial, group_exprs=[colref(i) for i in range(k)],
         agg_exprs=final_aggs, mode="single",
     )
+    # a combine of partial sums: the compiled tracer sums its float SUMs
+    # as two fixed-point words (a few partials a group at the exchanged
+    # capacity, where one word's quantum, max|x| * 2^-frac_bits, is too
+    # coarse for a small or cancelling group's sum)
+    final._qe_combine = True
     fschema = final.schema()
 
     def fref(i):

@@ -692,11 +692,46 @@ class CompiledPipeline:
                       "leaf_ms": 0.0, "capture_ms": 0.0}
         self.leaf_kinds = collections.Counter()  # eager leaves by node type
         self._leaf_depth = 0
-        self._compiling = False  # a program's first run (stats count once)
-        # while a body runs: its leaf node ids (`_fd_dependent_keys`), and
-        # counted node id -> the planes its count program handed over
-        self._leaf_ids = frozenset()
-        self._xfer_by_node = {}
+        # state of the body a thread runs (a mesh program runs one body per
+        # shard, each in a thread of its own, over this pipeline)
+        self._tls = threading.local()
+
+    # while a body runs, per thread: a program's first run (per-compile
+    # stats count once), bodies whose stats another thread counts (a mesh
+    # program's other shards, its later runs), the body's leaf node ids
+    # (`_fd_dependent_keys`), and counted node id -> the planes its count
+    # program handed over
+    @property
+    def _compiling(self) -> bool:
+        return getattr(self._tls, "compiling", False)
+
+    @_compiling.setter
+    def _compiling(self, value: bool) -> None:
+        self._tls.compiling = value
+
+    @property
+    def _muted(self) -> bool:
+        return getattr(self._tls, "muted", False)
+
+    @_muted.setter
+    def _muted(self, value: bool) -> None:
+        self._tls.muted = value
+
+    @property
+    def _leaf_ids(self) -> frozenset:
+        return getattr(self._tls, "leaf_ids", frozenset())
+
+    @_leaf_ids.setter
+    def _leaf_ids(self, value: frozenset) -> None:
+        self._tls.leaf_ids = value
+
+    @property
+    def _xfer_by_node(self) -> dict:
+        return getattr(self._tls, "xfer_by_node", {})
+
+    @_xfer_by_node.setter
+    def _xfer_by_node(self, value: dict) -> None:
+        self._tls.xfer_by_node = value
 
     # ---- entry -----------------------------------------------------------
     def try_execute(self, plan: pp.PhysicalPlan) -> Optional[ColumnBatch]:
@@ -1490,7 +1525,8 @@ class CompiledPipeline:
         chosen (PG ON semantics; TPC-H Q13), so the output has holes and is
         not dense. The eager executor's join is the oracle."""
         ev = self.executor.evaluator
-        self.stats["joins_inlined"] += 1
+        if not self._muted:
+            self.stats["joins_inlined"] += 1
         resolution = (res or {}).get(id(plan))
         if resolution is None:
             raise _Unsupported("join resolution missing")
@@ -2230,6 +2266,10 @@ class CompiledPipeline:
                 cols.append(Column(d, vd, f.data_type, v.dictionary))
 
         use_kernel = ex._mxu_agg_enabled(kernel_bound)
+        # the combine of partial sums (a mesh's final aggregate,
+        # partial_agg.build_partial_final): a float SUM takes two
+        # fixed-point words, as spmd's final combine does
+        combine = getattr(plan, "_qe_combine", False)
         agg_evals = [
             None if agg.expr is None else ev.eval_agg_arg(agg, shim)
             for agg in plan.agg_exprs
@@ -2262,8 +2302,14 @@ class CompiledPipeline:
                     vals = (av.data if av.data.is_floating_point()
                             else av.data.to(torch.int64))
                     # AVG over a DECIMAL sums descaled values: not SUM's
-                    collect(vals, sel & av.validity,
-                            (str(_expr_key(agg.expr)), str(av.dtype)))
+                    key = (str(_expr_key(agg.expr)), str(av.dtype))
+                    ok = sel & av.validity
+                    if combine and vals.is_floating_point():
+                        hi, lo = group_agg.two_words(vals, ok)
+                        collect(hi, ok, key)
+                        collect(lo, ok, key + ("lo",))
+                    else:
+                        collect(vals, ok, key)
             if bucket_mode:
                 collect(None, sel, "__star")
         results = []
@@ -2281,6 +2327,8 @@ class CompiledPipeline:
                 key = "__star" if av is None else (str(_expr_key(agg.expr)),
                                                    str(av.dtype))
                 sums, counts = results[item_of[key]]
+                if av is not None and key + ("lo",) in item_of:
+                    sums = sums + results[item_of[key + ("lo",)]][0]
                 if func is lp.AggFunc.COUNT:
                     out_d = counts[:S]
                     out_v = torch.ones(S, dtype=torch.bool, device=dev)
@@ -2302,7 +2350,11 @@ class CompiledPipeline:
             if agg.distinct and av is not None:
                 distinct_first = K.distinct_first_flags(
                     [data], [validity], gid, sel)
-            if plan.group_exprs or distinct_first is not None:
+            if combine and fname == "sum" and data.is_floating_point():
+                vals, cnt = group_agg.two_word_sums(
+                    data, K.live_mask(cap, sel) & validity, gid, S)
+                valid = cnt > 0
+            elif plan.group_exprs or distinct_first is not None:
                 vals, valid = K.segment_aggregate(
                     fname, data, validity, gid, sel, S,
                     distinct_first=distinct_first,

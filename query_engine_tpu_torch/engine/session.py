@@ -18,11 +18,13 @@ asks for the CPU with `device="cpu"`. DML does its row work there
 (`engine/dml.py`): the host reads counts, the rows a RETURNING returns and
 what ON CONFLICT's key match and an index build need. A stored batch is
 replaced, never written in place, so BEGIN's snapshot holds batches by
-reference. The JAX Session's `mesh` argument and `QE_MESH_DEVICES`
-(plans as one SPMD program over a device mesh, mesh_pipeline.py) have no
-counterpart yet: the mesh's building blocks are in `parallel/` (mesh.py,
-spmd.py), and the pipeline over them waits for the compiled path's
-count->emit join and aggregate programs.
+reference. `Session(mesh=...)` and `QE_MESH_DEVICES=N` run each query
+that lowers as one SPMD program over a device mesh
+(parallel/mesh_pipeline.py); plans without a distributed lowering fall back
+to the single-device engine. With `QE_MESH_DEVICES=N` a Session takes the
+first N cards where there are N, else N virtual shards of its own card
+(`make_mesh([device] * N)`), and N CPU shards on the CPU: never another
+device than its own kind.
 """
 
 from __future__ import annotations
@@ -72,18 +74,52 @@ def require_device(device, owner: str) -> torch.device:
     return dev
 
 
+def env_mesh(device: torch.device):
+    """The mesh `QE_MESH_DEVICES=N` (N > 1) asks for, else None: the first
+    N cards when there are N, else N virtual shards of `device`'s card; N
+    shards of the CPU for a CPU device."""
+    import os
+
+    n = int(os.environ.get("QE_MESH_DEVICES", "0") or 0)
+    if n <= 1:
+        return None
+    from query_engine_tpu_torch.parallel.mesh import make_mesh
+
+    if device.type == "cuda" and torch.cuda.device_count() >= n:
+        return make_mesh([torch.device("cuda", i) for i in range(n)])
+    return make_mesh([device] * n)
+
+
 class Session:
-    def __init__(self, device="cuda", enable_cache: bool = False):
+    def __init__(self, device="cuda", enable_cache: bool = False, mesh=None):
         """device: the torch device every table and result lives on, the
         card ("cuda") by default; "cpu" runs the engine on the CPU. Nothing
         falls back to another device: without CUDA a Session on the card
         raises here. enable_cache: keep SELECT results by SQL text
-        (`cache/`), cleared by every DDL and DML statement."""
+        (`cache/`), cleared by every DDL and DML statement. mesh: an
+        optional `parallel.mesh.Mesh` of shards of the Session's device
+        kind — queries then execute SPMD over the mesh as ONE program per
+        query (parallel/mesh_pipeline.py); without one, `QE_MESH_DEVICES=N`
+        (N > 1) makes it (see the module docstring)."""
         self.device = require_device(device, "Session")
         self.udfs = UdfRegistry()
         self.planner = Planner(self.udfs)
         self.optimizer = Optimizer()
         self.executor = QueryExecutor(self.device, self.udfs)
+        self.mesh_pipeline = None
+        if mesh is None:
+            mesh = env_mesh(self.device)
+        if mesh is not None:
+            from query_engine_tpu_torch.parallel.mesh_pipeline import (
+                MeshPipeline,
+            )
+
+            if mesh.home.type != self.device.type:
+                raise ValueError(
+                    f"Session(device={str(self.device)!r}) over a mesh on "
+                    f"{mesh.home}: the mesh's shards must be of the "
+                    "Session's device kind")
+            self.mesh_pipeline = MeshPipeline(self.executor, mesh)
         self.sources: Dict[str, object] = {}
         # rounds and host dedup ms of the last WITH RECURSIVE query
         self.recursion: Dict[str, float] = {}
@@ -198,8 +234,17 @@ class Session:
                 "",
                 f"rows: {result.num_rows}",
                 f"timing: {self.last_timing}",
-                "",
             ]
+            if self.mesh_pipeline is not None:
+                st = self.mesh_pipeline.stats
+                lines.append(
+                    f"mesh: devices={self.mesh_pipeline.n} "
+                    f"compiles={st['compiles']} hits={st['hits']} "
+                    f"fallbacks={st['fallbacks']} "
+                    f"exchanges={st['exchanges']} "
+                    f"overflow_retries={st['overflow_retries']}"
+                )
+            lines.append("")
             lines += GLOBAL_PROFILER.report().splitlines()
         return ColumnBatch.from_pydict({"QUERY PLAN": lines},
                                        device=self.device)
@@ -426,7 +471,11 @@ class Session:
         # (their keys are id()s of this query's plan nodes and batches)
         self._clear_query_memos()
         try:
-            out = self.executor.execute(pplan)
+            out = None
+            if self.mesh_pipeline is not None:
+                out = self.mesh_pipeline.try_execute(pplan)
+            if out is None:
+                out = self.executor.execute(pplan)
         finally:
             self._clear_query_memos()
         self.last_timing.execute_ms += (time.perf_counter() - t1) * 1e3

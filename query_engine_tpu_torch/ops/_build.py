@@ -6,7 +6,9 @@ At first use, `load_library()` compiles them with nvcc for Hopper
 the objects into one shared library under `query_engine_tpu_torch/_build/`,
 named by a hash of the sources and the headers beside them (`*.cuh`); it
 loads the library with ctypes. A build that exists is reused. When nvcc is missing or fails, the call raises with the
-compiler's output; nothing falls back to another implementation.
+compiler's output; nothing falls back to another implementation. The
+threads of one process build and load it once, under a lock (a mesh's
+shard threads may all launch a kernel first at once).
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from dataclasses import dataclass
 from pathlib import Path
@@ -40,6 +43,7 @@ class Built:
 
 
 _built: Optional[Built] = None
+_build_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -77,9 +81,14 @@ def _bind(lib: ctypes.CDLL) -> None:
 
 def load_library() -> Built:
     """Build (if needed) and load the kernel library; cached per process."""
-    global _built
     if _built is not None:
         return _built
+    with _build_lock:
+        return _built if _built is not None else _load()
+
+
+def _load() -> Built:
+    global _built
     sources = sorted(SRC_DIR.glob("*.cu"))
     h = hashlib.sha256()
     for src in sorted([*sources, *SRC_DIR.glob("*.cuh")]):

@@ -127,6 +127,18 @@ def two_words(values: torch.Tensor, ok: torch.Tensor
     return hi, torch.where(fin, x - hi, 0.0)
 
 
+def two_word_sums(values: torch.Tensor, ok: torch.Tensor, gid: torch.Tensor,
+                  num_groups: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A float plane's grouped (sums, counts), the sum as two fixed-point
+    words (`two_words`) in one call: for a combine of a few partials a
+    group, where one word's quantum, max|x| * 2^-frac_bits of the whole
+    plane, is too coarse for a small or cancelling group."""
+    hi, lo = two_words(values, ok)
+    (s_hi, cnt), (s_lo, _) = grouped_sums_counts_multi(
+        [(hi, ok), (lo, ok)], gid, num_groups)
+    return s_hi + s_lo, cnt
+
+
 def finish_float(sums_q: torch.Tensor, flags: torch.Tensor,
                  inv_scale: torch.Tensor) -> torch.Tensor:
     """Rescale fixed-point sums and apply IEEE semantics per group from the

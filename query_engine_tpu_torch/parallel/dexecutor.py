@@ -12,9 +12,10 @@ In-process parallelism: a thread pool drives per-partition tasks on the
 registered workers, each with its own QueryExecutor on the coordinator's
 device (the card by default). The workers' fragments run at once on the
 one card; their CUDA graph captures take turns (engine/pipeline.py's
-process-wide capture lock, in thread-local mode). The mesh route of the
-JAX package (`mesh=`: one program over a device mesh) is not in this
-package.
+process-wide capture lock, in thread-local mode). With `mesh=` a plan
+that lowers runs instead as one SPMD program over the device mesh
+(parallel/mesh_pipeline.py), the execution model the stage walk only
+coordinates.
 """
 
 from __future__ import annotations
@@ -82,18 +83,10 @@ class DistributedExecutor:
                  fault: Optional[FaultManager] = None,
                  mesh=None):
         """The stage walk over `coordinator`'s workers, on its device.
-        mesh: the JAX package's route of a plan as one program over a
-        device mesh (mesh_pipeline.py); its building blocks are here
-        (parallel/mesh.py, spmd.py), the route is not, so anything but
-        None raises."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "DistributedExecutor(mesh=...): the mesh route is not in "
-                "query_engine_tpu_torch yet. Its building blocks are "
-                "(parallel/mesh.py, spmd.py, overlap.py, dict_merge.py); "
-                "mesh_pipeline.py and Session(mesh=...) come in the mesh "
-                "slice's second part, after the pipeline's count->emit "
-                "programs; the host stage walk runs with mesh=None")
+        mesh: an optional `parallel.mesh.Mesh`; a plan that lowers runs as
+        one program over it (`_try_mesh`), others take the stage walk."""
+        self.mesh = mesh
+        self._mesh_pipeline = None
         self.coordinator = coordinator
         self.device = coordinator.device
         self.config = config or ExecutorConfig()
@@ -160,12 +153,35 @@ class DistributedExecutor:
     # ---- stage walk -----------------------------------------------------
     def _execute_inner(self, query_id, plan, sources) -> ColumnBatch:
         self.last_stages = []
+        if self.mesh is not None:
+            out = self._try_mesh(plan, sources)
+            if out is not None:
+                return out
         dplan = self.planner.plan(plan)
         if dplan.is_local:
             pplan = Lowering(sources).lower(dplan.local_plan)
             return self._local.execute(pplan)
 
         return self._stage_walk(query_id, dplan, Lowering(sources))
+
+    def _try_mesh(self, plan, sources) -> Optional[ColumnBatch]:
+        """Route through the SPMD shard_map path (one program, all_to_all
+        exchanges), on an executor of the coordinator's device."""
+        from query_engine_tpu_torch.parallel.mesh_pipeline import MeshPipeline
+
+        if self._mesh_pipeline is None:
+            self._mesh_pipeline = MeshPipeline(QueryExecutor(self.device),
+                                               self.mesh)
+        pplan = Lowering(sources).lower(plan)
+        # per-query memos (keyed by id()s of this query's plan nodes)
+        ex = self._mesh_pipeline.executor
+        ex._cte_memo.clear()
+        ex.evaluator._corr_match_memo.clear()
+        try:
+            return self._mesh_pipeline.try_execute(pplan)
+        finally:
+            ex._cte_memo.clear()
+            ex.evaluator._corr_match_memo.clear()
 
     def _stage_walk(self, query_id, dplan, lowering) -> ColumnBatch:
         outputs: Dict[int, List[ColumnBatch]] = {}

@@ -49,7 +49,9 @@ class Mesh:
     """Shard slots along one axis. `devices[i]` is shard i's device; `local`
     lists the shards this process runs (all of them unless the mesh spans
     processes); `stats` counts shard_map runs, collectives and the bytes
-    that collectives moved between shards."""
+    that collectives moved between shards; `rows_exchanged()` reads the
+    live rows that exchanges delivered (`spmd.exchange_columns`), which
+    accumulate on the device so a program body reads nothing."""
 
     def __init__(self, devices: Sequence, axis: str = "data",
                  local: Optional[Sequence[int]] = None,
@@ -63,6 +65,7 @@ class Mesh:
         self.process_group = process_group
         self.stats = {"runs": 0, "collectives": 0, "bytes_exchanged": 0}
         self._stats_lock = threading.Lock()
+        self._rows = None  # 0-d int64 on `home`: rows exchanges delivered
 
     @classmethod
     def over_processes(cls, device, axis: str = "data") -> "Mesh":
@@ -88,6 +91,18 @@ class Mesh:
     def count(self, key: str, amount: int = 1) -> None:
         with self._stats_lock:
             self.stats[key] += amount
+
+    def count_rows(self, rows: torch.Tensor) -> None:
+        """Add a 0-d count of rows an exchange delivered (on the device)."""
+        rows = rows.to(self.home, torch.int64)
+        with self._stats_lock:
+            self._rows = rows if self._rows is None else self._rows + rows
+
+    def rows_exchanged(self) -> int:
+        """The live rows that exchanges delivered to this process's shards
+        since the mesh was made (one host read)."""
+        with self._stats_lock:
+            return 0 if self._rows is None else int(self._rows.item())
 
     def __repr__(self):
         return (f"Mesh({[str(d) for d in self.devices]}, axis={self.axis!r}"

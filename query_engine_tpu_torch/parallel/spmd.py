@@ -449,7 +449,8 @@ def exchange_columns(axis: str, idx: torch.Tensor, counts: torch.Tensor,
 
     Returns (recv_datas [n*per], recv_valids, recv_live [n*per] bool).
     recv_live marks which received slots hold real rows. The counts and
-    every plane cross in one all-to-all.
+    every plane cross in one all-to-all; the live rows received add to
+    the mesh's `rows_exchanged()`.
     """
     n, per = idx.shape
     slot = torch.arange(per, device=idx.device)
@@ -458,6 +459,7 @@ def exchange_columns(axis: str, idx: torch.Tensor, counts: torch.Tensor,
     send_valids = [v[idx] & send_live for v in valids]
     got = all_to_all([counts] + sends + send_valids, axis)
     recv_counts = got[0]
+    _current(axis).mesh.count_rows(recv_counts.clamp(max=per).sum())
     recv_live = (slot[None, :] < recv_counts.reshape(n, 1)).reshape(-1)
     k = len(sends)
     out_d = [r.reshape(-1) for r in got[1: 1 + k]]
@@ -501,17 +503,13 @@ _AGG_PARTIAL = {
 
 def _segment_sum(data, valid, gid, n_rows, cap: int):
     """K.segment_aggregate("sum", ...), a float plane's sum as two
-    fixed-point words (`group_agg.two_words`, one group_agg call): the
-    final combine sums a few partials a group at 4 x the row capacity,
-    where one word's quantum, max|x| * 2^-frac_bits of the whole plane,
-    is too coarse for a small or cancelling group."""
+    fixed-point words (`group_agg.two_word_sums`): the final combine sums a
+    few partials a group at 4 x the row capacity."""
     if not data.is_floating_point():
         return K.segment_aggregate("sum", data, valid, gid, n_rows, cap)
     ok = K.live_mask(gid.shape[0], n_rows, gid.device) & valid
-    hi, lo = group_agg.two_words(data, ok)
-    (s_hi, cnt), (s_lo, _) = group_agg.grouped_sums_counts_multi(
-        [(hi, ok), (lo, ok)], gid, cap)
-    return s_hi + s_lo, cnt > 0
+    sums, cnt = group_agg.two_word_sums(data, ok, gid, cap)
+    return sums, cnt > 0
 
 
 def _segment(func, data, valid, gid, n_rows, cap: int):

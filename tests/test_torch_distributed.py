@@ -697,8 +697,24 @@ def test_stage_walk_with_checkpoint_dir(cluster, tmp_path):
 
 
 def test_mesh_is_not_in_the_port(cluster):
-    with pytest.raises(NotImplementedError, match="mesh"):
-        DistributedExecutor(cluster, mesh=object())
+    """Named when the port had no mesh route; since the mesh pipeline
+    (parallel/mesh_pipeline.py) `DistributedExecutor(mesh=...)` runs a
+    plan that lowers as one program over the mesh, on its own executor
+    of the coordinator's device, and takes no stage walk."""
+    from query_engine_tpu_torch.parallel.mesh import make_mesh
+
+    b = ColumnBatch.from_pydict({"k": [i % 5 for i in range(300)],
+                                 "v": list(range(300))})
+    sql = "SELECT k, SUM(v) AS s FROM t GROUP BY k ORDER BY k"
+    dex = DistributedExecutor(cluster, mesh=make_mesh(["cpu"] * 4))
+    out = dex.execute(_logical(sql, {"t": b.schema}),
+                      {"t": MemoryDataSource(batch=b, name="t")})
+    s = Session(device="cpu")
+    s.register_table("t", b)
+    same_rows(out.to_pylist(), s.sql(sql).to_pylist())
+    assert dex.last_stages == []
+    mp = dex._mesh_pipeline
+    assert mp.stats["compiles"] == 1 and mp.executor.device == cluster.device
 
 
 def test_coordinator_runs_on_the_card_by_default():

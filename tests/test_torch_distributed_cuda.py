@@ -110,8 +110,25 @@ def test_coordinator_and_executor_default_to_the_card():
 
 
 def test_mesh_raises():
-    with pytest.raises(NotImplementedError, match="mesh"):
-        DistributedExecutor(Coordinator(), mesh=object())
+    """Named when the port had no mesh route; since the mesh pipeline
+    `DistributedExecutor(mesh=...)` runs a plan that lowers as one program
+    over 4 virtual shards of the card, with the CPU stage walk's rows."""
+    from query_engine_tpu_torch.parallel.mesh import make_mesh
+
+    s = Session()
+    s.register_table("t", TABLE)
+    cpu = Session(device="cpu")
+    cpu.register_table("t", TABLE)
+    dx = DistributedExecutor(_cluster(), mesh=make_mesh(["cuda:0"] * 4))
+    for sql in SQLS:
+        plan = s.optimizer.optimize(s.planner.create_logical_plan(
+            parse_sql(sql)))
+        out = dx.execute(plan, s.sources)
+        assert all(col.data.is_cuda for col in out.columns)
+        _same(out.to_pylist(), cpu.sql(sql).to_pylist())
+        assert dx.last_stages == []
+    st = dx._mesh_pipeline.stats
+    assert st["compiles"] == len(SQLS) and st["fallbacks"] == 0, st
 
 
 def test_four_workers_capture_at_once():
