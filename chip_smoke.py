@@ -308,6 +308,32 @@ Phase 16 runs the mesh pipeline (`parallel/mesh_pipeline.py`) at SF1 on 4
          walk. Fails on any row that differs from its oracle, unless Q1
          lowered and launched group_agg, or if `index_add_` ran on the
          card.
+Phase 17 runs the open-addressing hash join (`ops/hash_join.py`, kernels
+         in `csrc/hash_join.cu`), which no engine route reaches (phases 1-16
+         must launch neither kernel), through its entry point
+         `hash_join_unique` with the counts at 0: (a) docs/TPU_DESIGN.md
+         #10's shape, 2^20 build rows (2^20 - 3 live) of unique int64 keys
+         from [0, 2^48) and 2^23 probe rows (2^23 - 17 live, ~2 % not ok,
+         10 % of keys absent from the build), T = table_size_for(2^20);
+         (b) bench.py's (`_build_args`): 2^24 - 17 int32 probe keys from
+         U[0, 2^20) (2 % NULL), the build a permutation of [0, 2^20) with 3
+         pad rows; (c) long chains: 100 keys 4096 apart at T = 128, and
+         load 0.9 at T = 2^16. Each case's (ri, matched) must equal a numpy
+         oracle (np.searchsorted over the live build keys) and the plain
+         versions run on the card, the build kernel's table must pass
+         `check_table` (the plain build's entries, each on its own probe
+         sequence with no empty slot before it), and the probe kernel must
+         give the plain results on its own table and on the plain one. (d)
+         200 live rows into 128 slots must raise ValueError from
+         `hash_build` and `hash_join_unique`. At (a) and (b) it times (median
+         of CUDA graph replays, each between CUDA events) the build (the
+         table's two fills and the launch), the probe and the two together,
+         and prints each beside its bound (each input read and each output
+         written once, the table once, over 3.35 TB/s), the plain versions'
+         (eager, median of 3), the sort-rank route's (`K.join_ranks` then
+         `K.fk_join_right_lookup`) and the library route's (torch.sort of the
+         build, torch.searchsorted and gathers), each route checked against
+         the oracle first.
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after; a kernel of the path that was not launched fails the run.
@@ -4142,7 +4168,7 @@ def phase15(tables):
             "max_abs_err": max(errs, default=0.0)}
 
 
-MESH_TPCH_WARM = 3        # phase 16a: warm runs a query (median)
+MESH_TPCH_WARM = 2        # phase 16a: warm runs a query (median)
 MESH_MS_KEYS = ("compiles", "hits", "fallbacks", "exchanges",
                 "overflow_retries", "joins_counted", "eager_leaves",
                 "eager_rows", "agg_partial_final")
@@ -4441,6 +4467,331 @@ def phase16(tables):
             "launches": launches, "max_abs_err": max(errs, default=0.0)}
 
 
+HJ_SEED = 10
+HJ_RUNS = 15  # timed graph replays a route (median)
+HJ_PLAIN_RUNS = 3  # timed eager runs of the plain versions (median)
+HJ_SOURCE = "query_engine_tpu_torch/csrc/hash_join.cu"
+HJ_REPLACES = {"hash_build": "query_engine_tpu/ops/hash_join.py:75",
+               "hash_probe": "query_engine_tpu/ops/hash_join.py:118"}
+
+
+def _unique_keys(rng, n, lo, hi):
+    """n distinct int64 keys from [lo, hi), in random order."""
+    keys = np.unique(rng.integers(lo, hi, n + n // 8 + 64))
+    check(keys.shape[0] >= n, "phase 17: too few distinct keys drawn")
+    rng.shuffle(keys)
+    return keys[:n]
+
+
+def hash_join_cases():
+    """name -> (build keys, build ok, probe keys, probe ok, table size) as
+    numpy, for phase 17's cases (a)-(c)."""
+    from query_engine_tpu_torch.ops.hash_join import table_size_for
+
+    rng = np.random.default_rng(HJ_SEED)
+    out = {}
+    # (a) docs/TPU_DESIGN.md #10: 8M probe x 1M unique build, 48-bit keys
+    nb, npr = 1 << 20, 1 << 23
+    bkeys = _unique_keys(rng, nb, 0, 1 << 48)
+    bok = np.arange(nb) < nb - 3
+    live = bkeys[bok]
+    hits = rng.choice(live, npr)
+    missing = rng.random(npr) < 0.10
+    pkeys = np.where(missing, rng.integers(0, 1 << 48, npr), hits)
+    pok = (np.arange(npr) < npr - 17) & (rng.random(npr) >= 0.02)
+    out["a"] = (bkeys, bok, pkeys, pok, table_size_for(nb))
+    # (b) bench.py's _build_args: int32 probe keys U[0, 2^20) over 2^24 -
+    # 17 rows (2 % NULL), the build a permutation of [0, 2^20), 3 pad rows
+    cap, bcap = 1 << 24, 1 << 20
+    pkeys = rng.integers(0, bcap, cap).astype(np.int32)
+    pok = (np.arange(cap) < cap - 17) & (rng.random(cap) > 0.02)
+    bkeys = rng.permutation(bcap).astype(np.int32)
+    bok = np.arange(bcap) < bcap - 3
+    out["b"] = (bkeys, bok, pkeys, pok, table_size_for(bcap))
+    # (c) long chains: tests/test_hash_join.py's 100 keys 4096 apart at 128
+    # slots, and load 0.9 at 2^16 slots
+    chain = np.arange(100, dtype=np.int64) * 4096
+    out["c chains"] = (chain, np.ones(100, bool), chain, np.ones(100, bool),
+                       128)
+    n = int(0.9 * (1 << 16))
+    bkeys = _unique_keys(rng, n, -(1 << 40), 1 << 40)
+    npr = 1 << 18
+    pkeys = np.where(rng.random(npr) < 0.8, rng.choice(bkeys, npr),
+                     rng.integers(-(1 << 40), 1 << 40, npr))
+    out["c load 0.9"] = (bkeys, np.ones(n, bool), pkeys,
+                         rng.random(npr) >= 0.02, 1 << 16)
+    return out
+
+
+def hash_join_oracle(bkeys, bok, pkeys, pok):
+    """(ri, matched) by np.searchsorted over the live build keys."""
+    rows = np.nonzero(bok)[0]
+    order = np.argsort(bkeys[rows], kind="stable")
+    sk, sr = bkeys[rows][order], rows[order]
+    pos = np.minimum(np.searchsorted(sk, pkeys), max(len(sk) - 1, 0))
+    hit = pok & (sk[pos] == pkeys) if len(sk) else np.zeros_like(pok)
+    return np.where(hit, sr[pos] if len(sk) else 0, 0).astype(np.int64), hit
+
+
+def graph_median_ms(fn, runs=HJ_RUNS):
+    """Median device ms of fn() over `runs` replays of a CUDA graph that
+    holds one call, each replay between its own CUDA events (warm: two
+    eager calls and one replay first). fn must read nothing back."""
+    import torch
+
+    fn()
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    del graph
+    return statistics.median(times)
+
+
+def eager_median_ms(fn, runs=HJ_PLAIN_RUNS):
+    """Median ms of fn() between CUDA events, eager (one warm call first):
+    for the plain versions, which read the device every round."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def library_build(b, bok):
+    """The library route's build: one torch.sort of the build keys, dead
+    rows last under the key type's largest value (which no probe key of
+    (a) or (b) takes)."""
+    import torch
+
+    big = torch.iinfo(b.dtype).max
+    return torch.sort(torch.where(bok, b, big))
+
+
+def library_probe(sorted_keys, perm, bok, p, pok):
+    """The library route's probe: torch.searchsorted, then gathers."""
+    import torch
+
+    pos = torch.searchsorted(sorted_keys, p).clamp_(
+        max=sorted_keys.shape[0] - 1)
+    row = perm[pos]
+    hit = pok & (sorted_keys[pos] == p) & bok[row]
+    return torch.where(hit, row, 0), hit
+
+
+def sort_rank_join(b, bok, p, pok):
+    """The port's sort-rank FK join: joint ranks, then the rank lookup."""
+    from query_engine_tpu_torch.ops import kernels as K
+
+    lr, rr = K.join_ranks([(p, pok)], [(b, bok)], pok, bok)
+    return K.fk_join_right_lookup(lr, rr, pok, bok)
+
+
+def phase17():
+    """The open-addressing hash join (`ops/hash_join.py`) on the card: (a)
+    TPU_DESIGN #10's shape, (b) bench.py's, (c) long chains, each through
+    `hash_join_unique` with the counts at 0, held against the plain
+    versions on the card, the numpy oracle and `check_table`; (d) a table
+    too small raises. (a) and (b) time the kernels, the plain versions, the
+    sort-rank route and the library route beside the bound."""
+    import gc
+
+    import torch
+
+    from query_engine_tpu_torch.ops import hash_join as HJ
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    card = card_label()
+    dev = torch.device("cuda")
+    launches = {"hash_build": 0, "hash_probe": 0}
+    by_case = {}
+    for name, arrays in hash_join_cases().items():
+        bkeys, bok, pkeys, pok, T = arrays
+        b, bo, p, po = (torch.from_numpy(a).to(dev)
+                        for a in (bkeys, bok, pkeys, pok))
+        torch.cuda.synchronize()
+        for k in HJ.launches:
+            HJ.launches[k] = 0
+        ri, m = HJ.hash_join_unique(p, po, b, bo, T)
+        torch.cuda.synchronize()
+        path = dict(HJ.launches)
+        for k, v in path.items():
+            check(v > 0, f"phase 17 ({name}): {k} did not launch")
+            launches[k] += v
+        want_ri, want_m = hash_join_oracle(bkeys, bok, pkeys, pok)
+        check(np.array_equal(ri.cpu().numpy(), want_ri)
+              and np.array_equal(m.cpu().numpy(), want_m),
+              f"phase 17 ({name}): the hash join differs from the numpy "
+              "oracle")
+        tk, tr = HJ.hash_build(b, bo, T)
+        HJ.check_table(tk, tr, b, bo)
+        pk, pr = HJ.hash_build_plain(b, bo, T)
+        HJ.check_table(pk, pr, b, bo)
+        plain = HJ.hash_probe_unique_plain(pk, pr, p, po)
+        kernel_on_kernel = HJ.hash_probe_unique(tk, tr, p, po)
+        kernel_on_plain = HJ.hash_probe_unique(pk, pr, p, po)
+        err = 0
+        for label, (r2, m2) in (("the join", (ri, m)),
+                                ("the probe on its table", kernel_on_kernel),
+                                ("the probe on the plain table",
+                                 kernel_on_plain)):
+            check(torch.equal(m2, plain[1]) and torch.equal(r2, plain[0]),
+                  f"phase 17 ({name}): {label} differs from the plain "
+                  "version")
+            err = max(err, int((r2 - plain[0]).abs().max()))
+        same = torch.equal(tr, pr)
+        rec = {"build_rows": int(bok.sum()), "probe_rows": int(pok.sum()),
+               "T": T, "matched": int(m.sum()), "launches": path,
+               "max_abs_err": err, "layout_equal_to_plain": same}
+        print(f"phase 17 ({name}): {rec['build_rows']} live build rows, "
+              f"{rec['probe_rows']} live probe rows, T = {T}, "
+              f"{rec['matched']} matched: == numpy oracle and plain version; "
+              f"the kernel's table passes check_table (layout equal to the "
+              f"plain one: {same}); launches {path}")
+        if name in ("a", "b"):
+            rec.update(_hash_join_times(name, b, bo, p, po, T, want_ri,
+                                        want_m, card))
+        by_case[name] = rec
+        del b, bo, p, po, tk, tr, pk, pr, plain, ri, m
+        del kernel_on_kernel, kernel_on_plain
+        gc.collect()
+        torch.cuda.empty_cache()
+    # (d) a table too small for its live rows
+    keys = torch.arange(200, dtype=torch.int64, device=dev) * 4096
+    ok = torch.ones(200, dtype=torch.bool, device=dev)
+    for label, call in (("hash_build", lambda: HJ.hash_build(keys, ok, 128)),
+                        ("hash_join_unique",
+                         lambda: HJ.hash_join_unique(keys, ok, keys, ok,
+                                                     128))):
+        try:
+            call()
+        except ValueError as e:
+            print(f"phase 17 (d): {label} at 200 live rows, T = 128: "
+                  f"ValueError ({e})")
+        else:
+            raise CheckFailed(f"phase 17 (d): {label} took 200 live rows "
+                              "into 128 slots")
+    seconds = time.perf_counter() - t_phase
+    print(f"phase 17: {seconds:.1f} s; launches {launches} [{card}]")
+    return {"cases": by_case, "launches": launches, "seconds": seconds,
+            "max_abs_err": max(r["max_abs_err"] for r in by_case.values())}
+
+
+def _hash_join_times(name, b, bo, p, po, T, want_ri, want_m, card):
+    """Phase 17's times at case (a) or (b), each route's result checked
+    first: the kernels (build: the table's two fills and the launch;
+    probe), the plain versions, the sort-rank route, the library route, and
+    the bound (each input read and each output written once, the table
+    once, over 3.35 TB/s)."""
+    from query_engine_tpu_torch.ops import hash_join as HJ
+
+    kb = b.element_size()
+    table = T * (kb + 4)
+    build_bytes = b.numel() * (kb + 1) + table
+    probe_in = p.numel() * (kb + 1)
+    probe_out = p.numel() * (8 + 1)
+    probe_bytes = table + probe_in + probe_out
+    join_bytes = b.numel() * (kb + 1) + table + probe_in + probe_out
+    tk, tr, _ = HJ._build_kernel(b, bo, T)
+    for label, (r, m) in (
+            ("sort-rank", sort_rank_join(b, bo, p, po)),
+            ("library", library_probe(*library_build(b, bo), bo, p, po))):
+        check(np.array_equal(r.cpu().numpy(), want_ri)
+              and np.array_equal(m.cpu().numpy(), want_m),
+              f"phase 17 ({name}): the {label} route differs from the "
+              "oracle")
+    sk, perm = library_build(b, bo)
+    t = {
+        "build_ms": graph_median_ms(lambda: HJ._build_kernel(b, bo, T)),
+        "probe_ms": graph_median_ms(
+            lambda: HJ._probe_kernel(tk, tr, p, po)),
+        "join_ms": graph_median_ms(
+            lambda: HJ._probe_kernel(*HJ._build_kernel(b, bo, T)[:2], p,
+                                     po)),
+        "plain_build_ms": eager_median_ms(
+            lambda: HJ.hash_build_plain(b, bo, T)),
+        "plain_probe_ms": eager_median_ms(
+            lambda: HJ.hash_probe_unique_plain(tk, tr, p, po)),
+        "sort_rank_ms": graph_median_ms(lambda: sort_rank_join(b, bo, p, po)),
+        "library_build_ms": graph_median_ms(lambda: library_build(b, bo)),
+        "library_probe_ms": graph_median_ms(
+            lambda: library_probe(sk, perm, bo, p, po)),
+        "build_bound_ms": bound_ms(build_bytes),
+        "probe_bound_ms": bound_ms(probe_bytes),
+        "join_bound_ms": bound_ms(join_bytes),
+        "bytes": {"build": build_bytes, "probe": probe_bytes,
+                  "join": join_bytes},
+    }
+    t["plain_ms"] = t["plain_build_ms"] + t["plain_probe_ms"]
+    t["library_ms"] = t["library_build_ms"] + t["library_probe_ms"]
+    for part in ("build", "probe", "join"):
+        print(f"phase 17 ({name}) {part}: kernel {t[f'{part}_ms']:.4f} ms, "
+              f"bound {t[f'{part}_bound_ms']:.4f} ms "
+              f"({t['bytes'][part]:,} bytes), share "
+              f"{t[f'{part}_bound_ms'] / t[f'{part}_ms']:.1%} [{card}]")
+    print(f"phase 17 ({name}): plain build {t['plain_build_ms']:.3f} ms, "
+          f"plain probe {t['plain_probe_ms']:.3f} ms; sort-rank route "
+          f"(join_ranks + fk_join_right_lookup) {t['sort_rank_ms']:.4f} ms; "
+          f"library route (torch.sort {t['library_build_ms']:.4f} + "
+          f"searchsorted and gathers {t['library_probe_ms']:.4f}) "
+          f"{t['library_ms']:.4f} ms; hash join {t['join_ms']:.4f} ms "
+          f"[{card}]")
+    return t
+
+
+def hash_join_entries(hash_join, engine_hj):
+    """The kernels line's hash_build and hash_probe entries: launches from
+    phase 17's runs of the entry point, times at case (a), every case's
+    numbers under by_case and the whole join's under join."""
+    a = hash_join["cases"]["a"]
+    return [{
+        "name": name,
+        "route": "cuda",
+        "source": HJ_SOURCE,
+        "replaces": HJ_REPLACES[name],
+        "launches": hash_join["launches"][name],
+        "launches_by_phase": {"1-16": engine_hj[name],
+                              "17": {c: r["launches"][name] for c, r
+                                     in hash_join["cases"].items()}},
+        "max_abs_err": hash_join["max_abs_err"],
+        "ms": a[f"{part}_ms"],
+        "plain_ms": a[f"plain_{part}_ms"],
+        "bound_ms": a[f"{part}_bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": a[f"library_{part}_ms"],
+        "by_case": {c: {k: hash_join["cases"][c][k] for k in
+                        (f"{part}_ms", f"{part}_bound_ms",
+                         f"plain_{part}_ms", f"library_{part}_ms")}
+                    for c in ("a", "b")},
+        "join": {c: {k: hash_join["cases"][c][k] for k in
+                     ("join_ms", "join_bound_ms", "plain_ms",
+                      "sort_rank_ms", "library_ms")} for c in ("a", "b")},
+    } for name, part in (("hash_build", "build"), ("hash_probe", "probe"))]
+
+
 def main():
     import torch
 
@@ -4454,6 +4805,8 @@ def main():
         print(f"chip_smoke: FAIL: run from the root of a checkout ({e})",
               file=sys.stderr)
         return 1
+    from query_engine_tpu_torch.ops import hash_join as HJ
+
     try:
         phase0()
         max_err, times = phase1()
@@ -4475,6 +4828,11 @@ def main():
         mesh = phase14(sf1_tables)
         count_emit = phase15(sf1_tables)
         mesh_sql = phase16(sf1_tables)
+        # nothing before phase 17 routes a join through the hash table
+        engine_hj = dict(HJ.launches)
+        check(not any(engine_hj.values()),
+              f"phases 1-16 launched the hash join's kernels: {engine_hj}")
+        hash_join = phase17()
     except CheckFailed as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -4555,7 +4913,8 @@ def main():
         "library_ms": p6_times[v]["library_ms"],
         "entry_ms": p6_times[v]["entry_ms"],
         "v0_ms": p6_times[v]["v0_ms"],
-    } for v, (name, source, replaces) in ONEHOT_KERNELS.items()]}))
+    } for v, (name, source, replaces) in ONEHOT_KERNELS.items()]
+        + hash_join_entries(hash_join, engine_hj)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -77,6 +77,12 @@ def _bind(lib: ctypes.CDLL) -> None:
     f = lib.qe_onehot_s8
     f.argtypes = [p, p, p, i64, i32, p, p]
     f.restype = i32
+    f = lib.qe_hash_build
+    f.argtypes = [p, p, i64, i32, p, p, i64, p, p]
+    f.restype = i32
+    f = lib.qe_hash_probe
+    f.argtypes = [p, p, i64, p, p, i64, i32, p, p, p]
+    f.restype = i32
 
 
 def load_library() -> Built:
