@@ -334,6 +334,25 @@ Phase 17 runs the open-addressing hash join (`ops/hash_join.py`, kernels
          `K.fk_join_right_lookup`) and the library route's (torch.sort of the
          build, torch.searchsorted and gathers), each route checked against
          the oracle first.
+Phase 18 runs TPC-H at scale factor 10 (59,986,052 lineitem rows, capacity
+         2^26; orders 14,996,513 at 2^24; tpch/data.py) on one
+         Session(device="cuda") of its own, after the earlier phases'
+         Sessions are freed: the 22 queries (Q11 with TPC-H's FRACTION for
+         SF10, 0.00001) and tpch/scalar.py's F1 and F6, each first (every
+         group_agg call of the first run outside a capture held against
+         the plain versions), then SF10_WARM times warm, every run against
+         its numpy oracle at rtol 1e-9. Prints the tables' generation and
+         registration seconds and device memory; per statement the warm
+         median ms, host syncs, captures per warm query, the first run's
+         stats (joins demoted and counted), group_agg launches, the largest
+         relative error, the allocated and reserved memory after it and
+         the cached programs; Q9's and F1's error by float column; Q1, Q6
+         and Q9 profiled once for their kernel ms; the rows' margins to
+         their thresholds; the peak allocated and reserved memory. Fails
+         on any row that differs from its oracle, unless group_agg
+         launched (and was held) in each query of TPCH_GROUP_AGG and in F1
+         and F6, or if `index_add_` ran on the card. The Session and its
+         tables are freed at the end.
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after; a kernel of the path that was not launched fails the run.
@@ -370,9 +389,10 @@ QUERY_B = ("SELECT f.dept, COUNT(*) AS c, SUM(f.salary * d.rate) AS s "
            "FROM f JOIN d ON f.dept = d.dept_id "
            "WHERE f.age > 25 GROUP BY f.dept ORDER BY s DESC LIMIT 10")
 # Fixed point against float64 summation: the kernel sums round(x * 2^k)
-# exactly and rescales, an error of at most ~n * max|x| * 2^-40 against the
-# plain float64 index_add's own round-off — the bound of the JAX package's
-# kernel tests (tests/test_pallas_kernels.py).
+# exactly and rescales, an error of at most m * max|x| * 2^-62 a group of m
+# rows (plus one rounding) against the plain float64 index_add's own
+# round-off; the tolerance is the bound of the JAX package's kernel tests
+# (tests/test_pallas_kernels.py).
 RTOL = 1e-9
 ATOL_PER_MAX = 1e-9  # atol = max|x| * 1e-9
 
@@ -500,10 +520,11 @@ def _gids(rng, n, case):
 
 def index_add_library(items, gid, G):
     """`library_ms` of a grouped SUM/COUNT: one `index_add_(0, gid64, src)`
-    of an [n, 2C] int64 source (values, then ok as 0/1; a float item's
-    fixed-point q, a COUNT item's ones) into [G + 1, 2C], ids outside the
-    range on row G. The source is made here, outside the timing; returns
-    the function to time."""
+    of an int64 source (the sums' columns: an integer item's values, a
+    float item's fixed-point q as its low and high 32 bits, a COUNT item's
+    ones; then each item's ok as 0/1) into [G + 1, columns], ids outside
+    the range on row G. The source is made here, outside the timing;
+    returns the function to time."""
     import torch
 
     from query_engine_tpu_torch.ops import group_agg
@@ -513,7 +534,9 @@ def index_add_library(items, gid, G):
         if v is None:
             v = torch.ones_like(ok, dtype=torch.int64)
         elif v.is_floating_point():
-            v, _ = group_agg.quantize(v, ok)
+            q, _ = group_agg.quantize(v, ok)
+            cols.append(torch.where(ok, q & group_agg.LOW, 0))
+            v = q >> group_agg.HALF
         cols.append(torch.where(ok, v.to(torch.int64), 0))
     cols += [ok.to(torch.int64) for _, ok in items]
     src = torch.stack(cols, 1).contiguous()
@@ -4762,6 +4785,203 @@ def _hash_join_times(name, b, bo, p, po, T, want_ri, want_m, card):
     return t
 
 
+SF10_WARM = 3
+# the queries of phase 18 profiled once each for their kernel time (a
+# profiled replay of a query with subqueries has crashed the process)
+SF10_PROFILED = ("Q1", "Q6", "Q9")
+# the queries whose float error phase 18 prints apart: the two nearest to
+# rtol 1e-9 at SF1 under one fixed-point word per float SUM
+SF10_PRECISION = ("Q9", "F1")
+
+
+def _to_mib(n):
+    return n / 2**20
+
+
+def sf10_statements():
+    """(name, text, oracle(tables), compare(rows, want)) of phase 18: the
+    22 TPC-H queries (Q11 with TPC-H's FRACTION for SF10), then F1 and F6
+    of tpch/scalar.py."""
+    from query_engine_tpu_torch.tpch import oracle, queries, scalar
+
+    out = []
+    for q, text in queries.QUERIES.items():
+        keys = oracle.FLOAT_SORT_KEYS.get(q, ())
+        if q == "Q11":
+            text, run = queries.Q11_SF10, oracle.q11_sf10
+        else:
+            run = (lambda t, q=q: oracle.run(q, t))
+        out.append((q, text, run,
+                    lambda rows, want, keys=keys: oracle.compare(rows, want,
+                                                                 keys)))
+    for q in ("F1", "F6"):
+        out.append((q, scalar.QUERIES[q], lambda t, q=q: scalar.run(q, t),
+                    lambda rows, want, q=q: scalar.compare(q, rows, want)))
+    return out
+
+
+def phase18():
+    """The 22 TPC-H queries and F1, F6 at scale factor 10 through one
+    Session(device="cuda"), each against the numpy oracle on its first run
+    and SF10_WARM warm runs."""
+    import gc
+
+    import torch
+
+    from query_engine_tpu_torch.engine.session import Session
+    from query_engine_tpu_torch.tpch import data, oracle, scalar
+
+    t_phase = time.perf_counter()
+    card = card_label()
+    gc.collect()
+    torch.cuda.empty_cache()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    tables = data.generate(data.SF10_LINEITEM)
+    gen_s = time.perf_counter() - t0
+    sess = Session(device="cuda")
+    check(sess.executor._compiled, "QE_COMPILED is off in this environment")
+    t0 = time.perf_counter()
+    data.register(sess, tables)
+    torch.cuda.synchronize()
+    reg_s = time.perf_counter() - t0
+    table_mib = _to_mib(torch.cuda.memory_allocated() - mem0)
+    caps = {k: sess.sources[k]._batch.capacity for k in ("lineitem",
+                                                         "orders")}
+    sizes = ", ".join(f"{k} {t.num_rows:,}" for k, t in tables.items())
+    print(f"phase 18: TPC-H SF10 tables generated on the host in {gen_s:.2f} "
+          f"s and registered on the card in {reg_s:.2f} s: {sizes}; "
+          f"{table_mib:.0f} MiB allocated by the tables; capacities {caps} "
+          f"[{card}]")
+    torch.cuda.reset_peak_memory_stats()
+    pipe = sess.executor.pipeline
+    timing = ("leaf_ms", "capture_ms")
+    out, held = {}, {}
+    for q, text, run, compare in sf10_statements():
+        t0 = time.perf_counter()
+        want = run(tables)
+        oracle_s = time.perf_counter() - t0
+        st0, syncs0 = dict(pipe.stats), sess.executor.host_syncs
+        held[q] = []
+        spy = IndexAddSpy()
+        reset_counts()
+        with spy.active(), group_agg_held_against_plain(held[q], spy):
+            t0 = time.perf_counter()
+            rows = sess.sql(text).to_pylist()
+            torch.cuda.synchronize()
+            first_ms = (time.perf_counter() - t0) * 1e3
+        launches = read_counts()["group_agg"]
+        first = _stats_change(st0, pipe.stats, timing)
+        first_syncs = sess.executor.host_syncs - syncs0
+        errs = []
+
+        def held_to_oracle(got, label):
+            try:
+                errs.append(compare(got, want))
+            except AssertionError as e:
+                raise CheckFailed(f"{q} at SF10: {label} differs from the "
+                                  f"numpy oracle: {e}") from None
+            if q in SF10_PRECISION:
+                for c, v in scalar.float_errors(got, want).items():
+                    col_err[c] = max(col_err.get(c, 0.0), v)
+
+        col_err = {}
+        held_to_oracle(rows, "the first run")
+        check(rows, f"{q} at SF10 returned no rows")
+        walls = []
+        st1, syncs1 = dict(pipe.stats), sess.executor.host_syncs
+        for i in range(SF10_WARM):
+            t0 = time.perf_counter()
+            with spy.active():
+                again = sess.sql(text).to_pylist()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            held_to_oracle(again, f"warm run {i + 1}")
+        ms = statistics.median(walls)
+        syncs = (sess.executor.host_syncs - syncs1) / SF10_WARM
+        warm = {k: v / SF10_WARM
+                for k, v in _stats_change(st1, pipe.stats, timing).items()}
+        busy = wall = None
+        names = set()
+        if q in SF10_PROFILED:
+            busy, wall, names = device_ms(sess, text)
+        torch.cuda.synchronize()
+        alloc, reserved = (_to_mib(torch.cuda.memory_allocated()),
+                           _to_mib(torch.cuda.memory_reserved()))
+        err = max(errs)
+        out[q] = {"rows": len(rows), "ms": ms, "first_ms": first_ms,
+                  "syncs": syncs, "first_syncs": first_syncs,
+                  "first": first, "warm": warm,
+                  "captures_per_warm_query": warm.get("captures", 0),
+                  "joins_demoted": first.get("joins_demoted", 0),
+                  "joins_counted": first.get("joins_counted", 0),
+                  "group_agg": launches, "max_rel_err": err,
+                  "col_err": col_err, "oracle_s": oracle_s,
+                  "device_ms": busy, "profiled_wall_ms": wall,
+                  "group_agg_kernels": kernel_names(names, "sum_count_",
+                                                    "float_absmax"),
+                  "index_add_kernels": kernel_names(names, "indexFunc"),
+                  "index_add_calls": spy.calls,
+                  "allocated_mib": alloc, "reserved_mib": reserved,
+                  "cache_entries": len(pipe._cache)}
+        profiled = ("" if busy is None else
+                    f"; one profiled warm run: {busy:.3f} ms of kernel time "
+                    f"in {wall:.3f} ms wall, group_agg kernels "
+                    f"{out[q]['group_agg_kernels']}")
+        print(f"phase 18: {q}: {len(rows)} rows == numpy oracle on the first "
+              f"and {SF10_WARM} warm runs (max rel err {err:.3g}, oracle "
+              f"{oracle_s:.2f} s); {ms:.3f} ms/query median of {SF10_WARM} "
+              f"warm runs, {syncs:g} host syncs/query, "
+              f"{out[q]['captures_per_warm_query']:g} captures/warm query; "
+              f"first run {first_ms:.1f} ms, {first_syncs} syncs, stats "
+              f"{first}; warm stats per query {warm}; joins demoted "
+              f"{out[q]['joins_demoted']}, counted "
+              f"{out[q]['joins_counted']}; group_agg launches {launches}, "
+              f"{len(held[q])} calls held against the plain versions; "
+              f"index_add_ calls {spy.calls}; after it {alloc:.0f} MiB "
+              f"allocated, {reserved:.0f} MiB reserved, "
+              f"{len(pipe._cache)} cached programs{profiled}")
+        if q in SF10_PRECISION:
+            print(f"phase 18: {q}: largest relative error by float column "
+                  f"{ {c: float(f'{v:.3g}') for c, v in col_err.items()} } "
+                  f"(rtol {RTOL}: {100 * max(col_err.values(), default=0) / RTOL:.2g} % of it)")
+    for q in TPCH_GROUP_AGG + ("F1", "F6"):
+        check(out[q]["group_agg"] > 0, f"{q} at SF10: group_agg did not "
+              "launch")
+        check(held[q], f"{q} at SF10: no group_agg call of its first run "
+              "was held against the plain versions")
+    for q in SF10_PROFILED:
+        check(out[q]["device_ms"] is not None
+              and (out[q]["group_agg_kernels"] or q == "Q6"),
+              f"{q} at SF10: no group_agg kernel in its profiled warm run")
+    for q, r in out.items():
+        check(not r["index_add_calls"] and not r["index_add_kernels"],
+              f"{q} at SF10: index_add_ on the card: {r['index_add_calls']} "
+              f"calls, kernels {r['index_add_kernels']}")
+    margins = oracle.margins(tables)
+    print("phase 18: closest row to its threshold (relative, in the "
+          "oracle's float64): " + ", ".join(
+              f"{k} {v:.6g}" for k, v in margins.items()))
+    peak = {"allocated_mib": _to_mib(torch.cuda.max_memory_allocated()),
+            "reserved_mib": _to_mib(torch.cuda.max_memory_reserved())}
+    total = sum(r["ms"] for r in out.values())
+    err = max((c["max_abs_err"] for calls in held.values() for c in calls),
+              default=0.0)
+    del sess, pipe, tables
+    gc.collect()
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    print(f"phase 18: {len(out)} statements at SF10: {total:.1f} ms in all "
+          f"(sum of the warm medians); peak {peak['allocated_mib']:.0f} MiB "
+          f"allocated, {peak['reserved_mib']:.0f} MiB reserved; "
+          f"{_to_mib(torch.cuda.memory_allocated()):.0f} MiB allocated after "
+          f"the Session is freed; generation {gen_s:.2f} s, registration "
+          f"{reg_s:.2f} s; the phase took {seconds:.1f} s [{card}]")
+    return {"queries": out, "launches": {q: r["group_agg"]
+                                         for q, r in out.items()},
+            "max_abs_err": err, "peak": peak, "seconds": seconds,
+            "table_mib": table_mib}
+
+
 def hash_join_entries(hash_join, engine_hj):
     """The kernels line's hash_build and hash_probe entries: launches from
     phase 17's runs of the entry point, times at case (a), every case's
@@ -4833,6 +5053,8 @@ def main():
         check(not any(engine_hj.values()),
               f"phases 1-16 launched the hash join's kernels: {engine_hj}")
         hash_join = phase17()
+        del sf1_tables  # phase 18 holds SF10's tables alone
+        sf10 = phase18()
     except CheckFailed as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -4852,6 +5074,7 @@ def main():
     p14 = mesh["launches"]
     p15 = count_emit["launches"]
     p16 = mesh_sql["launches"]
+    p18 = sf10["launches"]
     tpch_err = max((c["max_abs_err"] for calls in tpch_held.values()
                     for c in calls), default=0.0)
     print(json.dumps({"kernels": [{
@@ -4863,20 +5086,22 @@ def main():
         + sum(windows_by_query.values()) + sum(scalar_by_query.values())
         + sum(ordered_by_query.values()) + sum(surface_by_group.values())
         + sum(services_by_part.values()) + p13_launches
-        + sum(p14.values()) + sum(p15.values()) + sum(p16.values()),
+        + sum(p14.values()) + sum(p15.values()) + sum(p16.values())
+        + sum(p18.values()),
         "launches_by_phase": {"4": agg_launches, "7": tpch_by_query,
                               "8": windows_by_query, "9": scalar_by_query,
                               "10": ordered_by_query,
                               "11": surface_by_group,
                               "12": services_by_part, "13": p13,
-                              "14": p14, "15": p15, "16": p16},
+                              "14": p14, "15": p15, "16": p16, "18": p18},
         "max_abs_err": max_err["plain"],
         "max_abs_err_vs_float64": {"1": max_err["float64"], "7": tpch_err,
                                    "12": services["max_abs_err"],
                                    "13": distributed["max_abs_err"],
                                    "14": mesh["max_abs_err"],
                                    "15": count_emit["max_abs_err"],
-                                   "16": mesh_sql["max_abs_err"]},
+                                   "16": mesh_sql["max_abs_err"],
+                                   "18": sf10["max_abs_err"]},
         "ms": main_shape["ms"],
         "plain_ms": main_shape["plain_ms"],
         "bound_ms": main_shape["bound_ms"],

@@ -13,17 +13,25 @@
 //   items  up to kMaxItems descriptors read where they lie, no copies:
 //            COUNT  ok only                    -> rows: count
 //            I64/I32 values, ok                -> rows: sum, count
-//            F64/F32 values, ok                -> rows: sum_q, count, flags
+//            F64/F32 values, ok                -> rows: sum_lo, sum_hi,
+//                                                  count, flags
 //          ok [n] uint8 (torch bool); a row counts in an item iff ok != 0
 //   out    [R, G] int64, the items' rows in order. Sums wrap mod 2^64.
-//          A float item sums q = rint(x * 2^k) over its ok, finite rows
-//          (round half to even), with k from max|x| over ok, finite rows of
-//          the whole plane (the JAX kernel's dynamic-scale fixed point);
-//          its flags row ORs 1 (+inf), 2 (-inf), 4 (NaN) over its ok rows.
+//          A float item quantizes each ok, finite row to q = rint(x * 2^k)
+//          (round half to even) with k = 62 - e, where max|x| < 2^e over
+//          the ok, finite rows of the whole plane, so |q| < 2^62 whatever
+//          n is. Its sum is kept exactly in two rows: sum_lo adds
+//          q & 0xffffffff (each term below 2^32: below 2^63 for n < 2^31)
+//          and sum_hi adds q >> 32 (arithmetic; each term below 2^30 in
+//          magnitude); sum_hi * 2^32 + sum_lo is the exact sum of q. Its
+//          flags row ORs 1 (+inf), 2 (-inf), 4 (NaN) over its ok rows.
 //   inv_scale [F] float64: 2^-k per float item, written by block 0.
 // Integer addition mod 2^64 does not depend on order, so every output is
-// exact and the same bits on every run, whatever the atomic order. Nothing
-// is read back to the host: the call runs inside a captured CUDA graph.
+// exact and the same bits on every run, whatever the atomic order. A float
+// sum's error is the quantization of each x alone (at most max|x| * 2^-62
+// a row) and one float64 rounding when `finish_float` rebuilds it: it does
+// not grow with the plane's capacity. Nothing is read back to the host:
+// the call runs inside a captured CUDA graph.
 //
 // What bounds it on an H100: device-memory bytes, the gid plane plus each
 // item's values and ok plane read once, and the [R, G] output written once.
@@ -41,6 +49,8 @@
 //   * keeps 32-bit counts and each 64-bit sum as two 32-bit words in
 //     shared memory (a carry out of the low word is seen from the low add's
 //     returned old value: exact mod 2^64), flushed once per block;
+//   * compiles a launch without a float item apart (kFloats false), so
+//     integer and COUNT items run none of the float items' code;
 //   * sends groups past the shared table (the segment route at G = 2^23)
 //     to device-memory atomics, so ids below the table's size still share
 //     a block's table (Q9's ~175 live groups of 2^23 slots all do).
@@ -65,11 +75,13 @@ constexpr unsigned kFull = 0xffffffffu;
 enum Kind { kCount = 0, kI64 = 1, kI32 = 2, kF64 = 3, kF32 = 4 };
 
 __host__ __device__ inline int rows_of(int kind) {
-  return kind == kCount ? 1 : (kind <= kI32 ? 2 : 3);
+  return kind == kCount ? 1 : (kind <= kI32 ? 2 : 4);
 }
 __host__ __device__ inline int planes_of(int kind) {
-  // 32-bit shared planes: sum lo, sum hi, count, flags
-  return kind == kCount ? 1 : (kind <= kI32 ? 3 : 4);
+  // 32-bit shared planes: an integer item's sum as two words and its
+  // count; a float item's sum_lo and sum_hi as two words each, its count
+  // and its flags
+  return kind == kCount ? 1 : (kind <= kI32 ? 3 : 6);
 }
 __host__ __device__ inline bool wide(int kind) {  // 8-byte values
   return kind == kI64 || kind == kF64;
@@ -90,7 +102,6 @@ struct Params {
   int G;
   int T;  // ids below T use the block's shared table
   int n_items;
-  int frac_bits;
   Item items[kMaxItems];
   unsigned long long* out;
   const unsigned long long* fmax;  // max|x| bits per float slot
@@ -202,13 +213,12 @@ __device__ __forceinline__ double pow2(int k) {
 }
 
 // The fixed-point exponent of `quantize()` in ops/group_agg.py:
-// k = clamp(frac_bits - e, -1000, 1000), m = mant * 2^e, mant in [0.5, 1).
-__device__ __forceinline__ int scale_exponent(unsigned long long mbits,
-                                              int frac_bits) {
+// k = clamp(62 - e, -1000, 1000), m = mant * 2^e, mant in [0.5, 1).
+__device__ __forceinline__ int scale_exponent(unsigned long long mbits) {
   const unsigned long long tiny = 0x0010000000000000ull;  // 2^-1022
   if (mbits < tiny) mbits = tiny;
   const int e = (int)((mbits >> 52) & 0x7ff) - 1022;
-  int k = frac_bits - e;
+  int k = 62 - e;
   return k < -1000 ? -1000 : (k > 1000 ? 1000 : k);
 }
 
@@ -225,13 +235,18 @@ __device__ __forceinline__ void shared_add64(unsigned* lo, unsigned* hi,
   if (vhi) atomicAdd(hi, vhi);
 }
 
-// Adds one group's sum, count and flag bits of an item: to the block's
-// table below T, to device memory above.
+// Adds one group's sum (an integer item's in `s`; a float item's sum_lo
+// in `s` and sum_hi in `h`), count and flag bits of an item: to the
+// block's table below T, to device memory above. kFloats: the launch has
+// a float item (without one, the code is the integer items' alone).
+template <bool kFloats>
 __device__ __forceinline__ void emit(const Params& p, unsigned* table,
                                      const Item& it, int g,
-                                     unsigned long long s, unsigned c,
+                                     unsigned long long s,
+                                     unsigned long long h, unsigned c,
                                      unsigned f) {
   const int T = p.T;
+  const bool fl = kFloats && it.kind >= kF64;
   if (g < T) {
     unsigned* pl = table + (size_t)it.plane * T + g;
     if (it.kind == kCount) {
@@ -239,82 +254,103 @@ __device__ __forceinline__ void emit(const Params& p, unsigned* table,
       return;
     }
     if (s) shared_add64(pl, pl + T, s);
-    if (c) atomicAdd(pl + 2 * T, c);
-    if (f) atomicOr(pl + 3 * T, f);
+    if (!fl) {
+      if (c) atomicAdd(pl + 2 * T, c);
+      return;
+    }
+    if (h) shared_add64(pl + 2 * T, pl + 3 * T, h);
+    if (c) atomicAdd(pl + 4 * T, c);
+    if (f) atomicOr(pl + 5 * T, f);
     return;
   }
   unsigned long long* o = p.out + (size_t)g;
+  const size_t G = (size_t)p.G;
   if (it.kind == kCount) {
-    if (c) atomicAdd(o + (size_t)it.row * p.G, (unsigned long long)c);
+    if (c) atomicAdd(o + it.row * G, (unsigned long long)c);
     return;
   }
-  if (s) atomicAdd(o + (size_t)it.row * p.G, s);
-  if (c) atomicAdd(o + (size_t)(it.row + 1) * p.G, (unsigned long long)c);
-  if (f) atomicOr(o + (size_t)(it.row + 2) * p.G, (unsigned long long)f);
+  if (s) atomicAdd(o + it.row * G, s);
+  if (!fl) {
+    if (c) atomicAdd(o + (it.row + 1) * G, (unsigned long long)c);
+    return;
+  }
+  if (h) atomicAdd(o + (it.row + 1) * G, h);
+  if (c) atomicAdd(o + (it.row + 2) * G, (unsigned long long)c);
+  if (f) atomicOr(o + (it.row + 3) * G, (unsigned long long)f);
 }
 
 // One step: item `item` of the lane's kRows rows, from the registers `L`;
 // `g` holds the rows' group ids (-1 when excluded) and `one` says the
 // warp's whole step is one group.
+template <bool kFloats>
 __device__ __forceinline__ void consume(const Params& p, const double* p2k,
                                         unsigned* table, int item,
                                         const Loads& L, const int* g,
                                         bool one) {
   const Item& it = p.items[item];
-  unsigned long long x[kRows];
+  // x: an integer item's value, or a float item's q & 0xffffffff; h: a
+  // float item's q >> 32 (0 for the other kinds)
+  unsigned long long x[kRows], h[kRows];
   unsigned ok[kRows], f[kRows];
 #pragma unroll
   for (int j = 0; j < kRows; ++j) {
     ok[j] = (g[j] >= 0 && ((L.ok >> (8 * j)) & 0xffu)) ? 1u : 0u;
-    x[j] = 0ull;
+    x[j] = h[j] = 0ull;
     f[j] = 0u;
     if (!ok[j] || it.kind == kCount) continue;
     if (it.kind == kI64) {
       x[j] = L.bits[j];
     } else if (it.kind == kI32) {
       x[j] = (unsigned long long)(long long)(int)L.bits[j];
-    } else {
+    } else if (kFloats) {
       const double v =
           it.kind == kF64 ? __longlong_as_double((long long)L.bits[j])
                           : (double)__int_as_float((int)L.bits[j]);
-      if (isfinite(v))
-        x[j] = (unsigned long long)__double2ll_rn(v * p2k[item]);
-      else
+      if (isfinite(v)) {
+        const long long q = __double2ll_rn(v * p2k[item]);
+        x[j] = (unsigned long long)q & 0xffffffffull;
+        h[j] = (unsigned long long)(q >> 32);
+      } else {
         f[j] = isnan(v) ? 4u : (v > 0 ? 1u : 2u);
+      }
     }
   }
   if (one) {  // warp-uniform: the warp's rows are all one group
     unsigned long long s = x[0] + x[1] + x[2] + x[3];
+    unsigned long long hs = h[0] + h[1] + h[2] + h[3];
     unsigned c = ok[0] + ok[1] + ok[2] + ok[3];
     unsigned fl = f[0] | f[1] | f[2] | f[3];
     for (int o = 16; o > 0; o >>= 1) {
       s += __shfl_xor_sync(kFull, s, o);
+      if (kFloats) hs += __shfl_xor_sync(kFull, hs, o);
       c += __shfl_xor_sync(kFull, c, o);
       fl |= __shfl_xor_sync(kFull, fl, o);
     }
-    if ((threadIdx.x & 31) == 0) emit(p, table, it, g[0], s, c, fl);
+    if ((threadIdx.x & 31) == 0)
+      emit<kFloats>(p, table, it, g[0], s, hs, c, fl);
     return;
   }
   // runs of equal ids among the lane's consecutive rows add once
   int rg = g[0];
-  unsigned long long rs = x[0];
+  unsigned long long rs = x[0], rh = h[0];
   unsigned rc = ok[0], rf = f[0];
 #pragma unroll
   for (int j = 1; j < kRows; ++j) {
     if (g[j] != rg) {
-      if (rg >= 0) emit(p, table, it, rg, rs, rc, rf);
+      if (rg >= 0) emit<kFloats>(p, table, it, rg, rs, rh, rc, rf);
       rg = g[j];
-      rs = 0ull;
+      rs = rh = 0ull;
       rc = rf = 0u;
     }
     rs += x[j];
+    rh += h[j];
     rc += ok[j];
     rf |= f[j];
   }
-  if (rg >= 0) emit(p, table, it, rg, rs, rc, rf);
+  if (rg >= 0) emit<kFloats>(p, table, it, rg, rs, rh, rc, rf);
 }
 
-template <typename Gid>
+template <typename Gid, bool kFloats>
 __global__ void __launch_bounds__(kThreads) sum_count_shared(
     const __grid_constant__ Params p) {
   // 2^k per item, then the table's planes of T words (no static shared
@@ -329,7 +365,7 @@ __global__ void __launch_bounds__(kThreads) sum_count_shared(
   for (int i = threadIdx.x; i < n_planes * T; i += blockDim.x) table[i] = 0u;
   if (threadIdx.x < p.n_items && p.items[threadIdx.x].fslot >= 0) {
     const int f = p.items[threadIdx.x].fslot;
-    const int k = scale_exponent(p.fmax[f], p.frac_bits);
+    const int k = scale_exponent(p.fmax[f]);
     p2k[threadIdx.x] = pow2(k);
     if (blockIdx.x == 0) p.inv_scale[f] = pow2(-k);
   }
@@ -369,7 +405,7 @@ __global__ void __launch_bounds__(kThreads) sum_count_shared(
       const int first = __shfl_sync(kFull, g[0], 0);  // every lane
       one = __all_sync(kFull, same && g[0] >= 0 && g[0] == first);
     }
-    consume(p, p2k, table, item, cur, g, one);
+    consume<kFloats>(p, p2k, table, item, cur, g, one);
     tile = next_tile;
     item = next_item;
   }
@@ -386,28 +422,34 @@ __global__ void __launch_bounds__(kThreads) sum_count_shared(
                               (unsigned long long)pl[gg]);
         continue;
       }
-      const unsigned long long s =
-          (unsigned long long)pl[gg] | ((unsigned long long)pl[T + gg] << 32);
-      if (s) atomicAdd(o + (size_t)it.row * p.G, s);
-      if (pl[2 * T + gg])
-        atomicAdd(o + (size_t)(it.row + 1) * p.G,
-                  (unsigned long long)pl[2 * T + gg]);
-      if (it.kind >= kF64 && pl[3 * T + gg])
-        atomicOr(o + (size_t)(it.row + 2) * p.G,
-                 (unsigned long long)pl[3 * T + gg]);
+      // the item's 64-bit words (one sum for an integer item, sum_lo and
+      // sum_hi for a float one), then its count and a float's flags
+      const int words = kFloats && it.kind >= kF64 ? 2 : 1;
+      for (int w = 0; w < words; ++w) {
+        const unsigned long long s =
+            (unsigned long long)pl[2 * w * T + gg] |
+            ((unsigned long long)pl[(2 * w + 1) * T + gg] << 32);
+        if (s) atomicAdd(o + (size_t)(it.row + w) * p.G, s);
+      }
+      const unsigned c = pl[2 * words * T + gg];
+      if (c) atomicAdd(o + (size_t)(it.row + words) * p.G,
+                       (unsigned long long)c);
+      if (kFloats && it.kind >= kF64 && pl[5 * T + gg])
+        atomicOr(o + (size_t)(it.row + 3) * p.G,
+                 (unsigned long long)pl[5 * T + gg]);
     }
   }
 }
 
-template <typename Gid>
+template <typename Gid, bool kFloats>
 cudaError_t launch(Params& p, size_t smem, const qe::DeviceLimits& lim,
                    int dev, int n_float, cudaStream_t stream) {
-  static qe::LaunchCache<decltype(&sum_count_shared<Gid>)> cache;
+  static qe::LaunchCache<decltype(&sum_count_shared<Gid, kFloats>)> cache;
   const int64_t tiles = (p.n + kTile - 1) / kTile;
   const int64_t blocks_needed = (tiles + kThreads / 32 - 1) / (kThreads / 32);
   int per_sm = 0;
-  cudaError_t err = cache.blocks_per_sm(sum_count_shared<Gid>, dev, lim,
-                                        kThreads, smem, &per_sm);
+  cudaError_t err = cache.blocks_per_sm(sum_count_shared<Gid, kFloats>, dev,
+                                        lim, kThreads, smem, &per_sm);
   if (err != cudaSuccess) return err;
   const int64_t full = (int64_t)per_sm * lim.sms;
   int grid = (int)(blocks_needed < full ? blocks_needed : full);
@@ -418,7 +460,7 @@ cudaError_t launch(Params& p, size_t smem, const qe::DeviceLimits& lim,
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
-  sum_count_shared<Gid><<<grid, kThreads, smem, stream>>>(p);
+  sum_count_shared<Gid, kFloats><<<grid, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -436,7 +478,7 @@ cudaError_t launch(Params& p, size_t smem, const qe::DeviceLimits& lim,
 extern "C" int qe_group_agg(const void* gid, int gid_is_64, int64_t n, int G,
                             int n_items, const int* kinds,
                             const void* const* vals, const void* const* oks,
-                            int frac_bits, int64_t* out,
+                            int64_t* out,
                             unsigned long long* fmax, double* inv_scale,
                             cudaStream_t stream) {
   if (G <= 0 || n < 0 || n_items <= 0 || n_items > kMaxItems)
@@ -451,7 +493,6 @@ extern "C" int qe_group_agg(const void* gid, int gid_is_64, int64_t n, int G,
   p.n = n;
   p.G = G;
   p.n_items = n_items;
-  p.frac_bits = frac_bits;
   p.out = reinterpret_cast<unsigned long long*>(out);
   p.fmax = fmax;
   p.inv_scale = inv_scale;
@@ -480,7 +521,12 @@ extern "C" int qe_group_agg(const void* gid, int gid_is_64, int64_t n, int G,
     err = cudaMemsetAsync(fmax, 0, n_float * sizeof(unsigned long long),
                           stream);
   if (err != cudaSuccess) return (int)err;
-  err = gid_is_64 ? launch<long long>(p, smem, lim, dev, n_float, stream)
-                  : launch<int>(p, smem, lim, dev, n_float, stream);
+  if (n_float > 0)
+    err = gid_is_64 ? launch<long long, true>(p, smem, lim, dev, n_float,
+                                              stream)
+                    : launch<int, true>(p, smem, lim, dev, n_float, stream);
+  else
+    err = gid_is_64 ? launch<long long, false>(p, smem, lim, dev, 0, stream)
+                    : launch<int, false>(p, smem, lim, dev, 0, stream);
   return (int)err;
 }

@@ -28,7 +28,14 @@ literal values into the program's input buffers and replay the graph. A
 graph reads the leaf planes at the addresses it was captured with, so the
 entry keeps those tensors alive and captures again when a leaf's planes
 change (a table registered anew); results are returned as copies, since
-the next replay overwrites the graph's outputs.
+the next replay overwrites the graph's outputs. Each graph keeps a memory
+pool of its own: before a capture that the card's free memory would not
+hold (the pool the entry's last capture took, or what its first, eager
+run grew the allocator by), and before a first run (as much as any
+program has taken), the graphs of the least recently used entries are
+released, LRU first, until it does; a released entry captures again when
+it runs next. A query that runs out of device memory anyway (in an eager
+leaf) releases every graph and runs once more.
 
 Equi-joins (INNER, LEFT, RIGHT, FULL, with or without a residual ON
 condition) trace in-segment when one side's key multiplicity has a known
@@ -87,6 +94,7 @@ from __future__ import annotations
 
 import collections
 import gc
+import itertools
 import os
 import threading
 import time
@@ -687,11 +695,15 @@ class CompiledPipeline:
                       "captures": 0, "replays": 0,
                       # window sorts made and OVER specs seen, per compile
                       "window_sorts": 0, "window_specs": 0,
+                      # graphs released to make room for a capture, and
+                      # queries run again after running out of memory
+                      "graphs_released": 0, "oom_retries": 0,
                       # host-clock ms in the eager subtrees run as leaves
                       # (the outermost ones) and in captures outside them
                       "leaf_ms": 0.0, "capture_ms": 0.0}
         self.leaf_kinds = collections.Counter()  # eager leaves by node type
         self._leaf_depth = 0
+        self._clock = itertools.count()  # entries' last use, for the LRU
         # state of the body a thread runs (a mesh program runs one body per
         # shard, each in a thread of its own, over this pipeline)
         self._tls = threading.local()
@@ -735,7 +747,18 @@ class CompiledPipeline:
 
     # ---- entry -----------------------------------------------------------
     def try_execute(self, plan: pp.PhysicalPlan) -> Optional[ColumnBatch]:
-        """Returns the result batch, or None to run the eager path."""
+        """Returns the result batch, or None to run the eager path. On CUDA
+        a run that runs out of device memory releases every cached graph
+        and runs once more."""
+        try:
+            return self._try_execute(plan)
+        except torch.OutOfMemoryError:
+            if not self._graphs or not self.release_graphs():
+                raise
+        self.stats["oom_retries"] += 1
+        return self._try_execute(plan)
+
+    def _try_execute(self, plan: pp.PhysicalPlan) -> Optional[ColumnBatch]:
         host = self.executor._host_list
         forced: set = set()
         subs_by_plan = {}  # a subquery's batch, kept across demotions
@@ -937,6 +960,52 @@ class CompiledPipeline:
             del self._cache[k]
         return len(dead)
 
+    # ---- the graphs' memory ----------------------------------------------
+    def _release(self, entry) -> None:
+        """Drop an entry's graph and what only the graph needed (its pool
+        with its outputs, the planes it read); the entry captures again
+        when it runs next."""
+        entry.graph = entry.outputs = entry.planes = entry.ptrs = None
+        entry.xfer = ()
+
+    def release_graphs(self) -> int:
+        """Release every cached graph; returns how many."""
+        live = [e for e in self._cache.values() if e.graph is not None]
+        for e in live:
+            self._release(e)
+        self.stats["graphs_released"] += len(live)
+        return len(live)
+
+    def _free_bytes(self) -> int:
+        """Device memory free for a new pool: the allocator's cached blocks
+        returned to the card first (a released graph's pool among them)."""
+        if self.executor.device.type != "cuda":
+            return 1 << 62
+        torch.cuda.empty_cache()
+        return torch.cuda.mem_get_info(self.executor.device)[0]
+
+    def _reserved_bytes(self) -> int:
+        if self.executor.device.type != "cuda":
+            return 0
+        return torch.cuda.memory_reserved(self.executor.device)
+
+    def _room_for(self, entry) -> None:
+        """Before `entry` is captured: release the graphs of the least
+        recently used other entries until the card's free memory holds the
+        pool its capture needs, `need` plus an eighth. Under the capture
+        lock: no other thread captures while the cache is emptied."""
+        need = entry.need + entry.need // 8
+        with _CAPTURE_LOCK:
+            if not need or self._free_bytes() >= need:
+                return
+            for e in sorted((e for e in self._cache.values()
+                             if e.graph is not None and e is not entry),
+                            key=lambda e: e.used):
+                self._release(e)
+                self.stats["graphs_released"] += 1
+                if self._free_bytes() >= need:
+                    return
+
     # ---- running a program -------------------------------------------------
     def _body(self, entry, planes, n_bufs, dyn_bufs, xfer=()):
         """The program: the plan segment over the input planes (the leaves',
@@ -1024,13 +1093,25 @@ class CompiledPipeline:
         program's first run returns the graph's own output tensors (filled
         with the eager run's values), so the emit program that reads them
         is captured over the addresses later replays write."""
+        entry.used = next(self._clock)
         planes, n_bufs, dyn_bufs = self._inputs(batches, dyn_vals)
+        if self._graphs:
+            # room for the eager run, as much as any program has taken,
+            # then what the eager run grows the allocator by
+            entry.need = max((e.need for e in self._cache.values()),
+                             default=0)
+            self._room_for(entry)
+            with _CAPTURE_LOCK:
+                torch.cuda.empty_cache()
+                base = self._reserved_bytes()
         self._compiling = True
         try:
             out = self._body(entry, planes, n_bufs, dyn_bufs, xfer)
         finally:
             self._compiling = False
         if self._graphs:
+            entry.need = max(self._reserved_bytes() - base, 0)
+            self._room_for(entry)
             self._capture(entry, planes, n_bufs, dyn_bufs, xfer)
             if entry.counts and entry.outputs is not None:
                 for dst, src in zip(_flat(entry.outputs), _flat(out)):
@@ -1039,14 +1120,17 @@ class CompiledPipeline:
         return out
 
     def _rerun(self, entry, batches, dyn_vals, xfer=()):
-        if entry.graph is None:  # CPU: run the body again
+        entry.used = next(self._clock)
+        if entry.n_bufs is None:  # never captured (CPU): run the body again
             return self._body(entry, *self._inputs(batches, dyn_vals), xfer)
         planes = [[(c.data, c.validity) for c in b.columns] for b in batches]
-        if _ptrs(planes, xfer) != entry.ptrs:
-            # an input's planes changed (a table registered anew, an eager
-            # leaf's or a subquery's new batch, a count program captured
-            # anew): the graph would read the old addresses, so capture
-            # over the new ones
+        if entry.graph is None or _ptrs(planes, xfer) != entry.ptrs:
+            # released for room, or an input's planes changed (a table
+            # registered anew, an eager leaf's or a subquery's new batch, a
+            # count program captured anew): the graph would read the old
+            # addresses, so capture over the new ones
+            self._release(entry)
+            self._room_for(entry)
             self._capture(entry, planes, entry.n_bufs, entry.dyn_bufs, xfer)
         for buf, b in zip(entry.n_bufs, batches):
             buf.fill_(b.num_rows)
@@ -1068,6 +1152,8 @@ class CompiledPipeline:
         # capture under way in another thread, and captures on one stream.
         with _CAPTURE_LOCK:
             entry.graph = entry.outputs = None  # free the old graph's pool
+            torch.cuda.empty_cache()
+            base = self._reserved_bytes()
             graph = torch.cuda.CUDAGraph()
             # A cyclic collection inside the capture may free another CUDA
             # graph (one an unreachable cycle holds, e.g. a dropped
@@ -1083,6 +1169,7 @@ class CompiledPipeline:
             finally:
                 if collecting:
                     gc.enable()
+            entry.need = max(self._reserved_bytes() - base, 0)  # its pool
         if self._leaf_depth == 0:
             self.stats["capture_ms"] += (time.perf_counter() - t0) * 1e3
         entry.graph = graph
@@ -2452,7 +2539,7 @@ class _Entry:
     __slots__ = ("plan", "leaves", "leaf_ids", "res", "checks", "counts",
                  "ordinal", "xfer_ords", "dyn_exprs", "sub_exprs", "subs",
                  "leaf_bounds", "meta", "graph", "outputs", "planes", "xfer",
-                 "ptrs", "n_bufs", "dyn_bufs")
+                 "ptrs", "n_bufs", "dyn_bufs", "used", "need")
 
     def __init__(self, plan, leaves):
         self.plan = plan
@@ -2476,6 +2563,8 @@ class _Entry:
         self.ptrs = None      # their data_ptr()s at capture
         self.n_bufs = None    # leaf row counts, 0-d int64, filled per call
         self.dyn_bufs = None  # literal values, 0-d, filled per call
+        self.used = 0         # the pipeline's clock at its last run
+        self.need = 0         # bytes of device memory its capture takes
 
 
 def compiled_enabled() -> bool:

@@ -63,7 +63,7 @@ def _nvcc() -> str:
 def _bind(lib: ctypes.CDLL) -> None:
     p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     f = lib.qe_group_agg
-    f.argtypes = [p, i32, i64, i32, i32, p, p, p, i32, p, p, p, p]
+    f.argtypes = [p, i32, i64, i32, i32, p, p, p, p, p, p, p]
     f.restype = i32
     for f in (lib.qe_small_gather_u32, lib.qe_small_gather_planes):
         f.argtypes = [p, p, i64, i32, i32, p, p]

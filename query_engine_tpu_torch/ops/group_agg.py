@@ -18,10 +18,14 @@ Which version runs is decided by the device of the tensors, nothing else:
   * on a CUDA tensor the kernel in `csrc/group_agg.cu` runs (built at first
     use by ops/_build.py), or the call raises. One launch reads every item
     where it lies. A float item is dynamic-scale fixed point, q = round(x *
-    2^k) with k from max|x| (the JAX kernel's scheme, group_agg.py:243-290
-    there), summed exactly as int64 and rescaled; its +inf, -inf and NaN
-    rows set flag bits. Error bound ~ n * max|x| * 2^-40, like float64
-    summation round-off; the bits are the same on every run;
+    2^k) with k = 62 - e where max|x| < 2^e (so |q| < 2^62 at any n), its
+    sum kept exactly in two int64 rows (the low and the high 32 bits of
+    each q, summed apart) and rebuilt with one float64 rounding
+    (`finish_float`); its +inf, -inf and NaN rows set flag bits. A group of
+    m rows is within m * max|x| * 2^-62 of the exact sum of its values,
+    plus that rounding, whatever the plane's capacity; the bits are the
+    same on every run. The JAX kernel (group_agg.py:243-290 there) sums
+    one word with n * 2^frac_bits < 2^61, whose quantum grows with n;
   * on a CPU tensor `grouped_sums_counts_multi_plain` runs: an int64
     `index_add_` for integers and a float64 `index_add_` for floats — what
     the JAX package computes on its CPU path (kernels.py:757-760 there).
@@ -37,7 +41,6 @@ thread: the virtual mesh's shards launch from threads of their own).
 from __future__ import annotations
 
 import ctypes
-import math
 import threading
 from typing import Callable, List, Optional, Sequence, Tuple
 
@@ -49,10 +52,14 @@ _launches_lock = threading.Lock()
 Items = Sequence[Tuple[Optional[torch.Tensor], torch.Tensor]]
 
 # item kinds of the kernel's descriptors (csrc/group_agg.cu) and the output
-# rows of each: COUNT -> count; I64/I32 -> sum, count; F64/F32 -> sum_q,
-# count, flags (1 = +inf, 2 = -inf, 4 = NaN)
+# rows of each: COUNT -> count; I64/I32 -> sum, count; F64/F32 -> sum_lo,
+# sum_hi, count, flags (1 = +inf, 2 = -inf, 4 = NaN)
 COUNT, I64, I32, F64, F32 = range(5)
-ROWS = {COUNT: 1, I64: 2, I32: 2, F64: 3, F32: 3}
+ROWS = {COUNT: 1, I64: 2, I32: 2, F64: 4, F32: 4}
+# a float item's fixed point: |q| < 2^Q_BITS, q split at bit HALF
+Q_BITS = 62
+HALF = 32
+LOW = (1 << HALF) - 1
 MAX_ITEMS = 16  # descriptors per launch
 
 
@@ -81,11 +88,6 @@ def _as_kind(values: Optional[torch.Tensor], kind: int):
     return _aligned(values.to(dtype))
 
 
-def frac_bits(n: int) -> int:
-    """Fraction bits of the fixed point at n rows: n * 2^frac_bits < 2^61."""
-    return min(61 - max(math.ceil(math.log2(max(n, 2))), 1), 40)
-
-
 def _pow2(k: torch.Tensor) -> torch.Tensor:
     """Exact float64 2^k for int k in [-1022, 1023], from the bits."""
     return ((k.to(torch.int64) + 1023) << 52).view(torch.float64)
@@ -93,7 +95,8 @@ def _pow2(k: torch.Tensor) -> torch.Tensor:
 
 def quantize(values: torch.Tensor, ok: torch.Tensor):
     """(q int64 with 0 where not (ok and finite), 2^-k float64 0-d tensor).
-    k is chosen on the device from max|x| so that n * max|q| < 2^62."""
+    k = Q_BITS - e is chosen on the device from max|x| < 2^e, so |q| <
+    2^Q_BITS whatever the number of rows."""
     n = values.shape[0]
     x = values.to(torch.float64)
     finite = torch.isfinite(x)
@@ -102,7 +105,7 @@ def quantize(values: torch.Tensor, ok: torch.Tensor):
                                              device=x.device)
     # m = mant * 2^e with mant in [0.5, 1): e = floor(log2 m) + 1
     _, e = torch.frexp(m.clamp(min=torch.finfo(torch.float64).tiny))
-    k = (frac_bits(n) - e.to(torch.int64)).clamp(-1000, 1000)
+    k = (Q_BITS - e.to(torch.int64)).clamp(-1000, 1000)
     q = torch.round(xf * _pow2(k)).to(torch.int64)
     return q, _pow2(-k)
 
@@ -114,11 +117,9 @@ def two_words(values: torch.Tensor, ok: torch.Tensor
     `quantize` gives x (so the kernel's own grid for hi, at most one bit
     coarser than x's, holds hi exactly and its sums are exact), and lo =
     x - hi (exact: hi and x are within a factor 2, or hi is 0), whose
-    quantum is 2^-frac_bits of hi's. Summing both items and adding the two
-    sums gives a group's float sum to float64 rounding, where one item's
-    error is max|x| * 2^-frac_bits, large against a group whose sum is
-    small or cancels. +-inf and NaN rows stay in hi (lo 0), so the flags
-    apply."""
+    quantum is 2^-Q_BITS of hi's. Summing both items and adding the two
+    sums gives a group's float sum to float64 rounding. +-inf and NaN rows
+    stay in hi (lo 0), so the flags apply."""
     x = values.to(torch.float64)
     fin = ok & torch.isfinite(x)
     _, inv = quantize(x, ok)
@@ -130,21 +131,34 @@ def two_words(values: torch.Tensor, ok: torch.Tensor
 def two_word_sums(values: torch.Tensor, ok: torch.Tensor, gid: torch.Tensor,
                   num_groups: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """A float plane's grouped (sums, counts), the sum as two fixed-point
-    words (`two_words`) in one call: for a combine of a few partials a
-    group, where one word's quantum, max|x| * 2^-frac_bits of the whole
-    plane, is too coarse for a small or cancelling group."""
+    words (`two_words`) in one call: the combine of a few partials a
+    group."""
     hi, lo = two_words(values, ok)
     (s_hi, cnt), (s_lo, _) = grouped_sums_counts_multi(
         [(hi, ok), (lo, ok)], gid, num_groups)
     return s_hi + s_lo, cnt
 
 
-def finish_float(sums_q: torch.Tensor, flags: torch.Tensor,
-                 inv_scale: torch.Tensor) -> torch.Tensor:
-    """Rescale fixed-point sums and apply IEEE semantics per group from the
-    flag bits (1: some +inf, 2: some -inf, 4: some NaN): inf + finite =
-    inf, inf + -inf or any NaN = NaN. Four passes over the groups."""
-    s = sums_q * inv_scale  # int64 * 0-d float64 -> float64
+def exact_to_float(sum_lo: torch.Tensor, sum_hi: torch.Tensor
+                   ) -> torch.Tensor:
+    """float64 of sum_hi * 2^HALF + sum_lo, correctly rounded (one
+    rounding). sum_lo >= 0; carry its high bits into sum_hi first, then
+    split sum_hi into its float64 value and the rest, which with the low
+    bits is exact in float64, and add the two."""
+    hi = sum_hi + (sum_lo >> HALF)
+    lo = sum_lo & LOW
+    hf = hi.to(torch.float64)  # |hi| < 2^62: the cast back is exact
+    rest = ((hi - hf.to(torch.int64)) << HALF) + lo  # |rest| < 2^41
+    return hf * float(1 << HALF) + rest.to(torch.float64)
+
+
+def finish_float(sum_lo: torch.Tensor, sum_hi: torch.Tensor,
+                 flags: torch.Tensor, inv_scale: torch.Tensor
+                 ) -> torch.Tensor:
+    """Rescale exact fixed-point sums (`exact_to_float`) and apply IEEE
+    semantics per group from the flag bits (1: some +inf, 2: some -inf, 4:
+    some NaN): inf + finite = inf, inf + -inf or any NaN = NaN."""
+    s = exact_to_float(sum_lo, sum_hi) * inv_scale
     # the value of each flag combination; fill_ keeps it capturable
     ieee = torch.full((8,), float("nan"), dtype=torch.float64,
                       device=s.device)
@@ -189,7 +203,8 @@ def accumulate_plain(items: Items, gid: torch.Tensor, num_groups: int
                         for bit, cls in enumerate((torch.isposinf(x),
                                                    torch.isneginf(x),
                                                    torch.isnan(x))))
-            rows += [add(torch.where(m, q, 0)), add(m), flags]
+            rows += [add(torch.where(m, q & LOW, 0)),
+                     add(torch.where(m, q >> HALF, 0)), add(m), flags]
             scales.append(inv)
     inv_scale = (torch.stack(scales) if scales
                  else torch.zeros(0, dtype=torch.float64, device=dev))
@@ -243,7 +258,7 @@ def accumulate_kernel(items: Items, gid: torch.Tensor, num_groups: int
                 (ctypes.c_void_p * k)(*[None if v is None else v.data_ptr()
                                         for v, _ in pl]),
                 (ctypes.c_void_p * k)(*[ok.data_ptr() for _, ok in pl]),
-                frac_bits(n), out[row].data_ptr(),
+                out[row].data_ptr(),
                 fmax[fl:].data_ptr() if fl < n_float else None,
                 inv_scale[fl:].data_ptr() if fl < n_float else None,
                 stream,
@@ -271,8 +286,8 @@ def fixed_point(items: Items, gid: torch.Tensor, num_groups: int,
         elif kind in (I64, I32):
             out.append((rows[r], rows[r + 1]))
         else:
-            out.append((finish_float(rows[r], rows[r + 2], inv_scale[f]),
-                        rows[r + 1]))
+            out.append((finish_float(rows[r], rows[r + 1], rows[r + 3],
+                                     inv_scale[f]), rows[r + 2]))
             f += 1
         r += ROWS[kind]
     return out

@@ -13,6 +13,9 @@ draws, since vectorizing them would change the stream.
 specification v3.0.1, 4.2.5). With tpch_mini's ratios, lineitem, orders and
 customer have SF1's cardinalities; supplier (15,003 rows) and part (300,060)
 are 1.5x SF1's and partsupp (600,120, two suppliers per part) is 0.75x.
+`n_li = SF10_LINEITEM` is scale factor 10's lineitem count (the same
+table of the specification), with the same ratios: orders 14,996,513 rows
+(capacity 2^24), lineitem at capacity 2^26.
 
     tables = generate(1 << 11)
     session = Session(device="cuda")
@@ -34,6 +37,7 @@ from query_engine_tpu_torch.core.types import DataType
 
 SEED = 19920521
 SF1_LINEITEM = 6_001_215
+SF10_LINEITEM = 59_986_052
 EPOCH = datetime.date(1970, 1, 1)
 
 

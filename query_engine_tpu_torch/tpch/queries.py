@@ -282,6 +282,9 @@ SUBQUERY_FREE = tuple(q for q in QUERIES if q not in WITH_SUBQUERIES)
 # 2.4.11.3) in place of tpch_mini's 0.01, which no part reaches at SF1
 Q11_SF1 = QUERIES["Q11"].replace("* 0.01 ", "* 0.0001 ")
 assert Q11_SF1 != QUERIES["Q11"]
+# the same at scale factor 10 (0.0001 / 10)
+Q11_SF10 = QUERIES["Q11"].replace("* 0.01 ", "* 0.00001 ")
+assert Q11_SF10 != QUERIES["Q11"]
 
 # Q6 and Q14 with every date literal one year later
 SHIFTED = {

@@ -145,16 +145,21 @@ def _round2(x: float) -> float:
     return math.copysign(math.floor(abs(x) * 100.0 + 0.5) / 100.0, x)
 
 
-def _f2_avgs(T):
+def _f2_avgs(T, exact_sums=False):
     o = T["orders"]
     q, code = np.unique(_quarter_start(o.o_orderdate), return_inverse=True)
     cnt = np.bincount(code)
-    avg = np.bincount(code, weights=o.o_totalprice) / cnt
+    if exact_sums:  # each group's sum correctly rounded
+        order = np.argsort(code, kind="stable")
+        parts = np.split(o.o_totalprice[order], np.cumsum(cnt)[:-1])
+        avg = np.array([math.fsum(p) for p in parts]) / cnt
+    else:
+        avg = np.bincount(code, weights=o.o_totalprice) / cnt
     return o, q, code, cnt, avg
 
 
-def f2(T):
-    o, q, code, cnt, avg = _f2_avgs(T)
+def f2(T, exact_sums=False):
+    o, q, code, cnt, avg = _f2_avgs(T, exact_sums)
     dev = np.zeros(len(q))
     np.maximum.at(dev, code, np.abs(o.o_totalprice - 150000.0))
     r = np.bincount(code, weights=o.o_orderkey % 7).astype(np.int64)
@@ -221,9 +226,18 @@ def f5(T):
 ORACLES = {"F1": f1, "F2": f2, "F3": f3, "F4": f4, "F5": f5, "F6": q1}
 
 
-def run(query: str, tables: Dict[str, HostTable]) -> list:
-    """The oracle's rows of one query over the tables of data.generate."""
-    return ORACLES[query]({k: _T(v) for k, v in tables.items()})
+def run(query: str, tables: Dict[str, HostTable],
+        exact_sums: bool = False) -> list:
+    """The oracle's rows of one query over the tables of data.generate.
+    With `exact_sums`, F2's averages divide each group's correctly rounded
+    sum (math.fsum), as the card's exact fixed-point sums give it, in place
+    of numpy's float64 summation (the JAX package's CPU path sums the same
+    way): where a group's mean lies on a tie of ROUND(., 2), only the
+    exact sum decides it the way exact arithmetic does."""
+    T = {k: _T(v) for k, v in tables.items()}
+    if query == "F2":
+        return f2(T, exact_sums)
+    return ORACLES[query](T)
 
 
 def compare(query: str, got: list, want: list, rtol: float = RTOL) -> float:

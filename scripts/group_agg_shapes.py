@@ -8,6 +8,11 @@ as the engine calls them:
                 one int64 SUM and COUNT(*)
   Q1            TPC-H Q1's: 2^23 rows, 4 of 128 slots, one int64 and three
                 float64 items and COUNT(*)
+  Q1_two_words  Q1's items with each float item as two (`two_words`: hi
+                and lo, each summed in fixed point), where the checkout
+                has `two_words`: one word per item made as precise as two
+  G32768        2^23 rows over 32768 groups, one int64 and one float64
+                item (chip_smoke.py phase 1's "32768 groups")
   seg_*         the segment route at 2^23 slots (Q3, Q9, Q10: keys with no
                 static bound): SUM(float64) and COUNT(*), ids in sorted
                 runs of 1-7 rows (Q3's lineitem rows by l_orderkey) and
@@ -99,7 +104,21 @@ def group_agg_cases(dev):
         np.repeat(np.arange(n), rng.integers(1, 8, n))[:n]).to(dev)
     live175 = torch.from_numpy(rng.integers(0, 175, n)).to(dev)
     x, x_ok = torch.from_numpy(rng.random(n) * 1e5).to(dev), ok_plane(0.5)
-    return ga, {
+    gid_g = torch.from_numpy(rng.integers(0, 32768, n).astype(np.int32)).to(
+        dev)
+    items_g = [(torch.from_numpy(rng.integers(50_000, 151_000, n)).to(dev),
+                ok_plane()),
+               (torch.from_numpy(rng.normal(0.0, 1e7, n)).to(dev),
+                ok_plane())]
+
+    def two_words_q1():
+        split = [items_q1[0]]
+        for v, ok in items_q1[1:]:
+            hi, lo = ga.two_words(v, ok)
+            split += [(hi, ok), (lo, ok)]
+        return as_engine(split, star_q1, gid_q1, 128)
+
+    cases = {
         "A": lambda: as_engine(items_a, star_a, gid_a, 2048),
         "Q1": lambda: as_engine(items_q1, star_q1, gid_q1, 128),
         "seg_runs_sum": lambda: K.segment_aggregate("sum", x, x_ok, runs, n,
@@ -110,7 +129,12 @@ def group_agg_cases(dev):
             "count_star", x, x_ok, runs, n, n),
         "seg_175_count_star": lambda: K.segment_aggregate(
             "count_star", x, x_ok, live175, n, n),
+        "G32768": lambda: ga.grouped_sums_counts_multi(items_g, gid_g,
+                                                       32768),
     }
+    if hasattr(ga, "two_words"):
+        cases["Q1_two_words"] = two_words_q1
+    return ga, cases
 
 
 def onehot_cases(dev):

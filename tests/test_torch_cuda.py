@@ -162,6 +162,95 @@ def test_more_items_than_one_launch_takes(cuda_device):
     assert torch.equal(rows, want) and torch.equal(inv, want_inv)
 
 
+def _float_plane(rng, n, device):
+    """TPC-H-like amounts of both signs, ~2 % of rows not ok."""
+    x = (np.round(rng.uniform(900, 105000, n), 2)
+         - np.round(rng.uniform(1, 1000, n), 2) * rng.integers(1, 51, n))
+    return (torch.from_numpy(x).to(device),
+            torch.from_numpy(rng.random(n) < 0.98).to(device))
+
+
+@pytest.mark.parametrize("log2_n", [24, 26])
+def test_float_items_at_large_capacity_equal_plain(cuda_device, log2_n):
+    """Float items (float64 and float32) and an int64 item in planes of
+    2^24 and 2^26 rows (Q9's 175 live groups of 2^23 slots): the kernel's
+    rows, sum_lo and sum_hi among them, equal `accumulate_plain` bit for
+    bit."""
+    rng = np.random.default_rng(log2_n)
+    n = 1 << log2_n
+    x, ok = _float_plane(rng, n, cuda_device)
+    items = [(x, ok), (x.to(torch.float32), ok),
+             (torch.from_numpy(rng.integers(1, 51, n)).to(cuda_device), ok)]
+    gid = torch.from_numpy(rng.integers(0, 175, n)).to(cuda_device)
+    rows, inv = group_agg.accumulate_kernel(items, gid, 1 << 23)
+    want, want_inv = group_agg.accumulate_plain(items, gid, 1 << 23)
+    assert rows.shape == (4 + 4 + 2, 1 << 23)
+    assert torch.equal(rows, want) and torch.equal(inv, want_inv)
+
+
+def test_q1_eight_items_equal_plain(cuda_device):
+    """Q1's launch: SUM(l_quantity), SUM(l_extendedprice), SUM(disc_price),
+    SUM(charge), AVG(l_quantity)'s and AVG(l_discount)'s sums, AVG's
+    count and COUNT(*) over 4 of 128 slots at 2^23 rows."""
+    rng = np.random.default_rng(8)
+    n = 1 << 23
+    ok = torch.from_numpy(rng.random(n) < 0.98).to(cuda_device)
+    qty = torch.from_numpy(rng.integers(1, 51, n)).to(cuda_device)
+    ep = torch.from_numpy(np.round(rng.uniform(900, 105000, n), 2))
+    disc = torch.from_numpy(np.round(rng.uniform(0, 0.1, n), 2))
+    tax = torch.from_numpy(np.round(rng.uniform(0, 0.08, n), 2))
+    ep, disc, tax = (t.to(cuda_device) for t in (ep, disc, tax))
+    items = [(qty, ok), (ep, ok), (ep * (1 - disc), ok),
+             (ep * (1 - disc) * (1 + tax), ok), (qty, ok), (disc, ok),
+             (None, ok), (None, torch.ones_like(ok))]
+    gid = torch.from_numpy(rng.integers(0, 4, n)).to(cuda_device)
+    before = group_agg.launches
+    rows, inv = group_agg.accumulate_kernel(items, gid, 128)
+    assert group_agg.launches == before + 1
+    want, want_inv = group_agg.accumulate_plain(items, gid, 128)
+    assert torch.equal(rows, want) and torch.equal(inv, want_inv)
+
+
+def test_sixteen_float_items_in_one_launch_equal_plain(cuda_device):
+    """A launch of 16 float items, the most one takes (96 shared planes:
+    the smallest shared table), over 2048 slots."""
+    rng = np.random.default_rng(16)
+    n = (1 << 20) + 5
+    items = [_float_plane(rng, n, cuda_device) for _ in range(16)]
+    items = [(x * (i + 1) if i % 2 else x.to(torch.float32), ok)
+             for i, (x, ok) in enumerate(items)]
+    gid = torch.from_numpy(rng.integers(-1, 2048, n)).to(cuda_device)
+    before = group_agg.launches
+    rows, inv = group_agg.accumulate_kernel(items, gid, 2048)
+    assert group_agg.launches == before + 1
+    want, want_inv = group_agg.accumulate_plain(items, gid, 2048)
+    assert rows.shape == (64, 2048)
+    assert torch.equal(rows, want) and torch.equal(inv, want_inv)
+
+
+@pytest.mark.parametrize("G", [8, 1 << 22])
+def test_group_of_2_20_rows_at_max_abs_equals_plain(cuda_device, G):
+    """Groups of 2^20 rows at +-max|x| (q = +-(2^62 - 2^9): the low words
+    carry) and all negative, in the shared table (G = 8) and past it in
+    device memory (G = 2^22, the groups at its top): rows bit for bit the
+    plain version's, and the sums exact."""
+    rng = np.random.default_rng(20)
+    m = 1 << 20
+    M = 1024 - 2.0 ** -43
+    x = np.concatenate([np.full(m, M), np.full(m, -M),
+                        -rng.uniform(0.0, M, m)])
+    gid = np.repeat(np.array([G - 3, G - 2, G - 1]), m)
+    perm = rng.permutation(3 * m)
+    items = [(torch.from_numpy(x[perm]).to(cuda_device),
+              torch.ones(3 * m, dtype=torch.bool, device=cuda_device))]
+    gid = torch.from_numpy(gid[perm]).to(cuda_device)
+    rows, inv = group_agg.accumulate_kernel(items, gid, G)
+    want, want_inv = group_agg.accumulate_plain(items, gid, G)
+    assert torch.equal(rows, want) and torch.equal(inv, want_inv)
+    (s, _), = group_agg.grouped_sums_counts_multi(items, gid, G)
+    assert s[G - 3].item() == m * M and s[G - 2].item() == -m * M
+
+
 def test_segment_aggregate_on_card_equals_plain_route(cuda_device):
     """segment_aggregate on the card (one group_agg launch per aggregate)
     gives the bits of the card's route with the plain accumulator."""

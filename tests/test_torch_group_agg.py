@@ -6,13 +6,15 @@ before the kernel read its items where they lie.
 Inputs come from numpy with a fixed seed. Integer results must match
 exactly. Float sums: the JAX kernel sums dynamic-scale fixed point, the
 port's CPU path sums float64; they agree to rtol 1e-9 with atol
-max|x| * 1e-9 (fixed-point rounding of ~n * max|x| * 2^-40 against float64
-round-off — the bound tests/test_pallas_kernels.py uses). The card's route
-(`fixed_point` with `accumulate_plain`) must give the same bits as the
-stacked-plane route it replaced (`_stacked_route` below).
+max|x| * 1e-9 (the JAX kernel's fixed-point rounding of ~n * max|x| * 2^-40
+against float64 round-off — the bound tests/test_pallas_kernels.py uses).
+The card's route (`fixed_point` with `accumulate_plain`) must give the same
+bits as the stacked-plane route it replaced (`_stacked_route` below), with
+a float item's q stacked as its two halves.
 """
 
 import functools
+import math
 
 import jax.numpy as jnp
 import numpy as np
@@ -189,8 +191,9 @@ def _flags(n_pos, n_neg, n_nan):
 
 def _stacked_route(items, gid, num_groups):
     """The card's route before this design: every item stacked into int64
-    planes (a float as q and three flag columns, COUNT(*) as a plane of
-    ones), one accumulate, then the same rescale."""
+    planes (a float as the low and high halves of q and three flag
+    columns, COUNT(*) as a plane of ones), one accumulate, then the same
+    rescale."""
     gid32 = gid.to(torch.int32)
     vals, oks, layout = [], [], []
     for v, ok in items:
@@ -201,8 +204,9 @@ def _stacked_route(items, gid, num_groups):
             q, inv = tga.quantize(v, ok)
             x = v.to(torch.float64)
             layout[-1] = (len(vals), inv)
-            vals += [q, q, q, q]
-            oks += [ok, ok & torch.isposinf(x), ok & torch.isneginf(x),
+            lo, hi = q & tga.LOW, q >> tga.HALF
+            vals += [lo, hi, lo, lo, lo]
+            oks += [ok, ok, ok & torch.isposinf(x), ok & torch.isneginf(x),
                     ok & torch.isnan(x)]
         else:
             vals.append(v.to(torch.int64))
@@ -210,8 +214,8 @@ def _stacked_route(items, gid, num_groups):
     sums, counts = _stacked_accumulate(gid32, torch.stack(vals),
                                        torch.stack(oks), num_groups)
     return [(sums[c], counts[c]) if inv is None else
-            (tga.finish_float(sums[c], _flags(*counts[c + 1:c + 4]), inv),
-             counts[c])
+            (tga.finish_float(sums[c], sums[c + 1],
+                              _flags(*counts[c + 2:c + 5]), inv), counts[c])
             for c, inv in layout]
 
 
@@ -274,11 +278,13 @@ def test_card_route_same_bits_as_stacked_route(case, gid_dtype):
 @pytest.mark.parametrize("case", ROUTE_CASES)
 def test_plain_contract_rows(case):
     """The [R, G] rows of `accumulate_plain`: one row for a COUNT item, sum
-    and count for an integer item, sum_q, count and flag bits for a float
-    item, and one inverse scale per float item."""
+    and count for an integer item, sum_lo, sum_hi, count and flag bits for
+    a float item, and one inverse scale per float item. A float item's
+    sum_hi * 2^32 + sum_lo is the exact sum of its q = rint(x * 2^k), k =
+    62 - e for max|x| < 2^e, checked with Python ints."""
     gid, items, G = _route_case(case, seed=1)
     rows, inv = tga.accumulate_plain(items, gid, G)
-    assert rows.shape == (1 + 2 + 2 + 3 + 3 + 2, G)
+    assert rows.shape == (1 + 2 + 2 + 4 + 4 + 2, G)
     assert rows.dtype == torch.int64 and inv.shape == (2,)
     g = gid.numpy()
     in_range = (g >= 0) & (g < G)
@@ -287,5 +293,19 @@ def test_plain_contract_rows(case):
     x, ok = items[3][0].numpy(), items[3][1].numpy() & in_range
     for bit, cls in enumerate((np.isposinf(x), np.isneginf(x), np.isnan(x))):
         has = np.bincount(g[ok & cls], minlength=G) > 0
-        np.testing.assert_array_equal((rows[7].numpy() >> bit) & 1, has)
-    assert int(rows[7].max()) <= 7
+        np.testing.assert_array_equal((rows[8].numpy() >> bit) & 1, has)
+    assert int(rows[8].max()) <= 7
+    np.testing.assert_array_equal(rows[7].numpy(),
+                                  np.bincount(g[ok], minlength=G))
+    fin = ok & np.isfinite(x)
+    e = math.frexp(float(np.abs(x[items[3][1].numpy()
+                                  & np.isfinite(x)]).max()))[1]
+    k = 62 - e
+    assert float(inv[0]) == 2.0 ** -k
+    exact = [0] * G
+    for gi, xi in zip(g[fin], x[fin]):
+        exact[gi] += round(float(xi) * 2.0 ** k)
+    assert all(0 <= lo < 2**63 for lo in rows[5].tolist())
+    got = [hi * 2**32 + lo for lo, hi in zip(rows[5].tolist(),
+                                             rows[6].tolist())]
+    assert got == exact

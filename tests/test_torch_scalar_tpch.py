@@ -89,7 +89,9 @@ def test_card_route_matches_oracle(host_tables, q, monkeypatch):
     monkeypatch.setattr(group_agg, "accumulate_kernel", kernel)
     s = _session(host_tables, "graphs")
     got = s.sql(scalar.QUERIES[q]).to_pylist()
-    scalar.compare(q, got, scalar.run(q, host_tables))
+    # the card's float sums are exact: its F2 rounds a tied mean as exact
+    # arithmetic does (group 26 of this data lies 1.5e-13 above a tie)
+    scalar.compare(q, got, scalar.run(q, host_tables, exact_sums=True))
     assert launches or q not in scalar.GROUP_AGG
 
 

@@ -86,8 +86,10 @@ def _ids(rng, case, G):
 
 def _before(func, data_, valid, gid, G):
     """The card's route before: int64 index_add_ for counts and integer
-    sums; for float sums q = round(x * 2^k) summed in int64 with +inf, -inf
-    and NaN counts, then rescaled."""
+    sums; for float sums q = round(x * 2^k), its low and high 32 bits
+    summed in int64 apart, with +inf, -inf and NaN counts; each group's
+    exact sum of q rebuilt as a Python int, rounded once to float64 and
+    rescaled."""
     def seg(v):
         ok = (gid >= 0) & (gid < G)
         out = torch.zeros(G, dtype=torch.int64)
@@ -102,7 +104,10 @@ def _before(func, data_, valid, gid, G):
     if data_.is_floating_point():
         q, inv = tga.quantize(data_, ok)
         x = data_.to(torch.float64)
-        s = seg(torch.where(ok, q, 0)) * inv
+        lo = seg(torch.where(ok, q & 0xFFFFFFFF, 0)).tolist()
+        hi = seg(torch.where(ok, q >> 32, 0)).tolist()
+        s = torch.tensor([float(h * 2**32 + w) for w, h in zip(lo, hi)],
+                         dtype=torch.float64) * inv
         p, ng, nn = (seg(ok & cls(x)) > 0 for cls in (
             torch.isposinf, torch.isneginf, torch.isnan))
         s = torch.where(p & ~ng, float("inf"), s)
