@@ -346,13 +346,50 @@ Phase 18 runs TPC-H at scale factor 10 (59,986,052 lineitem rows, capacity
          median ms, host syncs, captures per warm query, the first run's
          stats (joins demoted and counted), group_agg launches, the largest
          relative error, the allocated and reserved memory after it and
-         the cached programs; Q9's and F1's error by float column; Q1, Q6
+         the cached programs, the out-of-memory reruns and graphs
+         released on the first and per warm run, and a census of what
+         holds the allocated memory (`memory_census`: the tables, the
+         live graphs' outputs and inputs, other fields of the cached
+         programs, the rest of the Session, other CUDA tensors, no
+         tensor); Q9's and F1's error by float column; Q1, Q6
          and Q9 profiled once for their kernel ms; the rows' margins to
          their thresholds; the peak allocated and reserved memory. Fails
          on any row that differs from its oracle, unless group_agg
          launched (and was held) in each query of TPCH_GROUP_AGG and in F1
-         and F6, or if `index_add_` ran on the card. The Session and its
-         tables are freed at the end.
+         and F6, if `index_add_` ran on the card, or if a first or warm
+         run ran out of memory and was run again. Its Session and tables
+         stay for phase 19.
+Phase 19 runs phases 8-10's and 15's statements at SF10 on phase 18's
+         Session and tables, after its 24 statements: tpch/windows.py's
+         W1-W6, D1, S1-S3 and X1, tpch/scalar.py's F2-F5, tpch/ordered.py's
+         O1-O6 with O4a/b and O5a/b, and tpch/count_emit.py's J1-J4c, G1a
+         and G1b (Q3 and Q10 are phase 18's), texts as at SF1. Each
+         statement is held against its numpy oracle (computed once) on its
+         first run and SF10_WARM warm runs: the window queries within
+         `windows.allowance` plus rtol 1e-9, the rest at rtol 1e-9 with
+         integers, strings and dates exact. Per statement it prints the
+         rows, first-run ms, warm median ms, host syncs, captures per warm
+         query, group_agg launches, oracle seconds, out-of-memory reruns,
+         graphs released in first and warm runs, the allocated and reserved
+         memory after it and the census; for W2-W5 the largest float error
+         against its allowance; W1 and J1 profiled once; the phase's
+         seconds and peak memory. Fails as phases 8-10 and 15 do (a
+         Window, Distinct or SetOp node as an eager leaf but S3's, a float
+         window sum whose bits differ between warm runs, F2-F5's eager
+         leaves or warm recaptures, O6 short of 50 rounds, a count→emit
+         join demoted, run as an eager leaf, not counted or not reusing
+         the count's sort or grouping, a warm recompile, group_agg not
+         launched where it launched at SF1, an unheld group_agg call,
+         `index_add_` on the card), except that J1, a static emit at SF1,
+         must be counted at SF10: lineitem's capacity 2^26 times its
+         multiplicity 2 passes the pipeline's _MAX_EMIT, as in the
+         reference. Fails on any out-of-memory rerun. Then the Session
+         and tables are freed, and the allocated memory must come within
+         SF10_FREED_SLACK of phase 18's start.
+
+After each of phases 11-17 a line gives the device memory still allocated
+with that phase's Sessions freed, and past 64 MiB the largest CUDA tensors
+left and what holds them (`phase_memory`).
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after; a kernel of the path that was not launched fails the run.
@@ -4798,6 +4835,172 @@ def _to_mib(n):
     return n / 2**20
 
 
+# the census never walks into these: they reach everything else
+_CENSUS_STOP = ("Session", "QueryExecutor", "CompiledPipeline", "Evaluator")
+
+
+def _cuda_storages(roots, skip=()):
+    """{storage address: bytes} of the CUDA tensors reachable from `roots`
+    through lists, tuples, dicts, sets and the port's own objects (not
+    through a Session, executor, pipeline or evaluator), the ids in `skip`
+    left out."""
+    import gc
+
+    import torch
+
+    out, seen = {}, set(skip)
+    stack = list(roots)
+    while stack:
+        o = stack.pop()
+        if id(o) in seen:
+            continue
+        seen.add(id(o))
+        if isinstance(o, torch.Tensor):
+            if o.is_cuda:
+                s = o.untyped_storage()
+                out[s.data_ptr()] = s.nbytes()
+            continue
+        if isinstance(o, dict):
+            stack.extend(o.keys())
+            stack.extend(o.values())
+        elif isinstance(o, (list, tuple, set, frozenset)):
+            stack.extend(o)
+        elif (type(o).__module__ or "").startswith("query_engine_tpu_torch") \
+                and type(o).__name__ not in _CENSUS_STOP:
+            stack.extend(gc.get_referents(o))
+    return out
+
+
+def _gc_cuda_storages(with_tensor=False):
+    """The storages of every CUDA tensor the collector tracks (with the
+    tensor), after a collection."""
+    import gc
+    import warnings
+
+    import torch
+
+    gc.collect()
+    out = []
+    with warnings.catch_warnings():
+        # isinstance() on some of torch's module objects warns
+        warnings.simplefilter("ignore")
+        for o in gc.get_objects():
+            if isinstance(o, torch.Tensor) and o.is_cuda:
+                s = o.untyped_storage()
+                out.append((s, o) if with_tensor else s)
+    return out
+
+
+def memory_census(sess):
+    """What holds the card's allocated memory, in MiB, each byte counted
+    once in the first holder of this order: the registered tables' planes;
+    the live graphs' outputs and the inputs they read (a captured entry's
+    `outputs`, `planes`, `xfer`, row-count and literal buffers); anything
+    else the pipeline's cached entries reach; the rest of the Session (its
+    executor's caches and memos); other CUDA tensors the collector knows;
+    and what no tensor accounts for (the rest of memory_allocated)."""
+    import torch
+
+    ex = sess.executor
+    pipe = ex.pipeline
+    entries = list(pipe._cache.values())
+    live = [e for e in entries if e.graph is not None]
+    parts = [
+        ("tables", [s._batch for s in sess.sources.values()
+                    if getattr(s, "_batch", None) is not None], ()),
+        ("graphs", [(e.outputs, e.planes, e.xfer, e.n_bufs, e.dyn_bufs)
+                    for e in live], ()),
+        ("entries", entries, ()),
+        ("session", [vars(sess), vars(ex), vars(pipe),
+                     vars(ex.evaluator)], (id(pipe._cache),)),
+    ]
+    counted, out = {}, {}
+    for name, roots, skip in parts:
+        found = _cuda_storages(roots, skip)
+        new = {p: n for p, n in found.items() if p not in counted}
+        counted.update(new)
+        out[name] = _to_mib(sum(new.values()))
+    other = {}
+    for s in _gc_cuda_storages():
+        if s.data_ptr() not in counted:
+            other[s.data_ptr()] = s.nbytes()
+    out["other_tensors"] = _to_mib(sum(other.values()))
+    out["no_tensor"] = (_to_mib(torch.cuda.memory_allocated())
+                        - sum(out.values()))
+    out["programs"] = len(entries)
+    out["live_graphs"] = len(live)
+    return {k: round(v, 1) if isinstance(v, float) else v
+            for k, v in out.items()}
+
+
+def _holder_chain(obj, skip, depth=8):
+    """What keeps `obj` alive, nearest first: each referrer's type (a
+    dict's key that holds the step before; a module's global by name),
+    frames and the ids in `skip` left out."""
+    import gc
+    import types
+
+    # plain loops: a closure over `obj` would itself refer to it
+    chain, skip = [], set(skip)
+    for _ in range(depth):
+        refs = gc.get_referrers(obj)
+        skip.add(id(refs))
+        r = None
+        for x in refs:
+            if id(x) not in skip and not isinstance(x, types.FrameType):
+                r = x
+                break
+        del refs, x
+        if r is None:
+            break
+        if isinstance(r, dict):
+            key = None
+            for k, v in r.items():
+                if v is obj:
+                    key = k
+                    break
+            if "__builtins__" in r:  # a module's globals
+                chain.append(f"module {r.get('__name__')}.{key}")
+                break
+            chain.append(f"dict[{key!r}]" if isinstance(key, str)
+                         else "dict")
+        else:
+            chain.append(type(r).__name__)
+        obj = r
+    return chain
+
+
+def leftover_tensors(top=5):
+    """The largest CUDA tensors the collector still knows: (MiB, shape,
+    dtype, what holds it, nearest first)."""
+    found = {}
+    for s, o in _gc_cuda_storages(with_tensor=True):
+        found.setdefault(s.data_ptr(), (s.nbytes(), o))
+    skip = {id(found)} | {id(v) for v in found.values()}
+    rows = []
+    for n, t in sorted(found.values(), key=lambda x: -x[0])[:top]:
+        rows.append((round(_to_mib(n), 1), tuple(t.shape), str(t.dtype),
+                     _holder_chain(t, skip | {id(rows)})))
+    return rows
+
+
+def phase_memory(tag):
+    """After a phase: the allocated device memory with its Sessions freed,
+    and, past 64 MiB, the largest CUDA tensors left and their holders."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    after = torch.cuda.memory_allocated()
+    left = leftover_tensors() if after > 64 << 20 else []
+    print(f"after phase {tag}: {_to_mib(after):.0f} MiB allocated"
+          + (f"; largest CUDA tensors left (MiB, shape, dtype, holders) "
+             f"{left}" if left else ""))
+    return _to_mib(after)
+
+
 def sf10_statements():
     """(name, text, oracle(tables), compare(rows, want)) of phase 18: the
     22 TPC-H queries (Q11 with TPC-H's FRACTION for SF10), then F1 and F6
@@ -4820,10 +5023,11 @@ def sf10_statements():
     return out
 
 
-def phase18():
+def phase18(hold=None):
     """The 22 TPC-H queries and F1, F6 at scale factor 10 through one
     Session(device="cuda"), each against the numpy oracle on its first run
-    and SF10_WARM warm runs."""
+    and SF10_WARM warm runs. With a list `hold`, the host tables and the
+    Session are appended to it for phase 19 and not freed here."""
     import gc
 
     import torch
@@ -4907,6 +5111,7 @@ def phase18():
         torch.cuda.synchronize()
         alloc, reserved = (_to_mib(torch.cuda.memory_allocated()),
                            _to_mib(torch.cuda.memory_reserved()))
+        census = memory_census(sess)
         err = max(errs)
         out[q] = {"rows": len(rows), "ms": ms, "first_ms": first_ms,
                   "syncs": syncs, "first_syncs": first_syncs,
@@ -4922,7 +5127,12 @@ def phase18():
                   "index_add_kernels": kernel_names(names, "indexFunc"),
                   "index_add_calls": spy.calls,
                   "allocated_mib": alloc, "reserved_mib": reserved,
-                  "cache_entries": len(pipe._cache)}
+                  "cache_entries": len(pipe._cache),
+                  "oom_retries": first.get("oom_retries", 0),
+                  "warm_oom_retries": warm.get("oom_retries", 0),
+                  "graphs_released": first.get("graphs_released", 0),
+                  "warm_graphs_released": warm.get("graphs_released", 0),
+                  "census_mib": census}
         profiled = ("" if busy is None else
                     f"; one profiled warm run: {busy:.3f} ms of kernel time "
                     f"in {wall:.3f} ms wall, group_agg kernels "
@@ -4940,6 +5150,11 @@ def phase18():
               f"index_add_ calls {spy.calls}; after it {alloc:.0f} MiB "
               f"allocated, {reserved:.0f} MiB reserved, "
               f"{len(pipe._cache)} cached programs{profiled}")
+        print(f"phase 18: {q}: out-of-memory reruns {out[q]['oom_retries']} "
+              f"first, {out[q]['warm_oom_retries']:g} per warm run; graphs "
+              f"released {out[q]['graphs_released']} first, "
+              f"{out[q]['warm_graphs_released']:g} per warm run; census MiB "
+              f"{census}")
         if q in SF10_PRECISION:
             print(f"phase 18: {q}: largest relative error by float column "
                   f"{ {c: float(f'{v:.3g}') for c, v in col_err.items()} } "
@@ -4966,20 +5181,319 @@ def phase18():
     total = sum(r["ms"] for r in out.values())
     err = max((c["max_abs_err"] for calls in held.values() for c in calls),
               default=0.0)
-    del sess, pipe, tables
-    gc.collect()
-    torch.cuda.empty_cache()
     seconds = time.perf_counter() - t_phase
     print(f"phase 18: {len(out)} statements at SF10: {total:.1f} ms in all "
           f"(sum of the warm medians); peak {peak['allocated_mib']:.0f} MiB "
           f"allocated, {peak['reserved_mib']:.0f} MiB reserved; "
-          f"{_to_mib(torch.cuda.memory_allocated()):.0f} MiB allocated after "
-          f"the Session is freed; generation {gen_s:.2f} s, registration "
-          f"{reg_s:.2f} s; the phase took {seconds:.1f} s [{card}]")
-    return {"queries": out, "launches": {q: r["group_agg"]
-                                         for q, r in out.items()},
-            "max_abs_err": err, "peak": peak, "seconds": seconds,
-            "table_mib": table_mib}
+          f"generation {gen_s:.2f} s, registration {reg_s:.2f} s; the phase "
+          f"took {seconds:.1f} s [{card}]")
+    result = {"queries": out, "launches": {q: r["group_agg"]
+                                           for q, r in out.items()},
+              "max_abs_err": err, "peak": peak, "seconds": seconds,
+              "table_mib": table_mib, "mem0": mem0}
+    del pipe
+    if hold is not None:
+        sf10_checks(out, "phase 18")
+        hold.extend([tables, sess])
+        return result
+    del tables, sess
+    result["freed"] = sf10_freed("phase 18", mem0)
+    sf10_checks(out, "phase 18")
+    return result
+
+
+# the allocated memory a freed SF10 Session may leave above the phase's
+# start (the allocator's rounding, the built kernels' buffers)
+SF10_FREED_SLACK = 256 << 20
+
+
+def sf10_freed(tag, mem0):
+    """After the SF10 Session and tables are dropped by their holders: the
+    allocated memory against `mem0`, the phase's start, and the largest
+    CUDA tensors still alive. Fails past SF10_FREED_SLACK."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    after = torch.cuda.memory_allocated()
+    left = leftover_tensors()
+    card = card_label()
+    print(f"{tag}: {_to_mib(after):.0f} MiB allocated after the SF10 "
+          f"Session is freed, {_to_mib(mem0):.0f} MiB at the start of phase "
+          f"18 ({_to_mib(after - mem0):+.0f} MiB); largest CUDA tensors "
+          f"left (MiB, shape, dtype, referrers) {left} [{card}]")
+    check(after - mem0 <= SF10_FREED_SLACK, f"{tag}: the freed SF10 "
+          f"Session left {_to_mib(after - mem0):.0f} MiB allocated above the "
+          "phase's start")
+    return {"allocated_mib": _to_mib(after), "mem0_mib": _to_mib(mem0),
+            "left": left}
+
+
+def sf10_checks(out, tag):
+    """No statement of an SF10 phase ran out of device memory (a rerun
+    after every cached graph was released) on its first or a warm run."""
+    oom = {q: (r["oom_retries"], r["warm_oom_retries"])
+           for q, r in out.items()
+           if r["oom_retries"] or r["warm_oom_retries"]}
+    check(not oom, f"{tag}: out-of-memory reruns (first, per warm run): "
+          f"{oom}")
+
+
+# phase 19: the statements whose float window error is printed against its
+# allowance, and those profiled once (a warm run each)
+SF10_WINDOW_ERRORS = ("W2", "W3", "W4", "W5")
+SF10_MORE_PROFILED = ("W1", "J1")
+
+
+def sf10_more_statements():
+    """(group, name, text, oracle(tables), compare(rows, want)) of phase 19:
+    tpch/windows.py's eleven, tpch/scalar.py's F2-F5, tpch/ordered.py's
+    eight and tpch/count_emit.py's J1-J4c, G1a and G1b, texts as at SF1.
+    A window query's oracle returns (rows, allowance by column) and its
+    compare (largest abs error in an allowed column, largest rel error)."""
+    from query_engine_tpu_torch.tpch import count_emit as CE
+    from query_engine_tpu_torch.tpch import ordered, scalar, windows
+
+    out = [("windows", q, text,
+            lambda t, q=q: (windows.run(q, t), windows.allowance(q, t)),
+            lambda rows, want, q=q: windows.compare(q, rows, *want))
+           for q, text in windows.QUERIES.items()]
+    out += [("scalar", q, scalar.QUERIES[q],
+             lambda t, q=q: scalar.run(q, t),
+             lambda rows, want, q=q: (0.0, scalar.compare(q, rows, want)))
+            for q in ("F2", "F3", "F4", "F5")]
+    out += [("ordered", q, text, lambda t, q=q: ordered.run(q, t),
+             lambda rows, want, q=q: (0.0, ordered.compare(q, rows, want)))
+            for q, text in ordered.QUERIES.items()]
+    out += [("count_emit", q, CE.QUERIES[q], lambda t, q=q: CE.run(q, t),
+             lambda rows, want, q=q: (0.0, CE.compare(q, rows, want)))
+            for q in CE.QUERIES if q not in CE.FD_QUERIES]
+    return out
+
+
+def phase19(hold):
+    """Phases 8-10's and 15's statements at SF10 on phase 18's Session and
+    tables (`hold`: [tables, session], emptied here), each against its
+    numpy oracle on its first run and SF10_WARM warm runs."""
+    import torch
+
+    from query_engine_tpu_torch.columnar.batch import padded_capacity
+    from query_engine_tpu_torch.engine import pipeline as P
+    from query_engine_tpu_torch.tpch import count_emit as CE
+    from query_engine_tpu_torch.tpch import ordered, scalar, windows
+
+    tables, sess = hold
+    hold.clear()
+    t_phase = time.perf_counter()
+    card = card_label()
+    ex = sess.executor
+    pipe = ex.pipeline
+    timing = ("leaf_ms", "capture_ms")
+    torch.cuda.reset_peak_memory_stats()
+    li_cap = sess.sources["lineitem"]._batch.capacity
+    out, held = {}, {}
+    for group, q, text, run, compare in sf10_more_statements():
+        t0 = time.perf_counter()
+        want = run(tables)
+        oracle_s = time.perf_counter() - t0
+
+        def held_to_oracle(got, label):
+            try:
+                return compare(got, want)
+            except AssertionError as e:
+                raise CheckFailed(f"phase 19: {q} at SF10: {label} differs "
+                                  f"from the numpy oracle: {e}") from None
+
+        st0, syncs0 = dict(pipe.stats), ex.host_syncs
+        kinds0 = collections.Counter(pipe.leaf_kinds)
+        held[q] = []
+        spy = IndexAddSpy()
+        reset_counts()
+        with spy.active(), group_agg_held_against_plain(held[q], spy):
+            t0 = time.perf_counter()
+            rows = sess.sql(text).to_pylist()
+            torch.cuda.synchronize()
+            first_ms = (time.perf_counter() - t0) * 1e3
+        launches = read_counts()["group_agg"]
+        first = _stats_change(st0, pipe.stats, timing)
+        first_syncs = ex.host_syncs - syncs0
+        rounds = sess.recursion.get("iterations") if q == "O6" else None
+        err = held_to_oracle(rows, "the first run")
+        check(rows, f"phase 19: {q} at SF10 returned no rows")
+        walls, bits = [], []
+        st1, syncs1 = dict(pipe.stats), ex.host_syncs
+        for i in range(SF10_WARM):
+            t0 = time.perf_counter()
+            with spy.active():
+                batch = sess.sql(text)
+                again = batch.to_pylist()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            if q in windows.FLOAT_SUMS:
+                bits.append(_float_planes(batch))
+            if again != rows:  # else equal to the oracle as the first run
+                e = held_to_oracle(again, f"warm run {i + 1}")
+                err = (max(err[0], e[0]), max(err[1], e[1]))
+        del batch
+        ms = statistics.median(walls)
+        syncs = (ex.host_syncs - syncs1) / SF10_WARM
+        warm = {k: v / SF10_WARM
+                for k, v in _stats_change(st1, pipe.stats, timing).items()}
+        leaves = sorted(pipe.leaf_kinds - kinds0)
+        busy = wall = None
+        names = set()
+        if q in SF10_MORE_PROFILED:
+            with spy.active():
+                busy, wall, names = device_ms(sess, text)
+        torch.cuda.synchronize()
+        alloc, reserved = (_to_mib(torch.cuda.memory_allocated()),
+                           _to_mib(torch.cuda.memory_reserved()))
+        census = memory_census(sess)
+        r = out[q] = {
+            "group": group, "rows": len(rows), "first_ms": first_ms,
+            "ms": ms, "syncs": syncs, "first_syncs": first_syncs,
+            "first": first, "warm": warm,
+            "captures_per_warm_query": warm.get("captures", 0),
+            "eager_leaves": leaves, "group_agg": launches,
+            "group_agg_slots": sorted({c["groups"] for c in held[q]}),
+            "max_abs_err": err[0], "max_rel_err": err[1],
+            "allowance": want[1] if group == "windows" else {},
+            "oracle_s": oracle_s, "oom_retries": first.get("oom_retries", 0),
+            "warm_oom_retries": warm.get("oom_retries", 0),
+            "graphs_released": first.get("graphs_released", 0),
+            "warm_graphs_released": warm.get("graphs_released", 0),
+            "allocated_mib": alloc, "reserved_mib": reserved,
+            "census_mib": census, "device_ms": busy,
+            "profiled_wall_ms": wall,
+            "group_agg_kernels": kernel_names(names, "sum_count_",
+                                              "float_absmax"),
+            "index_add_kernels": kernel_names(names, "indexFunc"),
+            "index_add_calls": spy.calls, "rounds": rounds}
+        profiled = ("" if busy is None else
+                    f"; one profiled warm run: {busy:.3f} ms of kernel time "
+                    f"in {wall:.3f} ms wall, group_agg kernels "
+                    f"{r['group_agg_kernels']}")
+        print(f"phase 19: {q}: {len(rows)} rows == numpy oracle on the first "
+              f"and {SF10_WARM} warm runs (max rel err {err[1]:.3g}, oracle "
+              f"{oracle_s:.2f} s); first run {first_ms:.1f} ms, "
+              f"{first_syncs} syncs, stats {first}; {ms:.3f} ms/query median "
+              f"of {SF10_WARM} warm runs, {syncs:g} host syncs/query, "
+              f"{r['captures_per_warm_query']:g} captures/warm query, warm "
+              f"stats per query {warm}; eager leaves {leaves}; group_agg "
+              f"launches {launches} at slots {r['group_agg_slots']}, "
+              f"{len(held[q])} calls held against the plain versions; "
+              f"index_add_ calls {spy.calls}; out-of-memory reruns "
+              f"{r['oom_retries']} first, {r['warm_oom_retries']:g} per warm "
+              f"run; graphs released {r['graphs_released']} first, "
+              f"{r['warm_graphs_released']:g} per warm run; after it "
+              f"{alloc:.0f} MiB allocated, {reserved:.0f} MiB reserved, "
+              f"{len(pipe._cache)} cached programs; census MiB {census}"
+              f"{profiled} [{card}]")
+        if q in SF10_WINDOW_ERRORS:
+            allow = {c: float(f"{v:.6g}") for c, v in r["allowance"].items()}
+            share = (f" ({100 * err[0] / max(r['allowance'].values()):.3g} % "
+                     "of it)" if r["allowance"] else "")
+            print(f"phase 19: {q}: largest float window error {err[0]:.6g} "
+                  f"against the allowance by column {allow}{share}, largest "
+                  f"relative error {err[1]:.3g} [{card}]")
+        if q == "O6":
+            print(f"phase 19: O6: {rounds} rounds")
+
+        # the structural checks of phases 8-10 and 15
+        check(not spy.calls and not r["index_add_kernels"],
+              f"phase 19: {q}: index_add_ on the card ({spy.calls} calls, "
+              f"kernels {r['index_add_kernels']})")
+        check(not launches or held[q], f"phase 19: {q}: no group_agg call of "
+              "its first run was held against the plain versions")
+        if group == "windows":
+            untraced = [k for k in leaves if k in TRACED_NODES
+                        and not (k == "SetOp" and q in STRING_SETOPS)]
+            check(not untraced, f"phase 19: {q}: {untraced} ran as eager "
+                  "leaves of a compiled run")
+            if q in windows.FLOAT_SUMS:
+                check(bits[0] and all(
+                    torch.equal(a, b) for run_bits in bits[1:]
+                    for a, b in zip(bits[0], run_bits)),
+                    f"phase 19: {q}: a float window sum's bits differ "
+                    "between warm runs")
+        elif group == "scalar":
+            allowed = STRING_FN_LEAVES.get(q, ())
+            check(all(k in allowed for k in leaves), f"phase 19: {q}: "
+                  f"{leaves} ran as eager leaves of a compiled run")
+            if q in scalar.GROUP_AGG:
+                check(not warm.get("captures"),
+                      f"phase 19: {q}: a warm run captured again ({warm})")
+        elif group == "ordered" and q == "O6":
+            check(rounds == ordered.RECURSION_DEPTH,
+                  f"phase 19: O6 ran {rounds} rounds, not "
+                  f"{ordered.RECURSION_DEPTH}")
+        elif group == "count_emit":
+            check(not first.get("fallbacks") and (first.get("compiles")
+                                                   or first.get("hits")),
+                  f"phase 19: {q} did not run in the compiled pipeline: "
+                  f"{first}")
+            check(not first.get("joins_demoted"),
+                  f"phase 19: {q}: a join was demoted: {first}")
+            if q in CE.JOINS:
+                check("HashJoin" not in leaves, f"phase 19: {q}: its join "
+                      f"ran as an eager leaf: {leaves}")
+            if q in CE.COUNTED:
+                check(first.get("joins_counted", 0) >= 1, f"phase 19: {q}: "
+                      f"no count program sized it: {first}")
+            if q in CE.SORT_REUSED:
+                check(first.get("join_sorts_reused", 0) >= 1,
+                      f"phase 19: {q}: the emit program did not reuse the "
+                      f"count's sort: {first}")
+            if q in CE.GROUPING_REUSED:
+                bucket = padded_capacity(len(rows))
+                check(first.get("group_sorts_reused", 0) >= 1
+                      and launches > 0 and r["group_agg_slots"] == [bucket],
+                      f"phase 19: {q}: not aggregated through group_agg at "
+                      f"padded(ng) = {bucket} slots with the count's "
+                      f"grouping: slots {r['group_agg_slots']}, {first}")
+            if not leaves:
+                check(not warm.get("captures") and not warm.get("compiles"),
+                      f"phase 19: {q}: a warm run compiled or captured "
+                      f"anew: {warm}")
+    # group_agg launches where it launched at SF1 (phases 8-10 and 15)
+    for q in (windows.GROUP_AGG
+              + tuple(q for q in scalar.GROUP_AGG if q in out)
+              + ORDERED_GROUP_AGG
+              + tuple(q for q, r in out.items() if r["group"] == "count_emit")):
+        check(out[q]["group_agg"] > 0, f"phase 19: {q} at SF10: group_agg "
+              "did not launch")
+    # J1's partsupp side has multiplicity 2: at SF1 a static emit at
+    # lineitem's capacity x 2; at SF10 that is 2^27 slots, past the
+    # pipeline's _MAX_EMIT (as the reference's), so by the same rule a
+    # count program sizes it and the emit runs at the counted rows
+    j1_counted = li_cap * 2 > P._MAX_EMIT
+    print(f"phase 19: J1: lineitem's capacity {li_cap:,} x 2 "
+          f"{'>' if j1_counted else '<='} _MAX_EMIT {P._MAX_EMIT:,}: "
+          f"{'counted' if j1_counted else 'a static emit'}; joins counted "
+          f"{out['J1']['first'].get('joins_counted', 0)}")
+    check((out["J1"]["first"].get("joins_counted", 0) >= 1) == j1_counted,
+          f"phase 19: J1 was {'not ' if j1_counted else ''}counted: "
+          f"{out['J1']['first']}")
+    for q in SF10_MORE_PROFILED:
+        check(out[q]["device_ms"] is not None,
+              f"phase 19: {q}: its profiled warm run did not run")
+    sf10_checks(out, "phase 19")
+    peak = {"allocated_mib": _to_mib(torch.cuda.max_memory_allocated()),
+            "reserved_mib": _to_mib(torch.cuda.max_memory_reserved())}
+    seconds = time.perf_counter() - t_phase
+    total = sum(r["ms"] for r in out.values())
+    oracle_s = sum(r["oracle_s"] for r in out.values())
+    by_group = collections.Counter(r["group"] for r in out.values())
+    print(f"phase 19: {len(out)} statements at SF10 ({dict(by_group)}): "
+          f"{total:.1f} ms in all (sum of the warm medians); oracles "
+          f"{oracle_s:.1f} s; peak {peak['allocated_mib']:.0f} MiB "
+          f"allocated, {peak['reserved_mib']:.0f} MiB reserved; the phase "
+          f"took {seconds:.1f} s [{card}]")
+    errs = [c["max_abs_err"] for calls in held.values() for c in calls]
+    return {"queries": out, "seconds": seconds, "peak": peak,
+            "launches": {q: r["group_agg"] for q, r in out.items()},
+            "max_abs_err": max(errs, default=0.0)}
 
 
 def hash_join_entries(hash_join, engine_hj):
@@ -5043,18 +5557,28 @@ def main():
         # phase 11 runs on a Session of its own: free the earlier ones
         del sf1_sess, tables
         session_surface = phase11(sf1_tables)
+        phase_memory("11")
         services = phase12(sf1_tables)
+        phase_memory("12")
         distributed = phase13(sf1_tables)
+        phase_memory("13")
         mesh = phase14(sf1_tables)
+        phase_memory("14")
         count_emit = phase15(sf1_tables)
+        phase_memory("15")
         mesh_sql = phase16(sf1_tables)
+        phase_memory("16")
         # nothing before phase 17 routes a join through the hash table
         engine_hj = dict(HJ.launches)
         check(not any(engine_hj.values()),
               f"phases 1-16 launched the hash join's kernels: {engine_hj}")
         hash_join = phase17()
+        phase_memory("17")
         del sf1_tables  # phase 18 holds SF10's tables alone
-        sf10 = phase18()
+        sf10_run = []  # phase 18's host tables and Session, for phase 19
+        sf10 = phase18(sf10_run)
+        sf10_more = phase19(sf10_run)
+        sf10["freed"] = sf10_freed("phases 18-19", sf10["mem0"])
     except CheckFailed as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -5075,6 +5599,7 @@ def main():
     p15 = count_emit["launches"]
     p16 = mesh_sql["launches"]
     p18 = sf10["launches"]
+    p19 = sf10_more["launches"]
     tpch_err = max((c["max_abs_err"] for calls in tpch_held.values()
                     for c in calls), default=0.0)
     print(json.dumps({"kernels": [{
@@ -5087,13 +5612,14 @@ def main():
         + sum(ordered_by_query.values()) + sum(surface_by_group.values())
         + sum(services_by_part.values()) + p13_launches
         + sum(p14.values()) + sum(p15.values()) + sum(p16.values())
-        + sum(p18.values()),
+        + sum(p18.values()) + sum(p19.values()),
         "launches_by_phase": {"4": agg_launches, "7": tpch_by_query,
                               "8": windows_by_query, "9": scalar_by_query,
                               "10": ordered_by_query,
                               "11": surface_by_group,
                               "12": services_by_part, "13": p13,
-                              "14": p14, "15": p15, "16": p16, "18": p18},
+                              "14": p14, "15": p15, "16": p16, "18": p18,
+                              "19": p19},
         "max_abs_err": max_err["plain"],
         "max_abs_err_vs_float64": {"1": max_err["float64"], "7": tpch_err,
                                    "12": services["max_abs_err"],
@@ -5101,7 +5627,8 @@ def main():
                                    "14": mesh["max_abs_err"],
                                    "15": count_emit["max_abs_err"],
                                    "16": mesh_sql["max_abs_err"],
-                                   "18": sf10["max_abs_err"]},
+                                   "18": sf10["max_abs_err"],
+                                   "19": sf10_more["max_abs_err"]},
         "ms": main_shape["ms"],
         "plain_ms": main_shape["plain_ms"],
         "bound_ms": main_shape["bound_ms"],

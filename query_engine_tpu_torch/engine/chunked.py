@@ -19,6 +19,9 @@ kept here, so the partial plan's `_Materialized` leaf has the same planes
 (and addresses) for every chunk: on CUDA the partial program is captured
 once and replayed for each chunk and each later query, where a view per
 chunk would capture a graph (with its own memory pool) for every chunk.
+When the pipeline releases a graph that reads staging planes, they are
+dropped with it (`drop_staging`) and allocated again on next use, where
+the partial program captures again.
 The copy is `cc` rows of every plane, read once and written once. The last
 chunk's row count goes through the program's row-count input; rows past it
 are masked, whatever the staging planes hold there.
@@ -69,7 +72,9 @@ class ChunkedAggregate:
         # replays made by the chunks' partial programs
         self.stats = {"queries": 0, "chunks": 0, "captures": 0,
                       "replays": 0}
-        self._staging = {}  # plane layout -> [(data, validity)] at cc rows
+        # plane layout -> [(data, validity)] at cc rows, until a graph that
+        # reads them is released
+        self._staging = {}
 
     def try_execute(self, plan: pp.PhysicalPlan) -> Optional[ColumnBatch]:
         """Returns the result, or None when the plan shape / size does not
@@ -178,6 +183,14 @@ class ChunkedAggregate:
             ]
             self._staging[key] = planes
         return planes
+
+    def drop_staging(self, planes) -> None:
+        """Forget the staging planes among `planes` (the input planes of a
+        graph the pipeline releases)."""
+        ptrs = {t.data_ptr() for pl in planes for dv in pl for t in dv}
+        for key in [k for k, st in self._staging.items()
+                    if any(d.data_ptr() in ptrs for d, _ in st)]:
+            del self._staging[key]
 
     def stage_chunk(self, batch: ColumnBatch, lo: int, cc: int, rows: int
                     ) -> ColumnBatch:

@@ -93,13 +93,14 @@ The eager executor is the semantics oracle (tests/test_torch_pipeline.py).
 from __future__ import annotations
 
 import collections
+import copy
 import gc
 import itertools
 import os
 import threading
 import time
 from dataclasses import dataclass
-from typing import List, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -932,27 +933,29 @@ class CompiledPipeline:
             self.stats["joins_counted"] += 1
 
     def _new_entry(self, plan, ctx, leaves, leaf_nodes, res, subs):
-        entry = _Entry(plan, leaves)
-        entry.leaf_ids = frozenset(map(id, leaf_nodes))
-        entry.res = res
-        entry.checks = [j for j, _, _ in ctx.checks]
+        """A cache entry for `plan`. It keeps the plan with its eager
+        leaves stood in for (`_without_leaves`) and its inputs' static
+        facts, never an input's planes: between runs only a live graph
+        holds those (`planes`, `xfer`)."""
+        skeleton, moved = _without_leaves(plan, {id(n) for n in leaf_nodes})
+        entry = _Entry(skeleton, [static_facts(b) for b in leaves])
+        entry.leaf_ids = frozenset(id(moved.get(id(n), n))
+                                   for n in leaf_nodes)
+        entry.res = {id(moved[k]) if k in moved else k: v
+                     for k, v in res.items()}
+        entry.checks = [moved.get(id(j), j) for j, _, _ in ctx.checks]
         entry.dyn_exprs = list(ctx.dyn_exprs)
         entry.sub_exprs = list(ctx.sub_exprs)
-        entry.subs = subs
-        entry.leaf_bounds = [
-            [None if (bb := _bucket_bounds(_col_bounds(c))) is None
-             or bb == ("big",) else bb for c in b.columns]
-            for b in leaves
-        ]
+        entry.sub_facts = [static_facts(b) for b in subs]
         return entry
 
     def drop_entries_reading(self, sources) -> int:
         """Drop the cached programs whose plan reads one of `sources` (the
         tables a DML or DDL statement or a ROLLBACK replaced). Such an
-        entry holds the table's old batch (`leaves`), the planes its graph
-        read and its eager leaves' batches; a new version of the table keys
-        a new entry, so without this every refresh would leave one table's
-        worth of planes reachable. Returns the number dropped."""
+        entry's plan holds the table's old source and its live graph the
+        planes it read; a new version of the table keys a new entry, so
+        without this every refresh would leave one table's worth of planes
+        reachable. Returns the number dropped."""
         ids = {id(s) for s in sources}
         dead = [k for k, e in self._cache.items()
                 if ids & _sources_read(e.plan, e.sub_exprs)]
@@ -963,10 +966,16 @@ class CompiledPipeline:
     # ---- the graphs' memory ----------------------------------------------
     def _release(self, entry) -> None:
         """Drop an entry's graph and what only the graph needed (its pool
-        with its outputs, the planes it read); the entry captures again
-        when it runs next."""
+        with its outputs, the planes it read, its row-count and literal
+        buffers), so the entry holds nothing on the device; it captures
+        again when it runs next. Chunk staging planes the graph read go
+        too (`ChunkedAggregate.drop_staging`)."""
+        if entry.planes:
+            self.executor.chunked.drop_staging(entry.planes)
         entry.graph = entry.outputs = entry.planes = entry.ptrs = None
+        entry.n_bufs = entry.dyn_bufs = None
         entry.xfer = ()
+        entry.released = True
 
     def release_graphs(self) -> int:
         """Release every cached graph; returns how many."""
@@ -1016,24 +1025,22 @@ class CompiledPipeline:
         An emit program returns (datas, valids, sel, row count); a count
         program (`entry.counts`) stops at the first node still to count
         and returns (its output size, the planes it hands over)."""
-        batches = entry.leaves + entry.subs
-        bounds = entry.leaf_bounds + [[None] * len(b.columns)
-                                      for b in entry.subs]
+        n_leaves = len(entry.leaf_facts)
         tables = [
             _TTable(
-                schema=b.schema,
-                cols=[
-                    Column(d, v, c.dtype, c.dictionary)
-                    for (d, v), c in zip(pl, b.columns)
-                ],
-                sel=K.live_mask(b.capacity, n),
-                capacity=b.capacity,
+                schema=f.schema,
+                cols=[Column(d, v, dt, dic)
+                      for (d, v), (dt, dic) in zip(pl, f.types)],
+                sel=K.live_mask(f.capacity, n),
+                capacity=f.capacity,
                 dense=True,
-                bounds=list(bd),
+                # a subquery's batch carries no bounds into the program
+                bounds=(list(f.bounds) if i < n_leaves
+                        else [None] * len(f.types)),
             )
-            for pl, n, b, bd in zip(planes, n_bufs, batches, bounds)
+            for i, (pl, n, f) in enumerate(zip(
+                planes, n_bufs, entry.leaf_facts + entry.sub_facts))
         ]
-        n_leaves = len(entry.leaves)
         ev = self.executor.evaluator
         ev._dyn_literals = {
             id(e): v for e, v in zip(entry.dyn_exprs, dyn_bufs)
@@ -1121,7 +1128,9 @@ class CompiledPipeline:
 
     def _rerun(self, entry, batches, dyn_vals, xfer=()):
         entry.used = next(self._clock)
-        if entry.n_bufs is None:  # never captured (CPU): run the body again
+        if entry.graph is None and not entry.released:
+            # never captured (the CPU, or a capture stubbed out): run the
+            # body again
             return self._body(entry, *self._inputs(batches, dyn_vals), xfer)
         planes = [[(c.data, c.validity) for c in b.columns] for b in batches]
         if entry.graph is None or _ptrs(planes, xfer) != entry.ptrs:
@@ -1131,7 +1140,7 @@ class CompiledPipeline:
             # addresses, so capture over the new ones
             self._release(entry)
             self._room_for(entry)
-            self._capture(entry, planes, entry.n_bufs, entry.dyn_bufs, xfer)
+            self._capture(entry, *self._inputs(batches, dyn_vals), xfer)
         for buf, b in zip(entry.n_bufs, batches):
             buf.fill_(b.num_rows)
         for buf, (_, v) in zip(entry.dyn_bufs, dyn_vals):
@@ -2505,6 +2514,9 @@ def _sources_read(plan, sub_exprs=()) -> set:
         if isinstance(obj, (list, tuple)):
             stack.extend(obj)
             continue
+        if isinstance(obj, _Leaf):
+            out |= obj.reads
+            continue
         if not isinstance(obj, (pp.PhysicalPlan, lp.LogicalExpr,
                                 lp.LogicalPlan)):
             continue
@@ -2532,18 +2544,79 @@ def _flat(obj):
     return [t for x in obj for t in _flat(x)]
 
 
+class _Facts(NamedTuple):
+    """What a program keeps of an input batch: its schema, capacity, each
+    column's (dtype, dictionary) and bucketed integer bounds (None where
+    there are none or too wide for direct grouping). Not its planes, so a
+    cached program keeps no first run's batch alive; the dictionary refs
+    keep the ids that `_leaf_sig` keys on unique while the program lives."""
+
+    schema: Schema
+    capacity: int
+    types: List[tuple]
+    bounds: List[Optional[tuple]]
+
+
+def static_facts(b: ColumnBatch) -> _Facts:
+    return _Facts(b.schema, b.capacity,
+                  [(c.dtype, c.dictionary) for c in b.columns],
+                  [None if (bb := _bucket_bounds(_col_bounds(c))) is None
+                   or bb == ("big",) else bb for c in b.columns])
+
+
+class _Leaf(pp.PhysicalPlan):
+    """A cached program's stand-in for one of its eager leaves: the
+    subtree's schema and the ids of the table sources it reads, not the
+    subtree (whose `_Materialized` nodes hold batches)."""
+
+    def __init__(self, schema: Schema, reads: frozenset):
+        self._schema = schema
+        self.reads = reads
+
+    def schema(self) -> Schema:
+        return self._schema
+
+
+def _without_leaves(plan, leaf_ids):
+    """`plan` with each eager leaf in `leaf_ids` but a table scan replaced
+    by a `_Leaf`: only the nodes above a replaced leaf are copied. Returns
+    (the new plan, {id(old node): its copy or stand-in})."""
+    moved = {}
+
+    def walk(node):
+        if id(node) in moved:  # a node the plan reaches twice
+            return moved[id(node)]
+        if id(node) in leaf_ids:
+            if isinstance(node, pp.PScan):
+                return node
+            moved[id(node)] = _Leaf(node.schema(),
+                                    frozenset(_sources_read(node)))
+            return moved[id(node)]
+        kids = {f: walk(c) for f in ("input", "left", "right")
+                if isinstance(c := getattr(node, f, None), pp.PhysicalPlan)}
+        if all(c is getattr(node, f) for f, c in kids.items()):
+            return node
+        new = copy.copy(node)
+        for f, c in kids.items():
+            setattr(new, f, c)
+        moved[id(node)] = new
+        return new
+
+    return walk(plan), moved
+
+
 class _Entry:
-    """A cached program: the plan segment, its leaves' static facts and,
+    """A cached program: the plan segment, its inputs' static facts and,
     on CUDA, the captured graph with the tensors it reads and writes."""
 
-    __slots__ = ("plan", "leaves", "leaf_ids", "res", "checks", "counts",
-                 "ordinal", "xfer_ords", "dyn_exprs", "sub_exprs", "subs",
-                 "leaf_bounds", "meta", "graph", "outputs", "planes", "xfer",
-                 "ptrs", "n_bufs", "dyn_bufs", "used", "need")
+    __slots__ = ("plan", "leaf_facts", "leaf_ids", "res", "checks", "counts",
+                 "ordinal", "xfer_ords", "dyn_exprs", "sub_exprs",
+                 "sub_facts", "meta", "graph", "outputs", "planes", "xfer",
+                 "ptrs", "n_bufs", "dyn_bufs", "used", "need", "released")
 
-    def __init__(self, plan, leaves):
+    def __init__(self, plan, leaf_facts):
         self.plan = plan
-        self.leaves = leaves  # holds dictionary refs so leaf ids stay unique
+        self.leaf_facts = leaf_facts  # the leaves' _Facts, in trace order
         self.leaf_ids = frozenset()
         self.res = {}
         self.checks = []      # the checked join/aggregate nodes, in order
@@ -2553,8 +2626,7 @@ class _Entry:
         # programs' planes it takes as inputs
         self.dyn_exprs = []
         self.sub_exprs = []  # subquery exprs of `plan`, traversal order
-        self.subs = []  # their first batches (schemas, dictionary refs)
-        self.leaf_bounds = []
+        self.sub_facts = []  # their batches' _Facts
         self.meta = {}
         self.graph = None     # torch.cuda.CUDAGraph once captured
         self.outputs = None   # the graph's output tensors (overwritten)
@@ -2565,6 +2637,7 @@ class _Entry:
         self.dyn_bufs = None  # literal values, 0-d, filled per call
         self.used = 0         # the pipeline's clock at its last run
         self.need = 0         # bytes of device memory its capture takes
+        self.released = False  # its graph was released (captures again)
 
 
 def compiled_enabled() -> bool:

@@ -45,6 +45,13 @@ class FlightServiceImpl(flight.FlightServerBase):
         super().__init__(location)
         self.session = session if session is not None else Session()
 
+    def shutdown(self):
+        """Stop serving, then let go of the Session: pyarrow's C++ server
+        keeps this object alive after it stops, and the Session's tables
+        on the card with it."""
+        super().shutdown()
+        self.session = None
+
     # ---- helpers ---------------------------------------------------------
     def _execute_sql(self, sql: str) -> ColumnBatch:
         with self.session.lock:

@@ -53,8 +53,8 @@ from query_engine_tpu_torch.engine.partial_agg import (
 )
 from query_engine_tpu_torch.engine.pipeline import (
     _CountReady, _SegCtx, _ShimBatch, _TRACE_ERRORS, _TTable, _Unsupported,
-    _DYN_DTYPES, _bucket_bounds, _col_bounds, _dup_bucket, _expr_key,
-    _expr_traceable, _sort_key_key, ensure_bounds,
+    _DYN_DTYPES, _dup_bucket, _expr_key,
+    _expr_traceable, _sort_key_key, ensure_bounds, static_facts,
 )
 from query_engine_tpu_torch.ops import kernels as K
 from query_engine_tpu_torch.parallel import spmd
@@ -114,15 +114,6 @@ def _slot0(val: torch.Tensor, size: int) -> torch.Tensor:
     iota = torch.arange(size, device=val.device)
     return torch.where(iota == 0, val, torch.zeros((), dtype=val.dtype,
                                                    device=val.device))
-
-
-def _static_facts(b: ColumnBatch):
-    """What a program keeps of an input batch: its schema, capacity and
-    columns' types and dictionaries (not its planes, so a replaced table's
-    planes are not kept alive by a cached program)."""
-    return (b.schema, b.capacity, [(c.dtype, c.dictionary) for c in b.columns],
-            [None if (bb := _bucket_bounds(_col_bounds(c))) is None
-             or bb == ("big",) else bb for c in b.columns])
 
 
 class _MEntry:
@@ -453,8 +444,8 @@ class MeshPipeline:
         axis = self.axis
         cp = self.cp
         ev = self.executor.evaluator
-        leaf_facts = [_static_facts(b) for b in leaves]
-        sub_facts = [_static_facts(b) for b in sub_batches]
+        leaf_facts = [static_facts(b) for b in leaves]
+        sub_facts = [static_facts(b) for b in sub_batches]
         n_leaf_cols = [len(b.columns) for b in leaves]
         n_sub_cols = [len(b.columns) for b in sub_batches]
         caps = [st.shard_capacity for st in shards]

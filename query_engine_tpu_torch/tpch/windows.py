@@ -167,11 +167,23 @@ def _run_end(start: np.ndarray) -> np.ndarray:
 
 def w1(T):
     li = T["lineitem"]
-    price = li.l_extendedprice
-    order = np.lexsort((-price, li.l_suppkey))
-    supp, p = li.l_suppkey[order], price[order]
-    seg = _segments(supp)
-    rank = _run_start(_segments(supp, p)) - _run_start(seg) + 1
+    price, supp = li.l_extendedprice, li.l_suppkey
+    # RANK() <= 3 keeps a row whose price is at least its supplier's third
+    # largest. The least of the supplier's maxima over three disjoint row
+    # sets is at most that (three rows reach it), so the rows below it go
+    # before the sort: a row that costs more than a kept row is kept too,
+    # so the ranks among the rest are the ranks over all rows
+    n_supp = int(supp.max()) + 1 if len(supp) else 0
+    bound = np.full(n_supp, np.inf)
+    for j in range(3):
+        m = np.full(n_supp, -np.inf)
+        np.maximum.at(m, supp[j::3], price[j::3])
+        bound = np.minimum(bound, m)
+    cand = np.flatnonzero(price >= bound[supp])
+    order = cand[np.lexsort((-price[cand], supp[cand]))]
+    s, p = supp[order], price[order]
+    seg = _segments(s)
+    rank = _run_start(_segments(s, p)) - _run_start(seg) + 1
     keep = rank <= 3
     rows = order[keep]
     rk = rank[keep]
@@ -255,22 +267,24 @@ def w4(T):
 
 def w5(T):
     li = T["lineitem"]
-    supp, ship = li.l_suppkey, li.l_shipdate.astype(np.int64)
-    order = np.lexsort((ship, supp))
-    key = (supp[order] << 20) | ship[order]  # dates < 2^20
-    c = np.concatenate([[0], np.cumsum(li.l_quantity[order])])
-    lo = np.searchsorted(key, key - 30, side="left")
-    hi = np.searchsorted(key, key, side="right")  # peers included
+    # one sort of (supplier, ship date, quantity) packed in a word: a
+    # row's 30-day RANGE frame is a run of its supplier's sorted dates
+    ship = li.l_shipdate.astype(np.int64)
+    qty = li.l_quantity.astype(np.int64)
+    assert not len(ship) or (30 <= ship.min() and ship.max() < 1 << 22
+                             and 0 <= qty.min() and qty.max() < 1 << 8)
+    key = np.sort((li.l_suppkey.astype(np.int64) << 30) | (ship << 8) | qty)
+    s, day = key >> 30, key >> 8  # day: (supplier, date)
+    c = np.concatenate([[0], np.cumsum(key & 255)])
+    lo = np.searchsorted(day, day - 30, side="left")
+    hi = np.searchsorted(day, day, side="right")  # peers included
     q30 = c[hi] - c[lo]
-    s = supp[order]
-    n_supp = T["supplier"].n
-    present = np.bincount(s, minlength=n_supp) > 0
-    sums = np.zeros(n_supp, dtype=np.int64)
-    np.add.at(sums, s, q30)
-    maxes = np.full(n_supp, np.iinfo(np.int64).min)
-    np.maximum.at(maxes, s, q30)
-    return [(int(k), int(maxes[k]), int(sums[k]))
-            for k in np.flatnonzero(present)]
+    starts = np.flatnonzero(_segments(s))
+    if not len(starts):
+        return []
+    return [(int(k), int(m), int(t)) for k, m, t in zip(
+        s[starts], np.maximum.reduceat(q30, starts),
+        np.add.reduceat(q30, starts))]
 
 
 def w6(T):

@@ -216,3 +216,27 @@ def test_pgwire_and_flight_over_one_session_take_turns():
         pg.stop()
         svc.shutdown()
         serve.join(10)
+
+
+def test_shutdown_lets_go_of_the_session():
+    """pyarrow keeps a Flight server object alive after it stops (its C++
+    side holds it); the port's server lets go of its Session on shutdown,
+    so the Session's tables on the card are freed with it."""
+    import gc
+    import threading
+    import weakref
+
+    sess = TSession(device="cpu")
+    sess.register_table("nums", TBatch.from_pydict({"n": [1, 2, 3, 4]}))
+    svc = tserver.FlightServiceImpl(TConfig(host="127.0.0.1", port=0), sess)
+    serve = threading.Thread(target=svc.serve, daemon=True)
+    serve.start()
+    fl = tclient.FlightClient(f"grpc://127.0.0.1:{svc.port}")
+    assert fl.execute_sql("SELECT SUM(n) FROM nums").to_pylist() == [(10,)]
+    fl.close()
+    svc.shutdown()
+    serve.join(10)
+    planes = weakref.ref(sess.sources["nums"]._batch.columns[0].data)
+    del sess, svc, fl, serve
+    gc.collect()
+    assert planes() is None
