@@ -326,14 +326,21 @@ Phase 17 runs the open-addressing hash join (`ops/hash_join.py`, kernels
          give the plain results on its own table and on the plain one. (d)
          200 live rows into 128 slots must raise ValueError from
          `hash_build` and `hash_join_unique`. At (a) and (b) it times (median
-         of CUDA graph replays, each between CUDA events) the build (the
-         table's two fills and the launch), the probe and the two together,
-         and prints each beside its bound (each input read and each output
-         written once, the table once, over 3.35 TB/s), the plain versions'
-         (eager, median of 3), the sort-rank route's (`K.join_ranks` then
-         `K.fk_join_right_lookup`) and the library route's (torch.sort of the
-         build, torch.searchsorted and gathers), each route checked against
-         the oracle first.
+         of CUDA graph replays, each between CUDA events) the build (one
+         call: the packed table's fill and the claims), the probe and the two
+         together, and prints each beside its bound (each input read and
+         each output written once, the table once at key bytes + 4 a slot,
+         over 3.35 TB/s), the plain versions' (eager, median of 3), the
+         sort-rank route's (`K.join_ranks` then `K.fk_join_right_lookup`)
+         and the library route's (torch.sort of the build,
+         torch.searchsorted and gathers), each route checked against the
+         oracle first. It prints ptxas's registers and spills for the six
+         hash kernels (the build's fill and claim kernels and the probe,
+         int32 and int64 keys) and, where the toolkit has cuobjdump, their
+         global loads, stores and atomics in SASS; it fails unless each
+         probe loads the packed slot with one vector load (LDG ... .128 for
+         int64 keys, .64 for int32), each build claims with a CAS (64-bit
+         for int32 keys) and each fill writes a slot with one store.
 Phase 18 runs TPC-H at scale factor 10 (59,986,052 lineitem rows, capacity
          2^26; orders 14,996,513 at 2^24; tpch/data.py) on one
          Session(device="cuda") of its own, after the earlier phases'
@@ -408,6 +415,7 @@ import collections
 import contextlib
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -4535,6 +4543,106 @@ HJ_REPLACES = {"hash_build": "query_engine_tpu/ops/hash_join.py:75",
                "hash_probe": "query_engine_tpu/ops/hash_join.py:118"}
 
 
+# the hash join's kernels by their mangled template names (int: IiE, long
+# long: IxE)
+HJ_FUNCTIONS = {"build fill int32": "hash_fill_kernelIiE",
+                "build fill int64": "hash_fill_kernelIxE",
+                "build int32": "hash_build_kernelIiE",
+                "build int64": "hash_build_kernelIxE",
+                "probe int32": "hash_probe_kernelIiE",
+                "probe int64": "hash_probe_kernelIxE"}
+# the SASS that shows the design: a probe step is one vector load of the
+# packed slot (128 bits for int64 keys, 64 for int32), a build claim one CAS
+# (of the whole 64-bit slot for int32 keys, of the row word for int64), the
+# fill one store a slot
+HJ_SASS = {"probe int64": r"LDG\.E\S*\.128", "probe int32": r"LDG\.E\S*\.64",
+           "build int32": r"ATOMG\S*\.CAS\S*\.64",
+           "build int64": r"ATOMG\S*\.CAS",
+           "build fill int32": r"STG\.E\S*\.64",
+           "build fill int64": r"STG\.E\S*\.128"}
+
+
+def _ptxas_by_function(log):
+    """{mangled name: "N registers, S bytes spill stores, L bytes spill
+    loads"} from nvcc's -Xptxas -v output."""
+    out, name, spills = {}, None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name, spills = m.group(1), ""
+        elif name and "spill stores" in line:
+            spills = ", ".join(x.strip() for x in line.split(",")[1:])
+        elif name and "Used" in line and "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            out[name] = f"{regs} registers, {spills}"
+    return out
+
+
+def _sass_by_function(so_path):
+    """{mangled name: [SASS opcode, ...]} from cuobjdump -sass of the
+    kernel library, or None where the toolkit has no cuobjdump."""
+    import shutil
+
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    tool = shutil.which("cuobjdump") or (
+        os.path.join(CUDA_HOME, "bin", "cuobjdump") if CUDA_HOME else None)
+    if not tool or not os.path.exists(tool):
+        return None
+    r = subprocess.run([tool, "-sass", str(so_path)], capture_output=True,
+                       text=True, timeout=120)
+    check(r.returncode == 0, f"cuobjdump failed: {r.stderr.strip()[:500]}")
+    out, name = {}, None
+    for line in r.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            out[name] = []
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][\w.]*)",
+                      line)
+        if name and m:
+            out[name].append(m.group(1))
+    return out
+
+
+def hash_join_design(card):
+    """Phase 17's evidence of the kernels' design: ptxas's registers and
+    spills for each hash kernel, and, where cuobjdump exists, each one's
+    global loads and atomics in SASS, which must hold the packed slot's one
+    vector load a probe step and one CAS a build claim."""
+    from query_engine_tpu_torch.ops._build import load_library
+
+    built = load_library()
+    ptxas = _ptxas_by_function(built.log)
+    sass = _sass_by_function(built.path)
+    out = {}
+    for label, tag in HJ_FUNCTIONS.items():
+        rec = {}
+        regs = [v for k, v in ptxas.items() if tag in k]
+        rec["ptxas"] = regs[0] if regs else (
+            "not printed (library loaded from an earlier build)"
+            if not built.log else "not found")
+        if sass is not None:
+            ops = [op for k, v in sass.items() if tag in k for op in v]
+            mem = collections.Counter(
+                op for op in ops if op.startswith(("LDG", "STG", "ATOM",
+                                                   "RED")))
+            rec["sass"] = dict(sorted(mem.items()))
+            rec["design_ops"] = sum(
+                n for op, n in mem.items() if re.fullmatch(
+                    HJ_SASS[label] + r"\S*", op))
+        print(f"phase 17 design, {label}: ptxas {rec['ptxas']}; SASS "
+              f"{rec.get('sass', 'not read (no cuobjdump)')} [{card}]")
+        out[label] = rec
+    for label, rec in out.items():
+        if "design_ops" in rec:
+            check(rec["design_ops"] > 0,
+                  f"phase 17: no {HJ_SASS[label]} in the {label} kernel's "
+                  f"SASS: {rec['sass']}")
+    return out
+
+
 def _unique_keys(rng, n, lo, hi):
     """n distinct int64 keys from [lo, hi), in random order."""
     keys = np.unique(rng.integers(lo, hi, n + n // 8 + 64))
@@ -4754,15 +4862,17 @@ def phase17():
         else:
             raise CheckFailed(f"phase 17 (d): {label} took 200 live rows "
                               "into 128 slots")
+    design = hash_join_design(card)
     seconds = time.perf_counter() - t_phase
     print(f"phase 17: {seconds:.1f} s; launches {launches} [{card}]")
     return {"cases": by_case, "launches": launches, "seconds": seconds,
+            "design": design,
             "max_abs_err": max(r["max_abs_err"] for r in by_case.values())}
 
 
 def _hash_join_times(name, b, bo, p, po, T, want_ri, want_m, card):
     """Phase 17's times at case (a) or (b), each route's result checked
-    first: the kernels (build: the table's two fills and the launch;
+    first: the kernels (build: the packed table's fill and the claims;
     probe), the plain versions, the sort-rank route, the library route, and
     the bound (each input read and each output written once, the table
     once, over 3.35 TB/s)."""
@@ -5523,6 +5633,8 @@ def hash_join_entries(hash_join, engine_hj):
         "join": {c: {k: hash_join["cases"][c][k] for k in
                      ("join_ms", "join_bound_ms", "plain_ms",
                       "sort_rank_ms", "library_ms")} for c in ("a", "b")},
+        "design": {k: v for k, v in hash_join["design"].items()
+                   if k.startswith(part)},
     } for name, part in (("hash_build", "build"), ("hash_probe", "probe"))]
 
 

@@ -5,10 +5,11 @@ At first use, `load_library()` compiles them with nvcc for Hopper
 (`sm_90a`), one nvcc process per source, all started together, and links
 the objects into one shared library under `query_engine_tpu_torch/_build/`,
 named by a hash of the sources and the headers beside them (`*.cuh`); it
-loads the library with ctypes. A build that exists is reused. When nvcc is missing or fails, the call raises with the
-compiler's output; nothing falls back to another implementation. The
-threads of one process build and load it once, under a lock (a mesh's
-shard threads may all launch a kernel first at once).
+loads the library with ctypes. A build that exists is reused, with the
+compiler's output kept beside it. When nvcc is missing or fails, the call
+raises with the compiler's output; nothing falls back to another
+implementation. The threads of one process build and load it once, under a
+lock (a mesh's shard threads may all launch a kernel first at once).
 """
 
 from __future__ import annotations
@@ -39,7 +40,8 @@ class Built:
     lib: ctypes.CDLL
     path: Path
     seconds: float  # nvcc wall time; 0.0 when an existing build was loaded
-    log: str        # nvcc's output (ptxas register and shared-memory use)
+    log: str        # nvcc's output (ptxas register and shared-memory use),
+    # kept beside the library and read back with an existing build
 
 
 _built: Optional[Built] = None
@@ -78,10 +80,10 @@ def _bind(lib: ctypes.CDLL) -> None:
     f.argtypes = [p, p, p, i64, i32, p, p]
     f.restype = i32
     f = lib.qe_hash_build
-    f.argtypes = [p, p, i64, i32, p, p, i64, p, p]
+    f.argtypes = [p, p, i64, i32, p, i64, p, p]
     f.restype = i32
     f = lib.qe_hash_probe
-    f.argtypes = [p, p, i64, p, p, i64, i32, p, p, p]
+    f.argtypes = [p, i64, p, p, i64, i32, p, p, p]
     f.restype = i32
 
 
@@ -131,7 +133,12 @@ def _load() -> Built:
                     f"nvcc failed with exit code {p.returncode}:\n"
                     f"{' '.join(cmd)}\n{out_log}"
                 )
+        tmp_log = tmp.with_suffix(".log")
+        tmp_log.write_text(log)
+        os.replace(tmp_log, out.with_suffix(".log"))
         os.replace(tmp, out)  # atomic: concurrent builds race harmlessly
+    elif out.with_suffix(".log").exists():
+        log = out.with_suffix(".log").read_text()
     lib = ctypes.CDLL(str(out))
     _bind(lib)
     _built = Built(lib, out, seconds, log)

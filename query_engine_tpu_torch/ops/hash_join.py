@@ -2,10 +2,10 @@
 and their plain versions.
 
 Counterpart of `query_engine_tpu/ops/hash_join.py`. The build places each
-live build row of a UNIQUE key plane in a power-of-two table of (key, row)
-planes by linear probing from its key's hash; the probe walks each probe
-row's sequence until an empty slot (no match) or its key (the match). NULL
-keys never match: callers fold validity into `ok`.
+live build row of a UNIQUE key plane in a power-of-two table by linear
+probing from its key's hash; the probe walks each probe row's sequence
+until an empty slot (no match) or its key (the match). NULL keys never
+match: callers fold validity into `ok`.
 
   * `hash_build(keys, ok, table_size)` -> (t_keys [T] of the key dtype,
     zeros where empty; t_rows [T] int32, EMPTY where empty).
@@ -18,15 +18,27 @@ keys never match: callers fold validity into `ok`.
 Keys are int32 or int64. The hash is the JAX package's: murmur3's
 finalizer on uint32 lanes, a 64-bit key's two words mixed apart.
 
+The table lies in one packed tensor, a slot's key and row side by side, so
+that the card's probe reads a slot with one load (`csrc/hash_join.cu`):
+int64 keys in an int64 [T, 2] (the key; the row in the low word of the
+second column, 0 in its high word), int32 keys in an int32 [T, 2] (key,
+row); an empty slot holds (0, EMPTY) (`empty_table`, the plain version of
+the build kernel's fill). `hash_build` returns (t_keys, t_rows) as
+strided views of it (`table_views`), on either device, so every caller
+sees two planes; `packed_of` recovers the packed tensor from such views,
+and `pack_table` packs two separate planes (one copy). On a CUDA tensor
+`hash_probe_unique` launches on the views' packed tensor, or packs
+separate planes once and then launches.
+
 The plain versions repeat the JAX package's rounds as torch ops (a host
-read a round): each round every unplaced row proposes its next slot if it
-is empty, the smallest row id wins the slot, and every unplaced row that
-did not win moves one slot on. On the CPU their tables are the JAX
-package's, slot for slot. The kernels (`csrc/hash_join.cu`) place rows
-with atomicCAS, so the card's layout can differ from the plain one and
-from run to run; what holds is what `check_table` checks (the same
-entries, each on its own probe sequence with no empty slot before it),
-and the probe's results are the same.
+read a round) on separate planes: each round every unplaced row proposes
+its next slot if it is empty, the smallest row id wins the slot, and every
+unplaced row that did not win moves one slot on. On the CPU their tables
+are the JAX package's, slot for slot (`hash_build` returns them packed).
+The kernels place rows with atomicCAS, so the card's layout can differ
+from the plain one and from run to run; what holds is what `check_table`
+checks (the same entries, each on its own probe sequence with no empty
+slot before it), and the probe's results are the same.
 
 A table too small for its live rows (more live rows than slots) raises
 ValueError, where the JAX package loops forever. A probe that has walked
@@ -41,7 +53,7 @@ the call raises; on a CPU tensor the plain version runs.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -171,15 +183,70 @@ def hash_probe_unique_plain(t_keys: torch.Tensor, t_rows: torch.Tensor,
     return torch.where(matched, ri, 0), matched
 
 
+# -- the packed table ----------------------------------------------------
+
+
+def pack_table(t_keys: torch.Tensor, t_rows: torch.Tensor) -> torch.Tensor:
+    """The packed table of the planes (t_keys, t_rows), in one copy: int64
+    [T, 2] for int64 keys (the row widened, so 0 in its high word), int32
+    [T, 2] for int32 keys."""
+    rows = t_rows.to(t_keys.dtype)
+    return torch.stack([t_keys, rows], dim=1)
+
+
+def table_views(packed: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(t_keys [T] of the key dtype, t_rows [T] int32): strided views of a
+    packed table. An int64 table's rows are the low words of its second
+    column (little-endian: word 2 of the slot's four)."""
+    if packed.dtype == torch.int64:
+        return packed[:, 0], packed.view(torch.int32)[:, 2]
+    return packed[:, 0], packed[:, 1]
+
+
+def packed_of(t_keys: torch.Tensor, t_rows: torch.Tensor
+              ) -> Optional[torch.Tensor]:
+    """The packed table whose `table_views` are (t_keys, t_rows), or None
+    where the two are not such views (separate planes, a view shifted off
+    the storage's start, other strides)."""
+    if t_keys.dtype not in KEY_DTYPES or t_rows.dtype != torch.int32 \
+            or t_keys.dim() != 1 or t_rows.shape != t_keys.shape \
+            or t_rows.device != t_keys.device:
+        return None
+    rows_at, rows_stride = (2, 4) if t_keys.dtype == torch.int64 else (1, 2)
+    storage = t_keys.untyped_storage()
+    T = t_keys.shape[0]
+    if t_keys.storage_offset() != 0 or t_keys.stride() != (2,) \
+            or t_rows.storage_offset() != rows_at \
+            or t_rows.stride() != (rows_stride,) \
+            or t_rows.untyped_storage().data_ptr() != storage.data_ptr() \
+            or storage.nbytes() < 2 * T * t_keys.element_size():
+        return None
+    return t_keys.as_strided((T, 2), (2, 1), 0)
+
+
+def empty_table(table_size: int, dtype: torch.dtype, device
+                ) -> torch.Tensor:
+    """A packed table of `table_size` empty slots, (0, EMPTY) each: the
+    plain version of the build kernel's fill."""
+    table = torch.full((table_size, 2), EMPTY, dtype=dtype, device=device)
+    table[:, 0] = 0
+    return table
+
+
+# -- the kernels' launches -----------------------------------------------
+
+
 def _stream(dev: torch.device) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
 def _build_kernel(keys: torch.Tensor, ok: torch.Tensor, table_size: int
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch `qe_hash_build` on the current CUDA stream. Returns (t_keys,
-    t_rows, overflow): overflow [1] int32 is 1 on the card where some live
-    row found no slot, read by the caller."""
+    """Launch `qe_hash_build` on the current CUDA stream: it fills a new
+    packed table with empty slots, then places the live rows. Returns
+    (t_keys, t_rows, overflow): the table's views, and overflow [1] int32,
+    1 on the card where some live row found no slot, read by the
+    caller."""
     from query_engine_tpu_torch.ops._build import load_library
 
     if keys.device.type != "cuda":
@@ -187,28 +254,26 @@ def _build_kernel(keys: torch.Tensor, ok: torch.Tensor, table_size: int
                          f"{keys.device}")
     keys, ok = keys.contiguous(), ok.contiguous()
     dev = keys.device
-    t_rows = torch.full((table_size,), EMPTY, dtype=torch.int32, device=dev)
-    t_keys = torch.zeros(table_size, dtype=keys.dtype, device=dev)
+    table = torch.empty((table_size, 2), dtype=keys.dtype, device=dev)
     overflow = torch.zeros(1, dtype=torch.int32, device=dev)
     n = keys.shape[0]
-    if n == 0:
-        return t_keys, t_rows, overflow
     lib = load_library().lib
     with torch.cuda.device(dev):
         rc = lib.qe_hash_build(keys.data_ptr(), ok.data_ptr(), n,
-                               keys.element_size(), t_keys.data_ptr(),
-                               t_rows.data_ptr(), table_size,
-                               overflow.data_ptr(), _stream(dev))
+                               keys.element_size(), table.data_ptr(),
+                               table_size, overflow.data_ptr(), _stream(dev))
     if rc != 0:
         raise RuntimeError(f"qe_hash_build failed: cudaError {rc}")
     launches["hash_build"] += 1
-    return t_keys, t_rows, overflow
+    return (*table_views(table), overflow)
 
 
 def _probe_kernel(t_keys: torch.Tensor, t_rows: torch.Tensor,
                   probe_keys: torch.Tensor, ok: torch.Tensor
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch `qe_hash_probe` on the current CUDA stream."""
+    """Launch `qe_hash_probe` on the current CUDA stream, on the packed
+    table of which (t_keys, t_rows) are views, or on the packing of two
+    separate planes."""
     from query_engine_tpu_torch.ops._build import load_library
 
     dev = probe_keys.device
@@ -216,7 +281,9 @@ def _probe_kernel(t_keys: torch.Tensor, t_rows: torch.Tensor,
         raise ValueError(f"the hash probe kernel needs the table and the "
                          f"probe keys on one CUDA device, got {t_keys.device}"
                          f", {t_rows.device} and {dev}")
-    t_keys, t_rows = t_keys.contiguous(), t_rows.contiguous()
+    table = packed_of(t_keys, t_rows)
+    if table is None or table.data_ptr() % 16:  # the kernel's vector loads
+        table = pack_table(t_keys, t_rows)
     probe_keys, ok = probe_keys.contiguous(), ok.contiguous()
     n = probe_keys.shape[0]
     ri = torch.empty(n, dtype=torch.int64, device=dev)
@@ -225,11 +292,10 @@ def _probe_kernel(t_keys: torch.Tensor, t_rows: torch.Tensor,
         return ri, matched
     lib = load_library().lib
     with torch.cuda.device(dev):
-        rc = lib.qe_hash_probe(t_keys.data_ptr(), t_rows.data_ptr(),
-                               t_keys.shape[0], probe_keys.data_ptr(),
-                               ok.data_ptr(), n, probe_keys.element_size(),
-                               ri.data_ptr(), matched.data_ptr(),
-                               _stream(dev))
+        rc = lib.qe_hash_probe(table.data_ptr(), table.shape[0],
+                               probe_keys.data_ptr(), ok.data_ptr(), n,
+                               probe_keys.element_size(), ri.data_ptr(),
+                               matched.data_ptr(), _stream(dev))
     if rc != 0:
         raise RuntimeError(f"qe_hash_probe failed: cudaError {rc}")
     launches["hash_probe"] += 1
@@ -251,13 +317,14 @@ def _on_cpu(*tensors: torch.Tensor) -> bool:
 
 def hash_build(keys: torch.Tensor, ok: torch.Tensor, table_size: int
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The open-addressed table of the live rows of a unique key plane (see
-    the module docstring). Raises ValueError where `table_size` slots
-    cannot hold the live rows."""
+    """The open-addressed table of the live rows of a unique key plane, as
+    views of one packed table (see the module docstring). Raises
+    ValueError where `table_size` slots cannot hold the live rows."""
     _check_keys("build", keys, ok)
     _check_table_size(table_size)
     if _on_cpu(keys, ok):
-        return hash_build_plain(keys, ok, table_size)
+        return table_views(pack_table(*hash_build_plain(keys, ok,
+                                                        table_size)))
     t_keys, t_rows, overflow = _build_kernel(keys, ok, table_size)
     if int(overflow.item()):
         raise _too_small(int(ok.sum()), table_size)

@@ -32,10 +32,16 @@ ROOT = Path(__file__).resolve().parent.parent
 ENTRY = "qe_onehot_factorized"
 
 
-def variant_source(text: str, assignments: str, entries=(ENTRY,)) -> str:
-    """The kernel source with each NAME=VALUE of `assignments` set and each
-    entry point renamed to its name + "_variant"."""
-    for item in assignments.split(","):
+def variant_source(text: str, assignments: str, entries=(ENTRY,),
+                   subs=()) -> str:
+    """The kernel source with each NAME=VALUE of `assignments` set, each
+    (old, new) of `subs` replaced (each must occur), and each entry point
+    renamed to its name + "_variant"."""
+    for old, new in subs:
+        if old not in text:
+            raise SystemExit(f"{old!r} does not occur in the source")
+        text = text.replace(old, new)
+    for item in filter(None, assignments.split(",")):
         name, value = item.split("=")
         text, found = re.subn(rf"(constexpr int {name} = )[^;]+;",
                               rf"\g<1>{value};", text)
@@ -47,19 +53,24 @@ def variant_source(text: str, assignments: str, entries=(ENTRY,)) -> str:
 
 
 def build(assignments: str, source="agg_onehot_factorized.cu",
-          entries=(ENTRY,), argtypes=None):
-    """A copy of csrc/`source` with `assignments`, built and loaded: its
-    renamed entry points, by their original names. `argtypes` defaults to
+          entries=(ENTRY,), argtypes=None, subs=()):
+    """A copy of csrc/`source` with `assignments` and `subs`, built and
+    loaded: its renamed entry points, by their original names. `argtypes`
+    (one list for every entry, or {entry: list}) defaults to
     qe_onehot_factorized's."""
+    import hashlib
+
     from query_engine_tpu_torch.ops._build import (BUILD_DIR, NVCC_FLAGS,
                                                    SRC_DIR, _nvcc)
 
     label = re.sub(r"\W", "_", assignments)
+    if subs:
+        label += "_" + hashlib.sha256(repr(subs).encode()).hexdigest()[:8]
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     cu = BUILD_DIR / f"{Path(source).stem}_{label}.cu"
     so = cu.with_suffix(".so")
     cu.write_text(variant_source((SRC_DIR / source).read_text(), assignments,
-                                 entries))
+                                 entries, subs))
     r = subprocess.run([_nvcc(), *NVCC_FLAGS, "-I", str(SRC_DIR), "-shared",
                         "-o", str(so), str(cu)], capture_output=True,
                        text=True)
@@ -71,8 +82,9 @@ def build(assignments: str, source="agg_onehot_factorized.cu",
     fns = {}
     for entry in entries:
         fn = getattr(lib, f"{entry}_variant")
-        fn.argtypes = argtypes or [p, p, p, ctypes.c_int64, ctypes.c_int, p,
-                                   p]
+        types = argtypes.get(entry) if isinstance(argtypes, dict) \
+            else argtypes
+        fn.argtypes = types or [p, p, p, ctypes.c_int64, ctypes.c_int, p, p]
         fn.restype = ctypes.c_int
         fns[entry] = fn
     return fns

@@ -28,6 +28,14 @@ data (`probes.probe_agg_variants.probe_data`: 2^24 rows, 1024 groups, seed
 {1, 3}) and inputs: `gather_words` (int32 indices and table) and, in a
 checkout that has it, `gather_word_planes` (the join's int64 form).
 
+`--kernels hash` times the open-addressing hash join's kernels
+(`ops.hash_join`) at `chip_smoke.py` phase 17's cases (a) (2^23 probe rows
+against 2^20 unique int64 build keys) and (b) (bench.py's 2^24 int32
+probe keys): the build (the table's fill and the launch), the probe on one
+built table, and the two together. Each case's digest is of the probe's
+(ri, matched) after that case's calls (the build's: a probe of its table),
+which do not depend on where the build's atomics placed the rows.
+
 It prints one JSON line: per case the device time in ms (a CUDA graph of
 10 calls replayed between CUDA events, so the host's launch overhead is
 not in it) and a digest of the result's bits, with the card's name and
@@ -37,6 +45,7 @@ are equal exactly when their results are bit for bit equal.
     python scripts/group_agg_shapes.py
     python scripts/group_agg_shapes.py --kernels onehot --root DIR
     python scripts/group_agg_shapes.py --kernels gather --root DIR
+    python scripts/group_agg_shapes.py --kernels hash --root DIR
 
 `--root` imports `query_engine_tpu_torch` from another checkout, e.g. an
 earlier commit unpacked with `git archive`, which builds its kernels into
@@ -170,8 +179,40 @@ def gather_cases(dev):
     return sg, cases
 
 
+def hash_cases(dev):
+    """(module, {case: (fn, of)}) of the hash join's kernels at chip_smoke
+    phase 17's cases (a) and (b): fn is timed, of() gives the (ri, matched)
+    that are digested."""
+    import torch
+
+    from chip_smoke import hash_join_cases
+    from query_engine_tpu_torch.ops import hash_join as HJ
+
+    cases = {}
+    for name, arrays in hash_join_cases().items():
+        if name not in ("a", "b"):
+            continue
+        b, bo, p, po = (torch.from_numpy(x).to(dev) for x in arrays[:4])
+        T = arrays[4]
+        tk, tr, _ = HJ._build_kernel(b, bo, T)
+
+        def build(b=b, bo=bo, T=T):
+            return HJ._build_kernel(b, bo, T)
+
+        def join(b=b, bo=bo, p=p, po=po, T=T):
+            return HJ._probe_kernel(*HJ._build_kernel(b, bo, T)[:2], p, po)
+
+        def probe(tk=tk, tr=tr, p=p, po=po):
+            return HJ._probe_kernel(tk, tr, p, po)
+
+        cases[f"{name} build"] = (build, join)
+        cases[f"{name} probe"] = (probe, probe)
+        cases[f"{name} build+probe"] = (join, join)
+    return HJ, cases
+
+
 CASES = {"group_agg": group_agg_cases, "onehot": onehot_cases,
-         "gather": gather_cases}
+         "gather": gather_cases, "hash": hash_cases}
 
 
 def main(argv=None) -> int:
@@ -201,8 +242,9 @@ def main(argv=None) -> int:
     out = {"root": args.root or ".", "kernels": args.kernels,
            "module": module.__file__,
            "card": smi.stdout.strip().splitlines()[0] if smi.stdout else ""}
-    for name, fn in cases.items():
-        result = fn()
+    for name, case in cases.items():
+        fn, of = case if isinstance(case, tuple) else (case, case)
+        result = of()
         torch.cuda.synchronize()
         out[name] = {"ms": graph_ms(fn, iters=10),
                      "digest": digest(result)}

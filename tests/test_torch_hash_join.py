@@ -9,12 +9,21 @@ sizes up to 2^15 slots. The built table (`t_keys`, `t_rows`) must equal
 JAX's slot for slot, and the probe's (ri, matched) must equal JAX's (the
 port's ri is int64) and a dict of the live build keys.
 
+`hash_build` returns its table as views of one packed tensor (the
+card's layout: a slot's key and row side by side), so these comparisons go
+through the views.
+
 Also: `check_table`, the invariant the card's layout is held to (the
 card tests reuse it), passes on every plain table and on tables placed in
-another order, and catches broken tables; a table too small for its live
-rows raises ValueError (the JAX package loops forever there); a probe of a
-full table for a missing key is unmatched; the dispatch raises on devices
-and dtypes it does not take, and launches no kernel on the CPU.
+another order, and catches broken tables, as separate planes and as views
+of a packed table; a table too small for its live rows raises ValueError
+(the JAX package loops forever there); a probe of a full table for a
+missing key is unmatched; the dispatch raises on devices and dtypes it
+does not take, and launches no kernel on the CPU. The packed layout's
+helpers: `pack_table` and `table_views` round trip, `packed_of`
+recognises views of one packed tensor and nothing else, `empty_table`
+holds (0, EMPTY) in every slot, and the plain probe gives the same results
+on views and on separate planes.
 """
 
 import jax
@@ -40,6 +49,7 @@ def _jax(bkeys, bok, pkeys, pok, T):
 def _port(bkeys, bok, pkeys, pok, T):
     tb = torch.from_numpy(bkeys)
     tk, tr = TH.hash_build(tb, torch.from_numpy(bok), T)
+    assert TH.packed_of(tk, tr) is not None  # views of one packed table
     TH.check_table(tk, tr, tb, torch.from_numpy(bok))
     ri, m = TH.hash_probe_unique(tk, tr, torch.from_numpy(pkeys),
                                  torch.from_numpy(pok))
@@ -329,3 +339,163 @@ def test_dispatch_raises_and_launches_nothing_on_the_cpu():
         TH.hash_probe_unique(tk, tr.to("meta"), keys, ok)
     with pytest.raises(ValueError):
         TH.hash_probe_unique(tk, tr, keys.int(), ok)
+
+
+# -- the packed table ------------------------------------------------------
+
+KEY_TYPES = [torch.int32, torch.int64]
+KEY_IDS = ["int32", "int64"]
+
+
+def _planes(dtype, T=256, seed=3):
+    """Two separate planes in a table's value ranges: keys over the whole
+    dtype (negatives and extremes among them), rows in [0, EMPTY]."""
+    rng = np.random.default_rng(seed)
+    info = np.iinfo(np.int32 if dtype == torch.int32 else np.int64)
+    keys = rng.integers(info.min, info.max, T, endpoint=True)
+    keys[:2] = info.min, info.max
+    rows = rng.integers(0, TH.EMPTY, T, endpoint=True).astype(np.int32)
+    rows[:2] = 0, TH.EMPTY
+    return torch.from_numpy(keys).to(dtype), torch.from_numpy(rows)
+
+
+@pytest.mark.parametrize("dtype", KEY_TYPES, ids=KEY_IDS)
+def test_pack_table_round_trip(dtype):
+    t_keys, t_rows = _planes(dtype)
+    packed = TH.pack_table(t_keys, t_rows)
+    assert packed.dtype == dtype and packed.shape == (256, 2)
+    assert packed.is_contiguous()
+    k, r = TH.table_views(packed)
+    assert k.dtype == dtype and r.dtype == torch.int32
+    assert torch.equal(k, t_keys) and torch.equal(r, t_rows)
+    # the views share the packed tensor's storage: a write shows in both
+    assert k.untyped_storage().data_ptr() == packed.data_ptr()
+    assert r.untyped_storage().data_ptr() == packed.data_ptr()
+    r[5] = 77
+    k[5] = -9
+    assert int(packed[5, 0]) == -9
+    if dtype == torch.int64:  # the row in the low word, 0 in the high word
+        assert int(packed[5, 1]) == 77
+        assert bool((packed[:, 1] >= 0).all())
+        assert bool((packed[:, 1] <= TH.EMPTY).all())
+    else:
+        assert int(packed[5, 1]) == 77
+    again = TH.pack_table(k, r)
+    assert torch.equal(again, packed)
+
+
+@pytest.mark.parametrize("dtype", KEY_TYPES, ids=KEY_IDS)
+def test_packed_of_recognises_views(dtype):
+    packed = TH.pack_table(*_planes(dtype))
+    got = TH.packed_of(*TH.table_views(packed))
+    assert got is not None and got.data_ptr() == packed.data_ptr()
+    assert got.shape == packed.shape and got.stride() == packed.stride()
+    assert torch.equal(got, packed)
+    # the kernel-less build on the CPU gives such views too
+    keys = torch.arange(50, dtype=dtype) * 7 - 20
+    tk, tr = TH.hash_build(keys, torch.ones(50, dtype=torch.bool), 128)
+    got = TH.packed_of(tk, tr)
+    assert got is not None and torch.equal(TH.table_views(got)[0], tk)
+    assert torch.equal(TH.table_views(got)[1], tr)
+
+
+def _not_views(dtype):
+    """{name: (t_keys, t_rows)} that are not the views of one packed
+    table."""
+    t_keys, t_rows = _planes(dtype)
+    packed = TH.pack_table(t_keys, t_rows)
+    k, r = TH.table_views(packed)
+    three = torch.cat([packed, packed[:, :1]], 1)  # [T, 3]
+    rows_word = 2 if dtype == torch.int64 else 1
+    out = {
+        "separate planes": (t_keys.clone(), t_rows.clone()),
+        "plain build": TH.hash_build_plain(
+            torch.arange(10, dtype=dtype), torch.ones(10, dtype=torch.bool),
+            256),
+        "shifted": TH.table_views(packed[1:]),
+        "rows of another packing": (
+            k, TH.table_views(TH.pack_table(t_keys, t_rows))[1]),
+        "every other slot": (k[::2], r[::2]),
+        "fewer keys than rows": (k[:-1], r),
+        "three columns": (three[:, 0],
+                          three.view(torch.int32)[:, rows_word]),
+        "swapped": (r.to(dtype), k.to(torch.int32)),
+    }
+    if dtype == torch.int64:  # the high word is not the row
+        out["other word"] = (k, packed.view(torch.int32)[:, 3])
+    else:  # rows that are not int32
+        out["other word"] = (k, TH.pack_table(t_keys, t_rows)[:, 1]
+                             .to(torch.int64))
+    return out
+
+
+NOT_VIEWS = ["separate planes", "plain build", "shifted",
+             "rows of another packing", "every other slot",
+             "fewer keys than rows", "three columns", "swapped",
+             "other word"]
+
+
+@pytest.mark.parametrize("name", NOT_VIEWS)
+@pytest.mark.parametrize("dtype", KEY_TYPES, ids=KEY_IDS)
+def test_packed_of_rejects(dtype, name):
+    k, r = _not_views(dtype)[name]
+    assert TH.packed_of(k, r) is None
+
+
+@pytest.mark.parametrize("dtype", KEY_TYPES, ids=KEY_IDS)
+@pytest.mark.parametrize("T", [1, 128, 4096])
+def test_empty_table(dtype, T):
+    table = TH.empty_table(T, dtype, "cpu")
+    assert table.shape == (T, 2) and table.dtype == dtype
+    tk, tr = TH.table_views(table)
+    assert bool((tk == 0).all()) and bool((tr == TH.EMPTY).all())
+    assert TH.packed_of(tk, tr) is not None
+    if dtype == torch.int64:
+        assert bool((table[:, 1] == TH.EMPTY).all())  # high words 0
+    # an empty table of no live rows passes the checker
+    keys = torch.zeros(3, dtype=dtype)
+    TH.check_table(tk, tr, keys, torch.zeros(3, dtype=torch.bool))
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.int64], ids=KEY_IDS)
+@pytest.mark.parametrize("load", [0.5, 0.85])
+def test_plain_probe_on_views_equals_planes(dtype, load):
+    rng = np.random.default_rng(21 + int(load * 100))
+    T = 1 << 10
+    bkeys, bok, pkeys, pok = _seeded(rng, dtype, T, load)
+    tb, tbok = torch.from_numpy(bkeys), torch.from_numpy(bok)
+    planes = TH.hash_build_plain(tb, tbok, T)
+    views = TH.hash_build(tb, tbok, T)
+    assert TH.packed_of(*planes) is None
+    assert TH.packed_of(*views) is not None
+    assert torch.equal(views[0], planes[0])
+    assert torch.equal(views[1], planes[1])
+    tp, tpok = torch.from_numpy(pkeys), torch.from_numpy(pok)
+    want = TH.hash_probe_unique_plain(*planes, tp, tpok)
+    for table in (views, TH.table_views(TH.pack_table(*planes))):
+        got = TH.hash_probe_unique_plain(*table, tp, tpok)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        got = TH.hash_probe_unique(*table, tp, tpok)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert 0 < int(want[1].sum()) < len(pkeys)
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.int64], ids=KEY_IDS)
+def test_check_table_catches_broken_packed_tables(dtype):
+    rng = np.random.default_rng(12)
+    T = 1 << 9
+    bkeys, bok, _, _ = _seeded(rng, dtype, T, 0.5)
+    tb, tbok = torch.from_numpy(bkeys), torch.from_numpy(bok)
+    tk, tr = TH.hash_build(tb, tbok, T)
+    TH.check_table(tk, tr, tb, tbok)
+    for name, k, r in _broken_tables(tk, tr, tb):
+        packed = TH.pack_table(k, r)
+        views = TH.table_views(packed)
+        assert TH.packed_of(*views) is not None
+        with pytest.raises(ValueError):
+            TH.check_table(*views, tb, tbok)
+            pytest.fail(name)
+    # the same entries placed in another order, packed, pass
+    order = np.random.default_rng(1).permutation(len(bkeys))
+    k, r = _placed_in_order(bkeys, bok, T, order)
+    TH.check_table(*TH.table_views(TH.pack_table(k, r)), tb, tbok)

@@ -7,16 +7,21 @@ root of a checkout:
 
     python -m pytest --noconftest -q tests/test_torch_hash_join_cuda.py -m cuda
 
-* the build kernel's table passes `check_table` (the same entries as the
-  plain build, each on its own probe sequence with no empty slot before
-  it) for int32 and int64 keys at load 0.5 and 0.9, and the chains of
-  100 keys 4096 apart at 128 slots;
-* the probe kernel's (ri, matched) equal the plain probe's, on the plain
-  table and on the kernel's, and a dict of the live build keys;
+* the build kernel's table is a pair of views of one packed tensor
+  (`packed_of`) and passes `check_table` (the same entries as the plain
+  build, each on its own probe sequence with no empty slot before it) for
+  int32 and int64 keys at load 0.5 and 0.9, and the chains of 100 keys
+  4096 apart at 128 slots;
+* the probe kernel's (ri, matched) equal the plain probe's, on the
+  kernel's packed table, on the plain build's separate planes (packed
+  once) and on a caller's packing of them, and a dict of the live build
+  keys; on views of a packed table it packs nothing;
 * each entry point launches its kernel once a call;
 * a table too small for its live rows raises ValueError (after the probe
   for `hash_join_unique`); a full table's probe for an absent key misses;
-* the probe replays in a CUDA graph.
+* the probe, and the build and probe together, replay in a CUDA graph;
+* the build's fill gives `empty_table`, its plain version, where no row
+  is live.
 """
 
 import numpy as np
@@ -76,15 +81,20 @@ def test_kernels_match_plain_and_oracle(dev, dtype, T, load):
     tk, tr = TH.hash_build(k, o, T)
     assert TH.launches["hash_build"] == before["hash_build"] + 1
     assert tk.is_cuda and tk.dtype == dtype and tr.dtype == torch.int32
+    packed = TH.packed_of(tk, tr)
+    assert packed is not None and packed.shape == (T, 2)
+    assert packed.dtype == dtype and packed.data_ptr() % 16 == 0
     TH.check_table(tk, tr, k, o)
     pk, pr = TH.hash_build_plain(k, o, T)
+    assert TH.packed_of(pk, pr) is None  # separate planes
     TH.check_table(pk, pr, k, o)
     want = TH.hash_probe_unique_plain(pk, pr, p, po)
-    for table in ((tk, tr), (pk, pr)):
+    for table in ((tk, tr), (pk, pr),
+                  TH.table_views(TH.pack_table(pk, pr))):
         ri, m = TH.hash_probe_unique(*table, p, po)
         assert ri.dtype == torch.int64 and m.dtype == torch.bool
         assert torch.equal(ri, want[0]) and torch.equal(m, want[1])
-    assert TH.launches["hash_probe"] == before["hash_probe"] + 2
+    assert TH.launches["hash_probe"] == before["hash_probe"] + 3
     ri, m = TH.hash_join_unique(p, po, k, o, T)
     assert torch.equal(ri, want[0]) and torch.equal(m, want[1])
     want_ri, want_m = _oracle(keys, ok, probe, pok)
@@ -143,3 +153,71 @@ def test_probe_replays_in_a_graph(dev):
     g.replay()
     torch.cuda.synchronize()
     assert torch.equal(out[0], want[0]) and torch.equal(out[1], want[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_long_chains_packed(dev, dtype):
+    keys = (torch.arange(100, dtype=dtype) * 4096).to(dev)
+    ok = torch.ones(100, dtype=torch.bool, device=dev)
+    tk, tr = TH.hash_build(keys, ok, 128)
+    assert TH.packed_of(tk, tr) is not None
+    TH.check_table(tk, tr, keys, ok)
+    probe = torch.cat([keys, keys + 1])
+    pok = torch.ones(200, dtype=torch.bool, device=dev)
+    want = TH.hash_probe_unique_plain(tk, tr, probe, pok)
+    ri, m = TH.hash_probe_unique(tk, tr, probe, pok)
+    assert torch.equal(ri, want[0]) and torch.equal(m, want[1])
+    assert bool(m[:100].all()) and not bool(m[100:].any())
+    assert torch.equal(ri[:100].cpu(), torch.arange(100))
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_probe_packs_only_separate_planes(dev, dtype, monkeypatch):
+    keys, ok, probe, pok = _inputs(7, dtype, 1 << 12, 0.5)
+    k, o = torch.from_numpy(keys).to(dev), torch.from_numpy(ok).to(dev)
+    p, po = torch.from_numpy(probe).to(dev), torch.from_numpy(pok).to(dev)
+    tk, tr = TH.hash_build(k, o, 1 << 12)
+    pk, pr = TH.hash_build_plain(k, o, 1 << 12)
+    want = TH.hash_probe_unique_plain(pk, pr, p, po)
+    packs = []
+    real = TH.pack_table
+    monkeypatch.setattr(TH, "pack_table",
+                        lambda *a: packs.append(1) or real(*a))
+    ri, m = TH.hash_probe_unique(tk, tr, p, po)
+    assert packs == []  # the views' own packed table
+    assert torch.equal(ri, want[0]) and torch.equal(m, want[1])
+    ri, m = TH.hash_probe_unique(pk, pr, p, po)
+    assert packs == [1]  # two planes, packed once
+    assert torch.equal(ri, want[0]) and torch.equal(m, want[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_build_and_probe_replay_in_a_graph(dev, dtype):
+    T = 1 << 14
+    keys, ok, probe, pok = _inputs(4, dtype, T, 0.5)
+    k, o = torch.from_numpy(keys).to(dev), torch.from_numpy(ok).to(dev)
+    p, po = torch.from_numpy(probe).to(dev), torch.from_numpy(pok).to(dev)
+    want = TH.hash_join_unique(p, po, k, o, T)  # eager first
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        tk, tr, overflow = TH._build_kernel(k, o, T)
+        out = TH._probe_kernel(tk, tr, p, po)
+    for _ in range(2):
+        g.replay()
+        torch.cuda.synchronize()
+        assert int(overflow.item()) == 0
+        TH.check_table(tk, tr, k, o)
+        assert torch.equal(out[0], want[0]) and torch.equal(out[1], want[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("T", [1, 128, 1 << 16])
+def test_fill_equals_plain(dev, dtype, T):
+    want = TH.empty_table(T, dtype, dev)  # the fill's plain version
+    for n in (0, 5):  # no rows; dead rows only
+        keys = torch.arange(n, dtype=dtype, device=dev)
+        tk, tr = TH.hash_build(keys, torch.zeros(n, dtype=torch.bool,
+                                                 device=dev), T)
+        packed = TH.packed_of(tk, tr)
+        assert packed is not None and torch.equal(packed, want)
