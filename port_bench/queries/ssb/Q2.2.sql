@@ -1,0 +1,7 @@
+SELECT SUM(lo_revenue) AS revenue, d_year, p_brand1
+FROM lineorder JOIN date ON lo_orderdate = d_datekey
+JOIN part ON lo_partkey = p_partkey
+JOIN supplier ON lo_suppkey = s_suppkey
+WHERE p_brand1 BETWEEN 'MFGR#2221' AND 'MFGR#2228' AND s_region = 'ASIA'
+GROUP BY d_year, p_brand1
+ORDER BY d_year, p_brand1

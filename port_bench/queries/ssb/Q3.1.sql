@@ -1,0 +1,7 @@
+SELECT c_nation, s_nation, d_year, SUM(lo_revenue) AS revenue
+FROM lineorder JOIN customer ON lo_custkey = c_custkey
+JOIN supplier ON lo_suppkey = s_suppkey
+JOIN date ON lo_orderdate = d_datekey
+WHERE c_region = 'ASIA' AND s_region = 'ASIA' AND d_year >= 1992 AND d_year <= 1997
+GROUP BY c_nation, s_nation, d_year
+ORDER BY d_year ASC, revenue DESC

@@ -1,0 +1,9 @@
+SELECT c_city, s_city, d_year, SUM(lo_revenue) AS revenue
+FROM lineorder JOIN customer ON lo_custkey = c_custkey
+JOIN supplier ON lo_suppkey = s_suppkey
+JOIN date ON lo_orderdate = d_datekey
+WHERE (c_city = 'UNITED KI1' OR c_city = 'UNITED KI5')
+  AND (s_city = 'UNITED KI1' OR s_city = 'UNITED KI5')
+  AND d_yearmonth = 'Dec1997'
+GROUP BY c_city, s_city, d_year
+ORDER BY d_year ASC, revenue DESC
