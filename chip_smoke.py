@@ -778,6 +778,21 @@ def read_counts():
 # is taken again. CUPTI has dropped every kernel of a profiled run on the
 # card (a program body of 0.36 ms of kernels), once in many runs.
 PROFILE_TRIES = 3
+# profiler ranges (the port's `qe:` spans, `pipeline:<operator>`, this
+# file's `node:<kind>`) also leave a user annotation on the device's
+# timeline, typed CUDA and spanning the gaps between kernels: not a kernel
+RANGE_PREFIXES = ("qe:", "pipeline:", "node:")
+
+
+def kernel_events(events):
+    """The CUDA events of `events` (`prof.events()` or `key_averages()`)
+    that ran on the card, ranges' device-side shadows left out."""
+    import torch
+
+    cuda = torch.autograd.DeviceType.CUDA
+    return [e for e in events if e.device_type == cuda
+            and not getattr(e, "is_user_annotation", False)
+            and not e.key.startswith(RANGE_PREFIXES)]
 
 
 def profiled(run):
@@ -788,15 +803,14 @@ def profiled(run):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    cuda = torch.autograd.DeviceType.CUDA
     for tries in range(1, PROFILE_TRIES + 1):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             res = run()
             torch.cuda.synchronize()
-        if any(e.device_type == cuda and e.self_device_time_total > 0
-               for e in prof.key_averages()):
+        if any(e.self_device_time_total > 0
+               for e in kernel_events(prof.key_averages())):
             break
     return prof, tries, res
 
@@ -811,8 +825,7 @@ def profile_query(sess, query, tag):
     print(prof.key_averages().table(sort_by="cuda_time_total",
                                     row_limit=25))
     events = prof.events()
-    names = {e.name for e in events
-             if e.device_type == torch.autograd.DeviceType.CUDA}
+    names = {e.name for e in kernel_events(events)}
     return names | {k.name for e in events for k in getattr(e, "kernels", ())}
 
 
@@ -838,9 +851,8 @@ def profile_program(sess, tag, entry=None):
     # of the kernels launched inside it, and as a GPU annotation spanning
     # it on the device's timeline (gaps included); kernels are the rest
     events = prof.key_averages()
-    cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
-    total = sum(e.self_device_time_total for e in events
-                if e.device_type == cuda and not e.key.startswith("pipeline:"))
+    cpu = torch.autograd.DeviceType.CPU
+    total = sum(e.self_device_time_total for e in kernel_events(events))
     if not total:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -864,8 +876,8 @@ def profile_program(sess, tag, entry=None):
     for name, us in ops + [("other (leaf masks, result count)",
                             total - sum(us for _, us in ops))]:
         print(f"  {name:<34} {us / 1e3:8.3f} ms  {100 * us / total:5.1f} %")
-    for e in events:  # launched through ctypes, outside any aten op
-        if e.device_type == cuda and any(
+    for e in kernel_events(events):  # launched through ctypes, no aten op
+        if any(
                 k in e.key for k in ("sum_count_", "float_absmax",
                                      "gather_words")):
             print(f"  of which hand kernel {e.key[:40]}: "
@@ -1306,11 +1318,9 @@ def device_ms(sess, query):
         return (time.perf_counter() - t0) * 1e3
 
     prof, _, wall = profiled(run)
-    cuda = torch.autograd.DeviceType.CUDA
-    events = prof.key_averages()
-    busy = sum(e.self_device_time_total for e in events
-               if e.device_type == cuda) / 1e3
-    names = {e.key for e in events if e.device_type == cuda}
+    kernels = kernel_events(prof.key_averages())
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    names = {e.key for e in kernels}
     return busy, wall, names
 
 
@@ -1952,9 +1962,8 @@ def device_by_node(sess, query):
         prof, _, wall = profiled(run)
     finally:
         QueryExecutor._execute_node = real
-    cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
-    kernels = [e for e in prof.key_averages() if e.device_type == cuda
-               and not e.key.startswith(("node:", "pipeline:"))]
+    cpu = torch.autograd.DeviceType.CPU
+    kernels = kernel_events(prof.key_averages())
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
     names = {e.key for e in kernels}
     top = {e.key[:60]: round(e.self_device_time_total / 1e3, 3)
@@ -3683,7 +3692,6 @@ def _mesh_part(tag, fn, verify, mesh, spy, want_group_agg):
             warm.append((time.perf_counter() - t0) * 1e3)
     verify(res)
     del res
-    cuda = torch.autograd.DeviceType.CUDA
 
     def run():
         l0 = group_agg.launches
@@ -3693,14 +3701,11 @@ def _mesh_part(tag, fn, verify, mesh, spy, want_group_agg):
 
     with spy.active():
         prof, _, prof_launches = profiled(run)
-    events = prof.key_averages()
-    kernel_ms = sum(e.self_device_time_total for e in events
-                    if e.device_type == cuda) / 1e3
+    events = kernel_events(prof.key_averages())
+    kernel_ms = sum(e.self_device_time_total for e in events) / 1e3
     agg_ms = sum(e.self_device_time_total for e in events
-                 if e.device_type == cuda
-                 and ("sum_count_" in e.key or "float_absmax" in e.key)) / 1e3
-    top = sorted((e for e in events if e.device_type == cuda),
-                 key=lambda e: -e.self_device_time_total)[:4]
+                 if "sum_count_" in e.key or "float_absmax" in e.key) / 1e3
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:4]
     top = [(e.key[:48], round(e.self_device_time_total / 1e3, 3), e.count)
            for e in top]
     if want_group_agg:
@@ -4299,7 +4304,6 @@ def phase16a(tables, card, spy):
     sess = Session(device="cuda", mesh=mesh)
     data.register(sess, tables)
     torch.cuda.synchronize()
-    cuda = torch.autograd.DeviceType.CUDA
     out, held = {}, {}
     for q, text in queries.QUERIES.items():
         want = oracle.run(q, tables)
@@ -4326,12 +4330,10 @@ def phase16a(tables, card, spy):
 
         with spy.active():
             prof, tries, prof_launches = profiled(run)
-        events = prof.key_averages()
-        kernel_ms = sum(e.self_device_time_total for e in events
-                        if e.device_type == cuda) / 1e3
+        events = kernel_events(prof.key_averages())
+        kernel_ms = sum(e.self_device_time_total for e in events) / 1e3
         agg_ms = sum(e.self_device_time_total for e in events
-                     if e.device_type == cuda and (
-                         "sum_count_" in e.key or "float_absmax" in e.key)
+                     if "sum_count_" in e.key or "float_absmax" in e.key
                      ) / 1e3
         check(not launches or held[q], f"phase 16a: {q}: no group_agg call "
               "of its first run was held against the plain versions")

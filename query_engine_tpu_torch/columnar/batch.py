@@ -32,6 +32,7 @@ from query_engine_tpu_torch.core.errors import ExecutionError, SchemaError
 from query_engine_tpu_torch.core.schema import Field, Schema
 from query_engine_tpu_torch.core.types import DataType, TypeKind
 from query_engine_tpu_torch.columnar.dictionary import Dictionary, merge_many
+from query_engine_tpu_torch.utils.profiling import span
 
 try:
     import pyarrow as pa
@@ -422,8 +423,9 @@ class ColumnBatch:
         the one way a batch comes to Python (`to_pylist`, `to_pydict`, the
         pgwire DataRows). Imports no pyarrow: it is `to_arrow`'s host
         step."""
-        return [host_pylist(d, v, c.dtype, c.dictionary)
-                for (d, v), c in zip(self.host_planes(), self.columns)]
+        with span("result"):
+            return [host_pylist(d, v, c.dtype, c.dictionary)
+                    for (d, v), c in zip(self.host_planes(), self.columns)]
 
     def to_arrow(self):
         """A pyarrow RecordBatch of the live rows: each plane read to the

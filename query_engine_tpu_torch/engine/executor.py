@@ -49,7 +49,6 @@ same call runs the kernel's plain version.
 
 from __future__ import annotations
 
-import time
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -72,6 +71,7 @@ from query_engine_tpu_torch.ops import group_agg
 from query_engine_tpu_torch.ops import kernels as K
 from query_engine_tpu_torch.plan import logical as lp
 from query_engine_tpu_torch.plan import physical as pp
+from query_engine_tpu_torch.utils.profiling import span
 
 
 def _val_to_column(v: Val, f: Field) -> Column:
@@ -153,19 +153,25 @@ class QueryExecutor:
         self._compiled = compiled_enabled()
         self.chunked = ChunkedAggregate(self)
 
+    # A counted read waits for the device: its host ms go to the
+    # pipeline's `sync_ms` beside the other phases' ms (inside an eager
+    # leaf, to the leaf's `leaf_ms`).
     def _host_int(self, t: torch.Tensor) -> int:
         self.host_syncs += 1
-        return int(t.item())
+        with self.pipeline.phase("sync", "sync_ms"):
+            return int(t.item())
 
     def _host_list(self, t: torch.Tensor):
         """One counted read of a whole tensor (t.tolist())."""
         self.host_syncs += 1
-        return t.tolist()
+        with self.pipeline.phase("sync", "sync_ms"):
+            return t.tolist()
 
     def _host_np(self, t: torch.Tensor) -> np.ndarray:
         """One counted read of a whole plane, as a numpy array."""
         self.host_syncs += 1
-        return t.cpu().numpy()
+        with self.pipeline.phase("sync", "sync_ms"):
+            return t.cpu().numpy()
 
     def _host_pylist(self, v: Val, n: int) -> list:
         """The first n rows of a value as Python values (None for NULL):
@@ -174,10 +180,6 @@ class QueryExecutor:
                       torch.from_numpy(self._host_np(v.validity)), v.dtype,
                       v.dictionary)
         return host.to_pylist(n)
-
-    def _add_host_ms(self, kind: str, t0: float) -> None:
-        self.host_ms[kind] = self.host_ms.get(kind, 0.0) \
-            + (time.perf_counter() - t0) * 1e3
 
     # ---- entry ---------------------------------------------------------
     def execute(self, plan: pp.PhysicalPlan) -> ColumnBatch:
@@ -679,11 +681,9 @@ class QueryExecutor:
                 data = v.data.to(torch.int32) if v.data.dtype == torch.bool \
                     else v.data
                 kmin, kmax, anyv = K.key_range(data, v.validity, num_rows)
-                self.host_syncs += 1  # one read of the three scalars
-                lo, hi, anyv = torch.stack(
+                lo, hi, anyv = self._host_list(torch.stack(
                     [kmin.to(torch.int64), kmax.to(torch.int64),
-                     anyv.to(torch.int64)]
-                ).tolist()
+                     anyv.to(torch.int64)]))  # one read of the three scalars
                 if anyv and hi - lo + 1 <= self._DIRECT_GROUP_MAX_RANGE:
                     g, ng, rep = K.group_ids_direct(
                         data, v.validity, num_rows, lo, hi - lo + 1
@@ -822,26 +822,26 @@ class QueryExecutor:
         code and validity planes. A string's code stands for it (the
         dictionary is sorted and unique), so DISTINCT keeps each group's
         first row of each code."""
-        t0 = time.perf_counter()
-        delim = agg.param[0]
-        lm = K.live_mask(cap, batch.num_rows, self.device)
-        ok = self._host_np(lm & av.validity)
-        codes = self._host_np(av.data)
-        values = av.dictionary.values if av.dictionary is not None else []
-        rows = self._agg_host_row_order(agg, batch, np.flatnonzero(ok))
-        out_strs = [None] * out_cap
-        for gi, rs in self._host_groups(gid, rows, out_cap).items():
-            cs = codes[rs]
-            if agg.distinct:
-                _, first = np.unique(cs, return_index=True)
-                cs = cs[np.sort(first)]
-            out_strs[gi] = delim.join(values[c] for c in cs.tolist())
-        new_dict, new_codes = Dictionary.from_values(
-            ["" if v is None else v for v in out_strs])
-        valid = np.array([v is not None for v in out_strs], dtype=bool)
-        out = Column(to_tensor(new_codes.astype(np.int32), self.device),
-                     to_tensor(valid, self.device), DataType.utf8(), new_dict)
-        self._add_host_ms("string_agg", t0)
+        with span("string_agg", self.host_ms, "string_agg"):
+            delim = agg.param[0]
+            lm = K.live_mask(cap, batch.num_rows, self.device)
+            ok = self._host_np(lm & av.validity)
+            codes = self._host_np(av.data)
+            values = av.dictionary.values if av.dictionary is not None else []
+            rows = self._agg_host_row_order(agg, batch, np.flatnonzero(ok))
+            out_strs = [None] * out_cap
+            for gi, rs in self._host_groups(gid, rows, out_cap).items():
+                cs = codes[rs]
+                if agg.distinct:
+                    _, first = np.unique(cs, return_index=True)
+                    cs = cs[np.sort(first)]
+                out_strs[gi] = delim.join(values[c] for c in cs.tolist())
+            new_dict, new_codes = Dictionary.from_values(
+                ["" if v is None else v for v in out_strs])
+            valid = np.array([v is not None for v in out_strs], dtype=bool)
+            out = Column(to_tensor(new_codes.astype(np.int32), self.device),
+                         to_tensor(valid, self.device), DataType.utf8(),
+                         new_dict)
         return out
 
     def _grouped_array_agg(self, agg, av, gid, batch, cap, out_cap, dtype):
@@ -852,24 +852,24 @@ class QueryExecutor:
         them as NULL elements). The result is a dictionary of Python lists
         with codes arange(out_cap): terminal output, as in the
         reference."""
-        t0 = time.perf_counter()
-        pyvals = self._host_pylist(av, cap)
-        lm = K.live_mask(cap, batch.num_rows, self.device)
-        if agg.filter is not None:
-            fv = self.evaluator.eval(agg.filter, batch)
-            lm = lm & fv.data.to(torch.bool) & fv.validity
-        rows = self._agg_host_row_order(agg, batch,
-                                        np.flatnonzero(self._host_np(lm)))
-        values = np.empty(out_cap, dtype=object)
-        valid = np.zeros(out_cap, dtype=bool)
-        for gi, rs in self._host_groups(gid, rows, out_cap).items():
-            vs = [pyvals[i] for i in rs.tolist()]
-            values[gi] = self._dedup_keep_order(vs) if agg.distinct else vs
-            valid[gi] = True
-        out = Column(torch.arange(out_cap, dtype=torch.int32,
-                                  device=self.device),
-                     to_tensor(valid, self.device), dtype, Dictionary(values))
-        self._add_host_ms("array_agg", t0)
+        with span("array_agg", self.host_ms, "array_agg"):
+            pyvals = self._host_pylist(av, cap)
+            lm = K.live_mask(cap, batch.num_rows, self.device)
+            if agg.filter is not None:
+                fv = self.evaluator.eval(agg.filter, batch)
+                lm = lm & fv.data.to(torch.bool) & fv.validity
+            rows = self._agg_host_row_order(agg, batch,
+                                            np.flatnonzero(self._host_np(lm)))
+            values = np.empty(out_cap, dtype=object)
+            valid = np.zeros(out_cap, dtype=bool)
+            for gi, rs in self._host_groups(gid, rows, out_cap).items():
+                vs = [pyvals[i] for i in rs.tolist()]
+                values[gi] = self._dedup_keep_order(vs) if agg.distinct else vs
+                valid[gi] = True
+            out = Column(torch.arange(out_cap, dtype=torch.int32,
+                                      device=self.device),
+                         to_tensor(valid, self.device), dtype,
+                         Dictionary(values))
         return out
 
     # ---- UNNEST ---------------------------------------------------------
@@ -892,34 +892,34 @@ class QueryExecutor:
             # lists all have one length (Dictionary.map_values)
             raise TypeError(
                 "only length-1 arrays can be converted to Python scalars")
-        t0 = time.perf_counter()
-        fld = plan.out_schema.field(len(plan.out_schema) - 1)
-        lengths, offsets, elems = self._unnest_table(v.dictionary,
-                                                     fld.data_type)
-        dev, cap, n = self.device, batch.capacity, batch.num_rows
-        nd = len(lengths)
-        code = v.data.to(torch.int64)
-        ok = K.live_mask(cap, n, dev) & v.validity & (code >= 0) & (code < nd)
-        code = code.clamp(0, max(nd - 1, 0))
-        len_t = to_tensor(lengths if nd else np.zeros(1, np.int64), dev)
-        off_t = to_tensor(offsets if nd else np.zeros(1, np.int64), dev)
-        per_row = torch.where(ok, len_t[code], 0)
-        total = self._host_int(per_row.sum())
-        out_cap = padded_capacity(total)
-        # output row j belongs to the input row whose run of the running
-        # total holds j: repeat_interleave(arange(cap), per_row)
-        ends = torch.cumsum(per_row, 0)
-        j = torch.arange(total, device=dev)
-        ridx = torch.searchsorted(ends, j, right=True)
-        eidx = off_t[code[ridx]] + j - (ends - per_row)[ridx]
-        live = K.live_mask(out_cap, total, dev)
-        pad = torch.zeros(out_cap - total, dtype=torch.int64, device=dev)
-        ridx, eidx = torch.cat([ridx, pad]), torch.cat([eidx, pad])
-        cols = list(_take(batch, ridx, total, row_valid=live).columns) \
-            if batch.columns else []
-        cols.append(Column(elems.data[eidx], elems.validity[eidx] & live,
-                           fld.data_type, elems.dictionary))
-        self._add_host_ms("unnest", t0)
+        with span("unnest", self.host_ms, "unnest"):
+            fld = plan.out_schema.field(len(plan.out_schema) - 1)
+            lengths, offsets, elems = self._unnest_table(v.dictionary,
+                                                         fld.data_type)
+            dev, cap, n = self.device, batch.capacity, batch.num_rows
+            nd = len(lengths)
+            code = v.data.to(torch.int64)
+            ok = (K.live_mask(cap, n, dev) & v.validity & (code >= 0)
+                  & (code < nd))
+            code = code.clamp(0, max(nd - 1, 0))
+            len_t = to_tensor(lengths if nd else np.zeros(1, np.int64), dev)
+            off_t = to_tensor(offsets if nd else np.zeros(1, np.int64), dev)
+            per_row = torch.where(ok, len_t[code], 0)
+            total = self._host_int(per_row.sum())
+            out_cap = padded_capacity(total)
+            # output row j belongs to the input row whose run of the running
+            # total holds j: repeat_interleave(arange(cap), per_row)
+            ends = torch.cumsum(per_row, 0)
+            j = torch.arange(total, device=dev)
+            ridx = torch.searchsorted(ends, j, right=True)
+            eidx = off_t[code[ridx]] + j - (ends - per_row)[ridx]
+            live = K.live_mask(out_cap, total, dev)
+            pad = torch.zeros(out_cap - total, dtype=torch.int64, device=dev)
+            ridx, eidx = torch.cat([ridx, pad]), torch.cat([eidx, pad])
+            cols = list(_take(batch, ridx, total, row_valid=live).columns) \
+                if batch.columns else []
+            cols.append(Column(elems.data[eidx], elems.validity[eidx] & live,
+                               fld.data_type, elems.dictionary))
         return ColumnBatch(plan.out_schema, cols, total)
 
     def _unnest_table(self, d: Dictionary, elem_type: DataType):

@@ -98,7 +98,6 @@ import gc
 import itertools
 import os
 import threading
-import time
 from dataclasses import dataclass
 from typing import List, NamedTuple, Optional, Tuple
 
@@ -120,6 +119,7 @@ from query_engine_tpu_torch.ops import group_agg, small_gather
 from query_engine_tpu_torch.ops import kernels as K
 from query_engine_tpu_torch.plan import logical as lp
 from query_engine_tpu_torch.plan import physical as pp
+from query_engine_tpu_torch.utils.profiling import profiler_range, span
 
 
 class _Unsupported(Exception):
@@ -699,11 +699,16 @@ class CompiledPipeline:
                       # graphs released to make room for a capture, and
                       # queries run again after running out of memory
                       "graphs_released": 0, "oom_retries": 0,
+                      # captures of a cached entry, by cause: its inputs'
+                      # planes moved, or else its graph was released
+                      "recaptures_released": 0, "recaptures_moved": 0,
                       # host-clock ms in the eager subtrees run as leaves
-                      # (the outermost ones) and in captures outside them
-                      "leaf_ms": 0.0, "capture_ms": 0.0}
+                      # (the outermost ones), and outside them: making room
+                      # for a graph, captures, and counted reads from the
+                      # device (the executor's); no ms is counted twice
+                      "leaf_ms": 0.0, "room_ms": 0.0, "capture_ms": 0.0,
+                      "sync_ms": 0.0}
         self.leaf_kinds = collections.Counter()  # eager leaves by node type
-        self._leaf_depth = 0
         self._clock = itertools.count()  # entries' last use, for the LRU
         # state of the body a thread runs (a mesh program runs one body per
         # shard, each in a thread of its own, over this pipeline)
@@ -731,6 +736,24 @@ class CompiledPipeline:
         self._tls.muted = value
 
     @property
+    def _leaf_depth(self) -> int:
+        """How many eager leaves this thread is inside."""
+        return getattr(self._tls, "leaf_depth", 0)
+
+    @_leaf_depth.setter
+    def _leaf_depth(self, value: int) -> None:
+        self._tls.leaf_depth = value
+
+    @property
+    def _in_shard(self) -> bool:
+        """Whether this thread runs a mesh program's shard body."""
+        return getattr(self._tls, "in_shard", False)
+
+    @_in_shard.setter
+    def _in_shard(self, value: bool) -> None:
+        self._tls.in_shard = value
+
+    @property
     def _leaf_ids(self) -> frozenset:
         return getattr(self._tls, "leaf_ids", frozenset())
 
@@ -745,6 +768,13 @@ class CompiledPipeline:
     @_xfer_by_node.setter
     def _xfer_by_node(self, value: dict) -> None:
         self._tls.xfer_by_node = value
+
+    def phase(self, name: str, key: str) -> span:
+        """A `qe:<name>` span whose host ms go to `stats[key]` outside an
+        eager leaf; inside one they are the leaf's (`leaf_ms`). A mesh
+        program's shard bodies, one a thread at once, count nothing."""
+        counts = self._leaf_depth == 0 and not self._in_shard
+        return span(name, self.stats if counts else None, key)
 
     # ---- entry -----------------------------------------------------------
     def try_execute(self, plan: pp.PhysicalPlan) -> Optional[ColumnBatch]:
@@ -972,7 +1002,8 @@ class CompiledPipeline:
         too (`ChunkedAggregate.drop_staging`)."""
         if entry.planes:
             self.executor.chunked.drop_staging(entry.planes)
-        entry.graph = entry.outputs = entry.planes = entry.ptrs = None
+        # `ptrs` stays: the next run tells moved inputs from unmoved ones
+        entry.graph = entry.outputs = entry.planes = None
         entry.n_bufs = entry.dyn_bufs = None
         entry.xfer = ()
         entry.released = True
@@ -1004,7 +1035,7 @@ class CompiledPipeline:
         pool its capture needs, `need` plus an eighth. Under the capture
         lock: no other thread captures while the cache is emptied."""
         need = entry.need + entry.need // 8
-        with _CAPTURE_LOCK:
+        with self.phase("room", "room_ms"), _CAPTURE_LOCK:
             if not need or self._free_bytes() >= need:
                 return
             for e in sorted((e for e in self._cache.values()
@@ -1108,7 +1139,7 @@ class CompiledPipeline:
             entry.need = max((e.need for e in self._cache.values()),
                              default=0)
             self._room_for(entry)
-            with _CAPTURE_LOCK:
+            with self.phase("room", "room_ms"), _CAPTURE_LOCK:
                 torch.cuda.empty_cache()
                 base = self._reserved_bytes()
         self._compiling = True
@@ -1133,26 +1164,32 @@ class CompiledPipeline:
             # body again
             return self._body(entry, *self._inputs(batches, dyn_vals), xfer)
         planes = [[(c.data, c.validity) for c in b.columns] for b in batches]
-        if entry.graph is None or _ptrs(planes, xfer) != entry.ptrs:
+        moved = _ptrs(planes, xfer) != entry.ptrs
+        if entry.graph is None or moved:
             # released for room, or an input's planes changed (a table
             # registered anew, an eager leaf's or a subquery's new batch, a
             # count program captured anew): the graph would read the old
-            # addresses, so capture over the new ones
-            self._release(entry)
+            # addresses, so capture over the new ones. Counted as moved
+            # wherever the inputs moved, released graph or not: a graph
+            # kept alive would not spare that capture
+            self.stats["recaptures_moved" if moved
+                       else "recaptures_released"] += 1
+            with self.phase("room", "room_ms"):
+                self._release(entry)
             self._room_for(entry)
             self._capture(entry, *self._inputs(batches, dyn_vals), xfer)
-        for buf, b in zip(entry.n_bufs, batches):
-            buf.fill_(b.num_rows)
-        for buf, (_, v) in zip(entry.dyn_bufs, dyn_vals):
-            buf.fill_(v)
-        entry.graph.replay()
+        with span("replay"):
+            for buf, b in zip(entry.n_bufs, batches):
+                buf.fill_(b.num_rows)
+            for buf, (_, v) in zip(entry.dyn_bufs, dyn_vals):
+                buf.fill_(v)
+            entry.graph.replay()
         self.stats["replays"] += 1
         return entry.outputs
 
     def _capture(self, entry, planes, n_bufs, dyn_bufs, xfer=()):
         """Capture the body into a CUDA graph over these inputs. The entry
         keeps the input tensors alive: the graph reads their addresses."""
-        t0 = time.perf_counter()
         # Thread-local mode: the CUDA calls of another thread (another
         # Session's query) do not break this capture; this thread's own
         # unsafe calls still do. Threads that share this Session hold its
@@ -1160,9 +1197,10 @@ class CompiledPipeline:
         # synchronizes the device before it captures, which would break a
         # capture under way in another thread, and captures on one stream.
         with _CAPTURE_LOCK:
-            entry.graph = entry.outputs = None  # free the old graph's pool
-            torch.cuda.empty_cache()
-            base = self._reserved_bytes()
+            with self.phase("room", "room_ms"):
+                entry.graph = entry.outputs = None  # free the old graph's pool
+                torch.cuda.empty_cache()
+                base = self._reserved_bytes()
             graph = torch.cuda.CUDAGraph()
             # A cyclic collection inside the capture may free another CUDA
             # graph (one an unreachable cycle holds, e.g. a dropped
@@ -1171,16 +1209,15 @@ class CompiledPipeline:
             collecting = gc.isenabled()
             gc.disable()
             try:
-                with torch.cuda.graph(graph,
-                                      capture_error_mode="thread_local"):
+                with self.phase("capture", "capture_ms"), \
+                        torch.cuda.graph(graph,
+                                         capture_error_mode="thread_local"):
                     outputs = self._body(entry, planes, n_bufs, dyn_bufs,
                                          xfer)
             finally:
                 if collecting:
                     gc.enable()
             entry.need = max(self._reserved_bytes() - base, 0)  # its pool
-        if self._leaf_depth == 0:
-            self.stats["capture_ms"] += (time.perf_counter() - t0) * 1e3
         entry.graph = graph
         entry.outputs = outputs
         entry.planes = planes
@@ -1513,14 +1550,12 @@ class CompiledPipeline:
         if isinstance(node, pp.PScan):
             return self.executor._exec_scan(node)
         self.leaf_kinds[kind or type(node).__name__[1:]] += 1
-        self._leaf_depth += 1
-        t0 = time.perf_counter()
-        try:
-            return self.executor.execute(node)
-        finally:
-            self._leaf_depth -= 1
-            if self._leaf_depth == 0:
-                self.stats["leaf_ms"] += (time.perf_counter() - t0) * 1e3
+        with self.phase("leaf", "leaf_ms"):  # the outermost leaf's ms
+            self._leaf_depth += 1
+            try:
+                return self.executor.execute(node)
+            finally:
+                self._leaf_depth -= 1
 
     @staticmethod
     def _leaf_sig(b: ColumnBatch):
@@ -1564,7 +1599,7 @@ class CompiledPipeline:
         else:
             raise _Unsupported(type(plan).__name__)
         ins = [self._trace(k, tables, leaf_ids, res) for k in kids]
-        with torch.profiler.record_function(f"pipeline:{name}"):
+        with profiler_range(f"pipeline:{name}"):
             return op(plan, *ins, res=res)
 
     def _trace_filter(self, plan: pp.PFilter, t: _TTable, res) -> _TTable:
@@ -2632,7 +2667,7 @@ class _Entry:
         self.outputs = None   # the graph's output tensors (overwritten)
         self.planes = None    # leaf planes the graph reads (kept alive)
         self.xfer = ()        # handed-over planes the graph reads
-        self.ptrs = None      # their data_ptr()s at capture
+        self.ptrs = None      # their data_ptr()s at capture (kept on release)
         self.n_bufs = None    # leaf row counts, 0-d int64, filled per call
         self.dyn_bufs = None  # literal values, 0-d, filled per call
         self.used = 0         # the pipeline's clock at its last run

@@ -56,7 +56,7 @@ from query_engine_tpu_torch.plan.planner import Planner, Resolver, prefix_schema
 from query_engine_tpu_torch.sql import ast
 from query_engine_tpu_torch.sql.parser import parse_many, parse_sql
 from query_engine_tpu_torch.storage.memory import MemoryDataSource
-from query_engine_tpu_torch.utils.profiling import QueryTiming
+from query_engine_tpu_torch.utils.profiling import QueryTiming, span
 
 MAX_RECURSION_ITERS = 1000  # parity: backend.rs recursive CTE cap
 
@@ -194,16 +194,17 @@ class Session:
         """One statement; `params` binds $1, $2, ... to Python values."""
         if query.lstrip().upper().startswith("EXPLAIN"):
             return self._exec_explain(query)
-        self.last_timing = QueryTiming()
-        t0 = time.perf_counter()
-        stmt = parse_sql(query)
-        self.last_timing.parse_ms = (time.perf_counter() - t0) * 1e3
-        if params:
-            stmt = _bind_params(stmt, params)
-            # the result cache's key must tell parameter values apart
-            return self.execute_statement(
-                stmt, sql_text=query + "\x00" + repr(params))
-        return self.execute_statement(stmt, sql_text=query)
+        with span("sql"):
+            self.last_timing = QueryTiming()
+            with span("parse") as parsing:
+                stmt = parse_sql(query)
+            self.last_timing.parse_ms = parsing.ms
+            if params:
+                stmt = _bind_params(stmt, params)
+                # the result cache's key must tell parameter values apart
+                return self.execute_statement(
+                    stmt, sql_text=query + "\x00" + repr(params))
+            return self.execute_statement(stmt, sql_text=query)
 
     def sql_script(self, script: str) -> List[ColumnBatch]:
         """Execute a semicolon-separated script; returns one result per
@@ -226,14 +227,22 @@ class Session:
             prev = GLOBAL_PROFILER.enabled
             GLOBAL_PROFILER.reset()
             GLOBAL_PROFILER.enabled = True
+            st0 = dict(self.executor.pipeline.stats)
             try:
                 result = self.sql(rest)
             finally:
                 GLOBAL_PROFILER.enabled = prev
+            d = {k: v - st0[k]
+                 for k, v in self.executor.pipeline.stats.items()}
             lines += [
                 "",
                 f"rows: {result.num_rows}",
                 f"timing: {self.last_timing}",
+                f"pipeline: captures={d['captures']} (released="
+                f"{d['recaptures_released']}, moved={d['recaptures_moved']})"
+                f" capture_ms={d['capture_ms']:.2f} room_ms="
+                f"{d['room_ms']:.2f} sync_ms={d['sync_ms']:.2f} leaf_ms="
+                f"{d['leaf_ms']:.2f}",
             ]
             if self.mesh_pipeline is not None:
                 st = self.mesh_pipeline.stats
@@ -460,25 +469,25 @@ class Session:
                    if Planner._references_table(c.query, c.name)]
             if rec:
                 return self._execute_recursive_cte(stmt)
-        t0 = time.perf_counter()
-        plan = self._plan_query(stmt)
-        pplan = Lowering(
-            self.sources, shared_cte_ids=shared_subquery_ids(plan)
-        ).lower(plan)
-        t1 = time.perf_counter()
-        self.last_timing.plan_ms += (t1 - t0) * 1e3
+        with span("plan") as planning:
+            plan = self._plan_query(stmt)
+            pplan = Lowering(
+                self.sources, shared_cte_ids=shared_subquery_ids(plan)
+            ).lower(plan)
+        self.last_timing.plan_ms += planning.ms
         # shared WITH batches and correlated key matches live for one query
         # (their keys are id()s of this query's plan nodes and batches)
         self._clear_query_memos()
         try:
-            out = None
-            if self.mesh_pipeline is not None:
-                out = self.mesh_pipeline.try_execute(pplan)
-            if out is None:
-                out = self.executor.execute(pplan)
+            with span("execute") as executing:
+                out = None
+                if self.mesh_pipeline is not None:
+                    out = self.mesh_pipeline.try_execute(pplan)
+                if out is None:
+                    out = self.executor.execute(pplan)
         finally:
             self._clear_query_memos()
-        self.last_timing.execute_ms += (time.perf_counter() - t1) * 1e3
+        self.last_timing.execute_ms += executing.ms
         return out
 
     def _clear_query_memos(self) -> None:

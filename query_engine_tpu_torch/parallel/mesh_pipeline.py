@@ -495,6 +495,7 @@ class MeshPipeline:
             ev._shard_device = dev
             cp._compiling = counting
             cp._muted = not counting
+            cp._in_shard = True  # its reads stay out of `stats["sync_ms"]`
             ov: List[torch.Tensor] = []
             try:
                 t = self._mtrace(entry.plan, tables, entry.res, ov, factor)
@@ -516,6 +517,7 @@ class MeshPipeline:
                 ev._shard_device = None
                 cp._compiling = False
                 cp._muted = False
+                cp._in_shard = False
                 cp._leaf_ids = frozenset()
             if count_mode:
                 raise _Unsupported("counted join not reached in mesh trace")
