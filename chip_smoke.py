@@ -38,8 +38,9 @@ Phase 4  runs Query A through the compiled pipeline (the default): the
          kernels of one profiled replayed query. Then the fact table is
          registered anew from seed 8 at the same capacity: the rows must be
          the new oracle's.
-Phase 5  runs Query B (the dimension gains a float64 column `rate`, so the
-         join gathers through the packed lookup route) in two Sessions,
+Phase 5  runs Query B (the dimension gains a float64 column `rate`, which
+         Query B reads beside `bonus`, so the join gathers through the
+         packed lookup route) in two Sessions,
          QE_MXU_GATHER unset and then set: rows equal its oracle exactly in
          both, and with the gate set the small gather kernel launches once
          per run of the program (the join's one packed gather) and appears
@@ -430,7 +431,8 @@ N_DIM = 1024
 QUERY = ("SELECT f.dept, COUNT(*) AS c, SUM(f.salary + d.bonus) AS s "
          "FROM f JOIN d ON f.dept = d.dept_id "
          "WHERE f.age > 25 GROUP BY f.dept ORDER BY s DESC LIMIT 10")
-QUERY_B = ("SELECT f.dept, COUNT(*) AS c, SUM(f.salary * d.rate) AS s "
+QUERY_B = ("SELECT f.dept, COUNT(*) AS c, SUM(f.salary * d.rate + d.bonus) "
+           "AS s "
            "FROM f JOIN d ON f.dept = d.dept_id "
            "WHERE f.age > 25 GROUP BY f.dept ORDER BY s DESC LIMIT 10")
 # Fixed point against float64 summation: the kernel sums round(x * 2^k)
@@ -736,8 +738,8 @@ def make_tables(dev, seed=SEED):
 def oracle(cols, per_dept, combine):
     """numpy: mask, join by dept (dept_id = arange, so a lookup), sum per
     dept, then a stable sort on -s over the groups in dept order. Query B's
-    products are multiples of 2^-8 below 2^53, so its float64 sums are
-    exact in any order."""
+    values are multiples of 2^-8 below 2^53, so its float64 sums are exact
+    in any order."""
     m = cols["age"] > 25
     dept = cols["dept"][m]
     val = combine(cols["salary"][m], per_dept[dept])
@@ -753,8 +755,9 @@ def oracle_a(cols, bonus):
     return oracle(cols, bonus, np.add)
 
 
-def oracle_b(cols, rate):
-    return oracle(cols, rate, np.multiply)
+def oracle_b(cols, rate, bonus):
+    return oracle(cols, np.arange(N_DIM),
+                  lambda salary, d: salary * rate[d] + bonus[d])
 
 
 def reset_counts():
@@ -1091,8 +1094,8 @@ def phase5(tables):
 
     from query_engine_tpu_torch.engine.session import Session
 
-    cols, _, rate, fact, _, dim_rate = tables
-    want = oracle_b(cols, rate)
+    cols, bonus, rate, fact, _, dim_rate = tables
+    want = oracle_b(cols, rate, bonus)
     out = {}
     for gate in ("unset", "set"):
         if gate == "set":

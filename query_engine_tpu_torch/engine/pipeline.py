@@ -31,7 +31,8 @@ change (a table registered anew); results are returned as copies, since
 the next replay overwrites the graph's outputs. Each graph keeps a memory
 pool of its own: before a capture that the card's free memory would not
 hold (the pool the entry's last capture took, or what its first, eager
-run grew the allocator by), and before a first run (as much as any
+run grew the allocator by, plus the bytes of its outputs where the caller
+compacts a scattered result), and before a first run (as much as any
 program has taken), the graphs of the least recently used entries are
 released, LRU first, until it does; a released entry captures again when
 it runs next. A query that runs out of device memory anyway (in an eager
@@ -42,7 +43,10 @@ condition) trace in-segment when one side's key multiplicity has a known
 provenance. A unique side (a GROUP BY below the key, or a cached
 multiplicity stat of 1 on a leaf column) takes the FK fast paths; a side
 whose stat is at most 16 emits at the static capacity probe rows x its
-bucketed multiplicity (1/2/4/8/16) plus the outer rows' slots. A join with
+bucketed multiplicity (1/2/4/8/16) plus the outer rows' slots. The FK
+path gathers only the build columns that the nodes above it in the same
+program read (`_demands`, once per cached entry, from its plan); each
+other build column is a stand-in, a zero-stride NULL plane. A join with
 no such bound, or one whose static emit would pass 2^26 slots, goes
 through the count->emit capacity sync: a COUNT program (the same segment,
 stopped at that join by `_CountReady`) returns the join's output size, the
@@ -702,6 +706,10 @@ class CompiledPipeline:
                       # captures of a cached entry, by cause: its inputs'
                       # planes moved, or else its graph was released
                       "recaptures_released": 0, "recaptures_moved": 0,
+                      # the FK joins' build columns gathered to the probe
+                      # rows, and those no node above read (stand-ins), per
+                      # run of a program: first run, recapture or replay
+                      "fk_cols_gathered": 0, "fk_cols_pruned": 0,
                       # host-clock ms in the eager subtrees run as leaves
                       # (the outermost ones), and outside them: making room
                       # for a graph, captures, and counted reads from the
@@ -768,6 +776,25 @@ class CompiledPipeline:
     @_xfer_by_node.setter
     def _xfer_by_node(self, value: dict) -> None:
         self._tls.xfer_by_node = value
+
+    # the body's demand sets (`_demands`; a mesh's local traces have none,
+    # so their FK joins gather every column) and its FK joins' [gathered,
+    # pruned] build columns
+    @property
+    def _demand(self) -> dict:
+        return getattr(self._tls, "demand", {})
+
+    @_demand.setter
+    def _demand(self, value: dict) -> None:
+        self._tls.demand = value
+
+    @property
+    def _fk_tally(self) -> Optional[list]:
+        return getattr(self._tls, "fk_tally", None)
+
+    @_fk_tally.setter
+    def _fk_tally(self, value: Optional[list]) -> None:
+        self._tls.fk_tally = value
 
     def phase(self, name: str, key: str) -> span:
         """A `qe:<name>` span whose host ms go to `stats[key]` outside an
@@ -977,6 +1004,7 @@ class CompiledPipeline:
         entry.dyn_exprs = list(ctx.dyn_exprs)
         entry.sub_exprs = list(ctx.sub_exprs)
         entry.sub_facts = [static_facts(b) for b in subs]
+        entry.demand = _demands(skeleton)
         return entry
 
     def drop_entries_reading(self, sources) -> int:
@@ -1032,9 +1060,10 @@ class CompiledPipeline:
     def _room_for(self, entry) -> None:
         """Before `entry` is captured: release the graphs of the least
         recently used other entries until the card's free memory holds the
-        pool its capture needs, `need` plus an eighth. Under the capture
-        lock: no other thread captures while the cache is emptied."""
-        need = entry.need + entry.need // 8
+        pool its capture needs, `need` plus an eighth, and the copy the
+        caller makes of a scattered result (`result_bytes`). Under the
+        capture lock: no other thread captures while the cache is emptied."""
+        need = entry.need + entry.need // 8 + entry.result_bytes
         with self.phase("room", "room_ms"), _CAPTURE_LOCK:
             if not need or self._free_bytes() >= need:
                 return
@@ -1083,6 +1112,8 @@ class CompiledPipeline:
         self._leaf_ids = entry.leaf_ids
         self._xfer_by_node = {id(entry.checks[o]): x
                               for o, x in zip(entry.xfer_ords, xfer)}
+        self._demand = entry.demand
+        self._fk_tally = tally = [0, 0]
         try:
             t = self._trace(entry.plan, iter(tables[:n_leaves]),
                             entry.leaf_ids, entry.res)
@@ -1104,6 +1135,9 @@ class CompiledPipeline:
             ev._subplans = None
             self._leaf_ids = frozenset()
             self._xfer_by_node = {}
+            self._demand = {}
+            self._fk_tally = None
+            entry.fk_cols = tuple(tally)
         if entry.counts:
             raise _Unsupported("no counted node reached in the trace")
         if not entry.meta:
@@ -1147,8 +1181,13 @@ class CompiledPipeline:
             out = self._body(entry, planes, n_bufs, dyn_bufs, xfer)
         finally:
             self._compiling = False
+        self._count_fk(entry)
         if self._graphs:
             entry.need = max(self._reserved_bytes() - base, 0)
+            # the caller compacts a scattered result while the graph's pool
+            # (and, after this run, the eager outputs) are held
+            entry.result_bytes = (0 if entry.counts or entry.meta["dense"]
+                                  else sum(t.nbytes for t in _flat(out)))
             self._room_for(entry)
             self._capture(entry, planes, n_bufs, dyn_bufs, xfer)
             if entry.counts and entry.outputs is not None:
@@ -1162,7 +1201,9 @@ class CompiledPipeline:
         if entry.graph is None and not entry.released:
             # never captured (the CPU, or a capture stubbed out): run the
             # body again
-            return self._body(entry, *self._inputs(batches, dyn_vals), xfer)
+            out = self._body(entry, *self._inputs(batches, dyn_vals), xfer)
+            self._count_fk(entry)
+            return out
         planes = [[(c.data, c.validity) for c in b.columns] for b in batches]
         moved = _ptrs(planes, xfer) != entry.ptrs
         if entry.graph is None or moved:
@@ -1185,7 +1226,14 @@ class CompiledPipeline:
                 buf.fill_(v)
             entry.graph.replay()
         self.stats["replays"] += 1
+        self._count_fk(entry)
         return entry.outputs
+
+    def _count_fk(self, entry) -> None:
+        """A run's FK build columns, as its entry's last trace found them."""
+        gathered, pruned = entry.fk_cols
+        self.stats["fk_cols_gathered"] += gathered
+        self.stats["fk_cols_pruned"] += pruned
 
     def _capture(self, entry, planes, n_bufs, dyn_bufs, xfer=()):
         """Capture the body into a CUDA graph over these inputs. The entry
@@ -1849,10 +1897,23 @@ class CompiledPipeline:
             probe, build, pr, br = rt, lt, rr, lr
         else:
             probe, build, pr, br = lt, rt, lr, rr
-        bd = [c.data for c in build.cols]
-        bvs = [c.validity for c in build.cols]
+        # only the build columns read above the join or by its residual
+        # gather; no demand (a mesh's local trace) gathers them all
+        lo = 0 if side == "L" else len(lt.cols)
+        need = self._demand.get(id(plan))
+        if need is not None:
+            need = need | _refs([plan.residual])
+        kept = [j for j in range(len(build.cols))
+                if need is None or lo + j in need]
+        if self._fk_tally is not None:
+            self._fk_tally[0] += len(kept)
+            self._fk_tally[1] += len(build.cols) - len(kept)
+        bd = [build.cols[j].data for j in kept]
+        bvs = [build.cols[j].validity for j in kept]
+        bb = _gather_bounds(build)
+        bb = [bb[j] for j in kept]
         fused = K.fk_gather_by_rank(
-            bd, bvs, _gather_bounds(build), br,
+            bd, bvs, bb, br,
             K.live_mask(build.capacity, build.sel), pr,
             K.live_mask(probe.capacity, probe.sel), n_eff,
         )
@@ -1863,13 +1924,14 @@ class CompiledPipeline:
                 pr, br, probe.sel, build.sel, n_ranks
             )
             g_d, g_v = K.gather_columns_packed(
-                bd, bvs, _gather_bounds(build), bi, matched,
+                bd, bvs, bb, bi, matched,
                 mxu_small=_mxu_gather_ok(build.capacity, self.mxu_gather),
             )
-        gathered = [
-            Column(d, v, c.dtype, c.dictionary)
-            for d, v, c in zip(g_d, g_v, build.cols)
-        ]
+        got = {j: Column(d, v, build.cols[j].dtype, build.cols[j].dictionary)
+               for j, d, v in zip(kept, g_d, g_v)}
+        zeros = {}  # one zero element a dtype, shared by the stand-ins
+        gathered = [got[j] if j in got else _stand_in(c, probe.capacity, zeros)
+                    for j, c in enumerate(build.cols)]
         cols = gathered + list(rt.cols) if side == "L" \
             else list(lt.cols) + gathered
         outer = plan.join_type is not lp.JoinType.INNER
@@ -1881,12 +1943,11 @@ class CompiledPipeline:
             if outer:
                 # a failing residual un-matches the pair: the probe row
                 # stays, its gathered build columns go NULL
-                lo = 0 if side == "L" else len(lt.cols)
-                cols = [
-                    Column(c.data, c.validity & mask, c.dtype, c.dictionary)
-                    if lo <= i < lo + len(build.cols) else c
-                    for i, c in enumerate(out.cols)
-                ]
+                cols = list(out.cols)
+                for j in kept:
+                    c = cols[lo + j]
+                    cols[lo + j] = Column(c.data, c.validity & mask,
+                                          c.dtype, c.dictionary)
                 out = _TTable(out.schema, cols, out.sel, out.capacity,
                               False, out.bounds)
             else:
@@ -2525,6 +2586,20 @@ class CompiledPipeline:
         return _TTable(schema, cols, sel_out, S, True, [None] * len(cols))
 
 
+def _stand_in(c: Column, capacity: int, zeros: dict) -> Column:
+    """A build column no node reads, at the probe side's capacity: zero
+    data and a False validity, one element of `zeros` ({dtype: a 0-d zero})
+    expanded (stride 0)."""
+    def zero(dtype):
+        if dtype not in zeros:
+            zeros[dtype] = torch.zeros((), dtype=dtype, device=c.data.device)
+        return zeros[dtype]
+
+    return Column(zero(c.data.dtype).expand(capacity, *c.data.shape[1:]),
+                  zero(torch.bool).expand(capacity, *c.validity.shape[1:]),
+                  c.dtype, c.dictionary)
+
+
 def _fk_path(join_type, resolution) -> bool:
     """A join resolved to a unique side that drops that side's unmatched
     rows (INNER, or LEFT/RIGHT with the unique side inner) takes the FK
@@ -2534,6 +2609,69 @@ def _fk_path(join_type, resolution) -> bool:
     return dup == 1 and (
         (side == "R" and join_type in (J.INNER, J.LEFT))
         or (side == "L" and join_type in (J.INNER, J.RIGHT)))
+
+
+def _refs(exprs) -> set:
+    """The input columns that expressions read: their ColumnRefs' indices
+    (`lp.walk_exprs`, which leaves a subquery's plan, over its own schema,
+    alone). A None among them reads nothing."""
+    out = set()
+    for e in exprs:
+        lp.walk_exprs(e, lambda x: out.add(x.index)
+                      if isinstance(x, lp.ColumnRef) else None)
+    return out
+
+
+def _demands(root) -> dict:
+    """{id(node): the set of the node's output columns that the nodes above
+    it in the program read, or None for all of them}. The root's output
+    leaves the program, so it is demanded whole. A node demands of its
+    input what its parent demands of it plus what its own expressions read;
+    a projection and an aggregate only the latter. A node not known here
+    (DISTINCT, a set operation, anything new) demands all of its input."""
+    out = {}
+
+    def visit(node, need):
+        if id(node) in out:  # a node the plan reaches twice: the union
+            had = out[id(node)]
+            need = None if had is None or need is None else had | need
+            if need == had:
+                return
+        out[id(node)] = need
+        if isinstance(node, (pp.PFilter, pp.PSort, pp.PLimit, pp.PSubquery)):
+            own = (_refs([node.predicate]) if isinstance(node, pp.PFilter)
+                   else _refs(k.expr for k in node.keys)
+                   if isinstance(node, pp.PSort) else set())
+            visit(node.input, None if need is None else need | own)
+        elif isinstance(node, pp.PProjection):
+            visit(node.input, _refs(node.exprs))
+        elif isinstance(node, pp.PHashAggregate):
+            visit(node.input, _refs(list(node.group_exprs)
+                                    + list(node.agg_exprs)))
+        elif isinstance(node, pp.PWindow):
+            n_in = len(node.input.schema())
+            visit(node.input, None if need is None else
+                  {i for i in need if i < n_in} | _refs(node.window_exprs))
+        elif isinstance(node, pp.PHashJoin):
+            n_left = len(node.left.schema())
+            if need is None:
+                lneed = rneed = None
+            else:
+                r = need | _refs([node.residual])
+                lneed = {i for i in r if i < n_left} | _refs(
+                    le for le, _ in node.key_pairs)
+                rneed = {i - n_left for i in r if i >= n_left} | _refs(
+                    re_ for _, re_ in node.key_pairs)
+            visit(node.left, lneed)
+            visit(node.right, rneed)
+        else:
+            for f in ("input", "left", "right"):
+                c = getattr(node, f, None)
+                if isinstance(c, pp.PhysicalPlan):
+                    visit(c, None)
+
+    visit(root, None)
+    return out
 
 
 def _sources_read(plan, sub_exprs=()) -> set:
@@ -2647,7 +2785,8 @@ class _Entry:
     __slots__ = ("plan", "leaf_facts", "leaf_ids", "res", "checks", "counts",
                  "ordinal", "xfer_ords", "dyn_exprs", "sub_exprs",
                  "sub_facts", "meta", "graph", "outputs", "planes", "xfer",
-                 "ptrs", "n_bufs", "dyn_bufs", "used", "need", "released")
+                 "ptrs", "n_bufs", "dyn_bufs", "used", "need", "released",
+                 "demand", "fk_cols", "result_bytes")
 
     def __init__(self, plan, leaf_facts):
         self.plan = plan
@@ -2672,7 +2811,12 @@ class _Entry:
         self.dyn_bufs = None  # literal values, 0-d, filled per call
         self.used = 0         # the pipeline's clock at its last run
         self.need = 0         # bytes of device memory its capture takes
+        self.result_bytes = 0  # bytes of its outputs, where the caller
+        # compacts them (a scattered result), else 0
         self.released = False  # its graph was released (captures again)
+        self.demand = {}      # `_demands` of `plan`
+        self.fk_cols = (0, 0)  # its FK joins' build columns: (gathered,
+        # pruned), counted by its last trace
 
 
 def compiled_enabled() -> bool:

@@ -29,9 +29,10 @@ BENCH_QUERY = (
     "FROM f JOIN d ON f.dept = d.dept_id "
     "WHERE f.age > 25 GROUP BY f.dept ORDER BY s DESC LIMIT 10"
 )
-# the small-table gather's query: a float dimension column
+# the small-table gather's query: a float dimension column read beside a
+# packed one
 QUERY_B = (
-    "SELECT f.dept, COUNT(*) AS c, SUM(f.salary * d.rate) AS s "
+    "SELECT f.dept, COUNT(*) AS c, SUM(f.salary * d.rate + d.bonus) AS s "
     "FROM f JOIN d ON f.dept = d.dept_id "
     "WHERE f.age > 25 GROUP BY f.dept ORDER BY s DESC LIMIT 10"
 )
@@ -437,8 +438,10 @@ def test_compiled_queries_on_card_match_cpu(cuda_device, monkeypatch,
     syncs = gpu.executor.host_syncs
     assert gpu.sql(query).to_pylist() == want
     assert st["replays"] == 1 and gpu.executor.host_syncs == syncs + 1, st
-    # Query A's dimension is Query B's here, so both take the lookup route
-    assert (small_gather.launches > gathers) == (mxu_gather == "1")
+    # the join gathers only the columns a query reads: Query A's bonus
+    # packs (the fused route), Query B's rate does not (the lookup route)
+    assert (small_gather.launches > gathers) == (
+        mxu_gather == "1" and query == QUERY_B)
 
 
 def test_replay_after_reregistering_a_table(cuda_device):

@@ -27,6 +27,8 @@ QUERIES = [
     "SELECT SUM(v * 2) AS s FROM t",
     "SELECT k, MAX(v) AS m FROM t GROUP BY k ORDER BY k",
     "SELECT k, MIN(v) AS m, AVG(v) AS a FROM t GROUP BY k ORDER BY k",
+    # a scattered result (the filter's holes), compacted after the program
+    "SELECT k, v FROM t WHERE v > 190",
 ]
 TABLE = {"k": [i % 5 for i in range(200)], "v": list(range(200))}
 
@@ -165,3 +167,18 @@ def test_out_of_memory_with_no_graph_to_release_raises(modelled, want):
     with pytest.raises(torch.OutOfMemoryError):
         s.sql(QUERIES[0]).to_pylist()
     assert pipe.stats["oom_retries"] == 0
+
+
+def test_room_for_a_scattered_result(modelled, want):
+    """The caller compacts a scattered result while the graph's pool and the
+    first run's outputs are held, so its capture's room adds the bytes of
+    the outputs (here more than the modelled card holds: every other graph
+    goes first); a dense result adds none."""
+    s, pipe, keys = modelled
+    for q in range(3):
+        _run(s, pipe, keys, q, want)
+    assert [pipe._cache[keys[q]].result_bytes for q in range(3)] == [0] * 3
+    _run(s, pipe, keys, 5, want)
+    assert pipe._cache[keys[5]].result_bytes > CAPACITY
+    assert pipe.stats["graphs_released"] == 3
+    assert _live(pipe, keys) == [5]

@@ -106,7 +106,7 @@ QUERY_A = (
     "WHERE f.age > 25 GROUP BY f.dept ORDER BY s DESC LIMIT 10"
 )
 QUERY_B = (
-    "SELECT f.dept, COUNT(*) AS c, SUM(f.salary * d.rate) AS s "
+    "SELECT f.dept, COUNT(*) AS c, SUM(f.salary * d.rate + d.bonus) AS s "
     "FROM f JOIN d ON f.dept = d.dept_id "
     "WHERE f.age > 25 GROUP BY f.dept ORDER BY s DESC LIMIT 10"
 )
@@ -276,7 +276,8 @@ def test_queries_a_and_b(bench_reference, monkeypatch, query, mxu_gather):
     assert fast.sql(q).to_pylist() == got  # a warm run: a cache hit
     assert st["hits"] == 1, st
     uses_gather = query == "B" and mxu_gather == "1"
-    # one packed word per fact row: dept_id and the validity bits
+    # one packed word per fact row: bonus and the validity bits (the join
+    # gathers only the columns the query reads: bonus and rate)
     assert calls == ([(1, 1024)] * 2 if uses_gather else []), calls
 
 
