@@ -150,6 +150,7 @@ class QueryExecutor:
         # reads this one batch. The Session clears it around a query.
         self._cte_memo = {}
         self.pipeline = CompiledPipeline(self)
+        self.evaluator.like_phase = self.pipeline.like_phase
         self._compiled = compiled_enabled()
         self.chunked = ChunkedAggregate(self)
 
@@ -360,6 +361,7 @@ class QueryExecutor:
 
     def _cross_join(self, plan: pp.PHashJoin) -> ColumnBatch:
         """Every (left, right) pair, left-major."""
+        self.pipeline.stats["cross_joins"] += 1
         left = self.execute(plan.left)
         right = self.execute(plan.right)
         total = left.num_rows * right.num_rows

@@ -36,6 +36,7 @@ AND/OR follow Kleene logic; predicates treat NULL as false at filter time.
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import json as _json
 import math
@@ -611,6 +612,9 @@ class Evaluator:
         # correlated lookups rooted at one shared aggregate repeat (Q21's
         # EXISTS and MIN/MAX bounds); the Session clears it around a query
         self._corr_match_memo = {}
+        # (values matched) -> the span of a LIKE's dictionary match; the
+        # executor gives its pipeline's, which counts it
+        self.like_phase = lambda values: contextlib.nullcontext()
 
     @property
     def device(self) -> torch.device:
@@ -928,8 +932,9 @@ class Evaluator:
                                flags).match
         else:
             match = re.compile(pat, flags).search
-        table = np.asarray([bool(match(x)) for x in l.dictionary.values],
-                           dtype=bool)
+        values = l.dictionary.values
+        with self.like_phase(len(values)):
+            table = np.asarray([bool(match(x)) for x in values], dtype=bool)
         data = _code_table(table, l)
         if neg:
             data = ~data

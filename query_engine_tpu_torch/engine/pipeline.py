@@ -97,6 +97,7 @@ The eager executor is the semantics oracle (tests/test_torch_pipeline.py).
 from __future__ import annotations
 
 import collections
+import contextlib
 import copy
 import gc
 import itertools
@@ -715,7 +716,12 @@ class CompiledPipeline:
                       # for a graph, captures, and counted reads from the
                       # device (the executor's); no ms is counted twice
                       "leaf_ms": 0.0, "room_ms": 0.0, "capture_ms": 0.0,
-                      "sync_ms": 0.0}
+                      "sync_ms": 0.0,
+                      # LIKE and the regex operators' dictionary matches on
+                      # the host: their ms (taken out of an enclosing leaf's
+                      # leaf_ms) and the dictionary values matched; CROSS
+                      # joins run (eager: a program never holds one)
+                      "like_ms": 0.0, "like_values": 0, "cross_joins": 0}
         self.leaf_kinds = collections.Counter()  # eager leaves by node type
         self._clock = itertools.count()  # entries' last use, for the LRU
         # state of the body a thread runs (a mesh program runs one body per
@@ -802,6 +808,25 @@ class CompiledPipeline:
         program's shard bodies, one a thread at once, count nothing."""
         counts = self._leaf_depth == 0 and not self._in_shard
         return span(name, self.stats if counts else None, key)
+
+    @contextlib.contextmanager
+    def like_phase(self, values: int):
+        """The `qe:like` span of one dictionary match of `values` values:
+        its host ms to `like_ms`, and out of the enclosing eager leaf's
+        `leaf_ms`, so that no ms is counted twice; a mesh program's shard
+        bodies count nothing."""
+        if self._in_shard:
+            with span("like"):
+                yield
+            return
+        self.stats["like_values"] += values
+        s = span("like", self.stats, "like_ms")
+        try:
+            with s:
+                yield
+        finally:
+            if self._leaf_depth:
+                self.stats["leaf_ms"] -= s.ms
 
     # ---- entry -----------------------------------------------------------
     def try_execute(self, plan: pp.PhysicalPlan) -> Optional[ColumnBatch]:
@@ -2627,8 +2652,10 @@ def _demands(root) -> dict:
     it in the program read, or None for all of them}. The root's output
     leaves the program, so it is demanded whole. A node demands of its
     input what its parent demands of it plus what its own expressions read;
-    a projection and an aggregate only the latter. A node not known here
-    (DISTINCT, a set operation, anything new) demands all of its input."""
+    an aggregate only the latter, and a projection what its demanded
+    expressions read (all of them where all are demanded). A node not known
+    here (DISTINCT, a set operation, anything new) demands all of its
+    input."""
     out = {}
 
     def visit(node, need):
@@ -2644,7 +2671,9 @@ def _demands(root) -> dict:
                    if isinstance(node, pp.PSort) else set())
             visit(node.input, None if need is None else need | own)
         elif isinstance(node, pp.PProjection):
-            visit(node.input, _refs(node.exprs))
+            visit(node.input, _refs(
+                node.exprs if need is None
+                else [node.exprs[i] for i in sorted(need)]))
         elif isinstance(node, pp.PHashAggregate):
             visit(node.input, _refs(list(node.group_exprs)
                                     + list(node.agg_exprs)))

@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import functools
 import threading
 import time
 from typing import Dict, List, Optional
@@ -104,7 +105,10 @@ class Session:
         self.device = require_device(device, "Session")
         self.udfs = UdfRegistry()
         self.planner = Planner(self.udfs)
-        self.optimizer = Optimizer()
+        self.sources: Dict[str, object] = {}
+        # the optimizer's join order reads the tables' row counts
+        self.optimizer = Optimizer(
+            table_rows=functools.partial(_table_rows, self.sources))
         self.executor = QueryExecutor(self.device, self.udfs)
         self.mesh_pipeline = None
         if mesh is None:
@@ -120,7 +124,6 @@ class Session:
                     f"{mesh.home}: the mesh's shards must be of the "
                     "Session's device kind")
             self.mesh_pipeline = MeshPipeline(self.executor, mesh)
-        self.sources: Dict[str, object] = {}
         # rounds and host dedup ms of the last WITH RECURSIVE query
         self.recursion: Dict[str, float] = {}
         # parse/plan/execute breakdown of the last statement
@@ -242,7 +245,9 @@ class Session:
                 f"{d['recaptures_released']}, moved={d['recaptures_moved']})"
                 f" capture_ms={d['capture_ms']:.2f} room_ms="
                 f"{d['room_ms']:.2f} sync_ms={d['sync_ms']:.2f} leaf_ms="
-                f"{d['leaf_ms']:.2f}",
+                f"{d['leaf_ms']:.2f} like_ms={d['like_ms']:.2f} "
+                f"like_values={d['like_values']} "
+                f"cross_joins={d['cross_joins']}",
             ]
             if self.mesh_pipeline is not None:
                 st = self.mesh_pipeline.stats
@@ -1109,6 +1114,12 @@ def _literal_val(value, capacity: int, device) -> Val:
     return _bcast(value, dt, capacity, device)
 
 
+def _table_rows(sources: dict, name: str):
+    """A registered table's row count, None for any other name."""
+    n = getattr(sources.get(name.lower()), "num_rows", None)
+    return n() if callable(n) else n
+
+
 def _bind_params(stmt: ast.Statement, params: list) -> ast.Statement:
     """Substitute $n parameters with literal AST nodes (extended protocol,
     reference extended.rs:141-230 does SQL-text substitution; this does it
@@ -1122,7 +1133,7 @@ def _bind_params(stmt: ast.Statement, params: list) -> ast.Statement:
             if isinstance(v, bool):
                 return ast.BoolLit(v)
             if isinstance(v, (int, float)):
-                return ast.NumberLit(repr(v))
+                return ast.NumberLit(repr(v), bound=True)
             return ast.StringLit(str(v))
         if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
             changes = {}

@@ -11,12 +11,33 @@ Projection, non-recursive) and its ProjectionPushdown is a no-op; SURVEY.md
   conjuncts below a Join into the matching input.
 * ProjectionPushdown — prunes TableScan columns to the set actually used
   upstream, rewriting column indices.
+
+A third rule runs before them, with no counterpart in the JAX package
+(which plans a FROM list as CROSS joins under a Filter; rows agree, plans
+differ):
+
+* CommaJoins — a Filter over a tree of CROSS joins made from a FROM list
+  (`FROM a, b, c WHERE ...`) becomes a tree of INNER equi-joins. A conjunct
+  `x = y` between columns of two items keys the join that first brings both
+  together; items join largest first (the session's row counts), each next
+  one the largest that a key connects, so a fact table probes and its
+  dimensions build, as the explicit `JOIN ... ON` texts put them; a
+  conjunct over one item filters that item; any other conjunct over
+  several items filters the lowest join that covers them; a conjunct with
+  a subquery stays above the whole tree, over a projection that restores
+  the FROM list's column order, as PredicatePushdown keeps it above an
+  explicit join; a decorrelated lookup is placed as any other conjunct over
+  its columns, but never keys a join.
+  Conjuncts common to every branch of an OR are factored out first (TPC-H
+  Q19's join key). Items that nothing connects stay CROSS; an explicit
+  `JOIN ... ON` is one item, never reordered. Subquery plans inside
+  expressions are rewritten too.
 """
 
 from __future__ import annotations
 
 import copy
-from typing import List, Optional, Set
+from typing import Callable, List, Optional, Set
 
 from query_engine_tpu_torch.plan import logical as lp
 
@@ -190,6 +211,215 @@ class PredicatePushdown(OptimizationRule):
         return plan
 
 
+def _split_or(e: lp.LogicalExpr) -> List[lp.LogicalExpr]:
+    if isinstance(e, lp.BinaryExpr) and e.op is lp.BinOp.OR:
+        return _split_or(e.left) + _split_or(e.right)
+    return [e]
+
+
+def _same(a: lp.LogicalExpr, b: lp.LogicalExpr) -> bool:
+    try:
+        return bool(a == b)
+    except Exception:  # an expression whose fields do not compare
+        return False
+
+
+def _factor_or(conjuncts: List[lp.LogicalExpr]) -> List[lp.LogicalExpr]:
+    """Each OR's conjuncts common to all of its branches pulled out beside
+    it: (A AND B) OR (A AND C) is A AND (B OR C); a WHERE clause keeps a row
+    only where both are TRUE, so NULLs do not tell them apart."""
+    out = []
+    for c in conjuncts:
+        branches = [_split_and(b) for b in _split_or(c)]
+        if len(branches) < 2:
+            out.append(c)
+            continue
+        common = [x for x in branches[0]
+                  if all(any(_same(x, y) for y in b) for b in branches[1:])]
+        if not common:
+            out.append(c)
+            continue
+        rests = [[y for y in b if not any(_same(y, x) for x in common)]
+                 for b in branches]
+        out.extend(common)
+        if all(rests):  # a branch left empty makes the OR TRUE
+            ors = [_conjoin(r) for r in rests]
+            rest = ors[0]
+            for o in ors[1:]:
+                rest = lp.BinaryExpr(rest, lp.BinOp.OR, o)
+            out.append(rest)
+    return out
+
+
+def _remap(expr: lp.LogicalExpr, mapping) -> lp.LogicalExpr:
+    """A copy of expr with each ColumnRef(i) at mapping[i]."""
+    e = copy.deepcopy(expr)
+    seen = set()  # shared subexprs mutate once
+
+    def fix(x):
+        if isinstance(x, lp.ColumnRef) and id(x) not in seen:
+            seen.add(id(x))
+            x.index = mapping[x.index]
+
+    lp.walk_exprs(e, fix)
+    return e
+
+
+def _columns(expr: lp.LogicalExpr) -> Set[int]:
+    cols: Set[int] = set()
+    lp.walk_exprs(expr, lambda x: cols.add(x.index)
+                  if isinstance(x, lp.ColumnRef) else None)
+    return cols
+
+
+def _is_comma(plan: lp.LogicalPlan) -> bool:
+    return (isinstance(plan, lp.Join) and plan.join_type is lp.JoinType.CROSS
+            and plan.on is None)
+
+
+def _comma_items(plan: lp.LogicalPlan) -> List[lp.LogicalPlan]:
+    """The items of a tree of CROSS joins, left to right."""
+    if _is_comma(plan):
+        return _comma_items(plan.left) + _comma_items(plan.right)
+    return [plan]
+
+
+def _subquery_exprs(node) -> List[lp.LogicalExpr]:
+    """The subquery expressions (those holding a `plan`, a decorrelated
+    lookup's too) among a plan node's expressions, or within an
+    expression."""
+    found: List[lp.LogicalExpr] = []
+    stack = [node] if isinstance(node, lp.LogicalExpr) else [
+        v for k, v in vars(node).items() if k not in ("input", "left",
+                                                       "right")]
+    while stack:
+        v = stack.pop()
+        if isinstance(v, (list, tuple)):
+            stack.extend(v)
+        elif isinstance(v, lp.SortKey):
+            stack.append(v.expr)
+        elif isinstance(v, lp.LogicalExpr):
+            lp.walk_exprs(v, lambda x: found.append(x)
+                          if isinstance(getattr(x, "plan", None),
+                                        lp.LogicalPlan) else None)
+    return found
+
+
+class CommaJoins(OptimizationRule):
+    """A FROM list's CROSS joins under a Filter as INNER equi-joins (the
+    module docstring). `table_rows(name)` gives a table's row count, or
+    None where it is not known."""
+
+    name = "comma_joins"
+
+    def __init__(self, table_rows: Optional[Callable] = None):
+        self.table_rows = table_rows or (lambda name: None)
+
+    def apply(self, plan: lp.LogicalPlan) -> lp.LogicalPlan:
+        return self._apply(plan, {})
+
+    def _apply(self, plan: lp.LogicalPlan, done: dict) -> lp.LogicalPlan:
+        if id(plan) in done:  # a plan shared by several references
+            return done[id(plan)]
+        done[id(plan)] = plan
+        for attr in ("input", "left", "right"):
+            child = getattr(plan, attr, None)
+            if isinstance(child, lp.LogicalPlan):
+                setattr(plan, attr, self._apply(child, done))
+        for sub in _subquery_exprs(plan):
+            sub.plan = self._apply(sub.plan, done)
+        if isinstance(plan, lp.Filter) and _is_comma(plan.input):
+            done[id(plan)] = self._rebuild(plan)
+        return done[id(plan)]
+
+    def _rows(self, item: lp.LogicalPlan) -> int:
+        if isinstance(item, lp.TableScan):
+            n = self.table_rows(item.table_name)
+            if n is not None:
+                return int(n)
+        return -1
+
+    def _rebuild(self, f: lp.Filter) -> lp.LogicalPlan:
+        items = _comma_items(f.input)
+        n = len(items)
+        widths = [len(it.schema()) for it in items]
+        offs = [sum(widths[:i]) for i in range(n)]
+        owner = [i for i in range(n) for _ in range(widths[i])]
+        top: List[lp.LogicalExpr] = []
+        local: List[List[lp.LogicalExpr]] = [[] for _ in range(n)]
+        edges = []   # (item a, item b, expr on a, expr on b)
+        multi = []   # (items, conjunct)
+        for c in _factor_or(_split_and(f.predicate)):
+            its = {owner[i] for i in _columns(c)}
+            if _has_subquery_or_window(c) or not its:
+                top.append(c)
+            elif len(its) == 1:
+                (i,) = its
+                local[i].append(_shift_columns(c, -offs[i]))
+            else:
+                sides = None
+                if isinstance(c, lp.BinaryExpr) and c.op is lp.BinOp.EQ \
+                        and not _subquery_exprs(c):
+                    a = {owner[i] for i in _columns(c.left)}
+                    b = {owner[i] for i in _columns(c.right)}
+                    if len(a) == 1 and len(b) == 1 and a != b:
+                        sides = (a.pop(), b.pop())
+                if sides is not None:
+                    edges.append((sides[0], sides[1], c.left, c.right))
+                else:
+                    multi.append((its, c))
+
+        rows = [self._rows(it) for it in items]
+
+        def biggest(cands):
+            return max(cands, key=lambda i: (rows[i], -i))
+
+        def linked(j, joined):
+            return any((a == j and b in joined) or (b == j and a in joined)
+                       for a, b, _, _ in edges)
+
+        def scan(i):
+            p = items[i]
+            return lp.Filter(p, _conjoin(local[i])) if local[i] else p
+
+        order = [biggest(range(n))]
+        joined = {order[0]}
+        pos = {offs[order[0]] + k: k for k in range(widths[order[0]])}
+        tree = scan(order[0])
+        placed: Set[int] = set()
+        while len(order) < n:
+            rest = [j for j in range(n) if j not in joined]
+            j = biggest([k for k in rest if linked(k, joined)] or rest)
+            n_left = len(tree.schema())
+            right_pos = {offs[j] + k: n_left + k for k in range(widths[j])}
+            merged = {**pos, **right_pos}
+            keys = []
+            for a, b, ea, eb in edges:
+                if (a == j and b in joined) or (b == j and a in joined):
+                    lhs, rhs = (eb, ea) if a == j else (ea, eb)
+                    keys.append(lp.BinaryExpr(_remap(lhs, merged), lp.BinOp.EQ,
+                                              _remap(rhs, merged)))
+            tree = lp.Join(tree, scan(j),
+                           lp.JoinType.INNER if keys else lp.JoinType.CROSS,
+                           _conjoin(keys))
+            order.append(j)
+            joined.add(j)
+            pos = merged
+            ready = [k for k, (its, _) in enumerate(multi)
+                     if k not in placed and its <= joined]
+            if ready:
+                placed.update(ready)
+                tree = lp.Filter(tree, _conjoin(
+                    [_remap(multi[k][1], pos) for k in ready]))
+        if order != list(range(n)):
+            # the FROM list's column order, for everything above
+            fields = f.input.schema().fields
+            tree = lp.Projection(tree, [
+                lp.ColumnRef(pos[i], fd.name, fd.data_type, fd.nullable)
+                for i, fd in enumerate(fields)])
+        return lp.Filter(tree, _conjoin(top)) if top else tree
+
+
 class ProjectionPushdown(OptimizationRule):
     """Prune unused TableScan columns, rewriting upstream column indices."""
 
@@ -253,8 +483,10 @@ class ProjectionPushdown(OptimizationRule):
 class Optimizer:
     """Rule pipeline (reference optimizer.rs:16-24)."""
 
-    def __init__(self, rules: Optional[List[OptimizationRule]] = None):
+    def __init__(self, rules: Optional[List[OptimizationRule]] = None,
+                 table_rows: Optional[Callable] = None):
         self.rules = rules if rules is not None else [
+            CommaJoins(table_rows),
             PredicatePushdown(),
             ProjectionPushdown(),
         ]

@@ -11,10 +11,20 @@ Unlike the reference, aggregate outputs are typed accurately (its planner
 types every aggregate Float64, planner.rs:239 — a looseness SURVEY.md flags);
 we type them the way its *executor* actually computes (operators.rs:745-848),
 which is what result parity is measured against.
+
+Unlike the reference, a sum or difference of numeric literals with a
+fraction folds exactly, as PostgreSQL's numeric type folds it (`_exact_sum`):
+`.06 + 0.01` is 0.07 here and 0.06999999999999999 in the JAX package, so
+TPC-H Q6's `l_discount BETWEEN .06 - 0.01 AND .06 + 0.01` keeps the 0.07
+discounts here and drops them there. Rows differ wherever such a bound
+meets a value; tests/test_torch_comma_joins.py holds both. A bound
+parameter stays a DOUBLE (PostgreSQL's float8), so `$1 + 0.01` with $1 =
+0.06 folds in floats here too, as the refresh and wire tests of Q6 hold.
 """
 
 from __future__ import annotations
 
+import decimal
 from typing import Dict, List, Optional, Sequence
 
 from query_engine_tpu_torch.core.errors import PlanError
@@ -101,6 +111,44 @@ class Resolver:
             idx = matches[0]
         f = self.schema.field(idx)
         return lp.ColumnRef(idx, f.name, f.data_type, f.nullable)
+
+
+def _exact_sum(e: "ast.BinaryOp") -> Optional[lp.Literal]:
+    """Sums and differences of numeric literals, one of them with a
+    fraction (TPC-H Q6's `.06 + 0.01`), folded exactly as PostgreSQL's
+    numeric arithmetic folds them, then rounded once to DOUBLE: 0.07, where
+    float arithmetic gives 0.06999999999999999. A bound parameter is a
+    DOUBLE, as PostgreSQL takes one sent as float8, so a sum with one folds
+    in floats. None for anything else."""
+    B = ast.BinaryOperator
+    texts = []
+
+    def exact(x):
+        if isinstance(x, ast.NumberLit):
+            if x.bound:
+                return None
+            texts.append(x.value)
+            try:
+                return decimal.Decimal(x.value)
+            except decimal.InvalidOperation:
+                return None
+        if isinstance(x, ast.UnaryOp) and x.op is ast.UnaryOperator.MINUS:
+            v = exact(x.expr)
+            return None if v is None else -v
+        if isinstance(x, ast.BinaryOp) and x.op in (B.PLUS, B.MINUS):
+            a, b = exact(x.left), exact(x.right)
+            if a is None or b is None:
+                return None
+            return a + b if x.op is B.PLUS else a - b
+        return None
+
+    with decimal.localcontext() as ctx:
+        ctx.prec = 60
+        v = exact(e)
+    if v is None or not any("." in t for t in texts) or any(
+            c in t for t in texts for c in "eE"):
+        return None
+    return lp.Literal(lp.ScalarValue.float64(float(v)))
 
 
 class Planner:
@@ -536,10 +584,18 @@ class Planner:
             return self._plan_table_fn(tr, ctes)
         if isinstance(tr, ast.SubqueryRef):
             sub = self.plan_select(tr.query, ctes)
+            fields = sub.schema().fields
+            names = [unqualified(f.name) for f in fields]
+            if tr.columns:
+                if len(tr.columns) != len(fields):
+                    raise PlanError(
+                        f"derived table '{tr.alias}' has {len(fields)} "
+                        f"columns but {len(tr.columns)} names")
+                names = list(tr.columns)
             schema = prefix_schema(
                 Schema(
-                    [Field(unqualified(f.name), f.data_type, f.nullable)
-                     for f in sub.schema()]
+                    [Field(n, f.data_type, f.nullable)
+                     for n, f in zip(names, fields)]
                 ),
                 tr.alias,
             )
@@ -796,6 +852,9 @@ class Planner:
                 f"unbound parameter ${e.index} (bind parameters before planning)"
             )
         if isinstance(e, ast.BinaryOp):
+            exact = _exact_sum(e)
+            if exact is not None:
+                return exact
             left = self.plan_expr(e.left, scope, ctes)
             right = self.plan_expr(e.right, scope, ctes)
             return lp.BinaryExpr(left, _BINOP_MAP[e.op], right)

@@ -47,6 +47,10 @@ class Wildcard(Expr):
 @dataclass(frozen=True)
 class NumberLit(Expr):
     value: str  # kept as text; typed at planning (int vs float)
+    # a bound parameter's value: arithmetic takes it as the DOUBLE it was
+    # sent as (PostgreSQL's float8), where a literal written in the text is
+    # an exact numeric
+    bound: bool = field(default=False, compare=False)
 
 
 @dataclass(frozen=True)
@@ -460,6 +464,7 @@ class TableName(TableReference):
 class SubqueryRef(TableReference):
     query: "SelectStatement"
     alias: str
+    columns: tuple = ()  # AS alias (c1, ...): the output columns renamed
 
 
 @dataclass(frozen=True)

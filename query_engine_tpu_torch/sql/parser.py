@@ -55,6 +55,8 @@ _SCALAR_KWS = {
     "JSONB_EXTRACT_PATH_TEXT", "JSON_ARRAY_LENGTH", "JSON_TYPEOF",
     "JSONB_ARRAY_LENGTH", "JSONB_TYPEOF",
 }
+# the units an interval's quantity may name after its quotes
+_QUALIFIER_UNITS = {"YEAR", "MONTH", "DAY", "HOUR", "MINUTE", "SECOND"}
 _INTERVAL_UNITS = {
     "microsecond": (0, 0, 1), "microseconds": (0, 0, 1),
     "millisecond": (0, 0, 1000), "milliseconds": (0, 0, 1000),
@@ -602,7 +604,15 @@ class Parser:
             self.expect_op(")")
             self.match_kw("AS")
             alias = self.expect_alias()
-            return ast.SubqueryRef(query, alias)
+            cols = ()
+            if self.match_op("("):
+                # a derived table's column list renames its columns in order
+                names = [self.expect_ident()]
+                while self.match_op(","):
+                    names.append(self.expect_ident())
+                self.expect_op(")")
+                cols = tuple(names)
+            return ast.SubqueryRef(query, alias, cols)
         name = self.expect_ident()
         if name.upper() == "UNNEST" and self.cur.is_op("("):
             self.advance()
@@ -1146,7 +1156,7 @@ class Parser:
         if t.is_kw("INTERVAL") and self.peek().kind == "STRING":
             self.advance()
             text = self.advance().value
-            return _parse_interval(text)
+            return _parse_interval(text + self._interval_qualifier())
         if (t.is_kw("DATE", "TIMESTAMP") and self.peek().kind == "STRING"):
             # typed literals DATE '...' / TIMESTAMP '...' — sugar for the
             # string->temporal CAST (PG type 'literal' syntax)
@@ -1393,6 +1403,21 @@ class Parser:
         self.expect_op(")")
         return ast.Aggregate(func, expr, False, (frac, desc))
 
+    def _interval_qualifier(self) -> str:
+        """The SQL standard's unit after an interval's quoted quantity
+        (INTERVAL '90' DAY (3)): " <unit>" to append to the quoted text, the
+        optional leading-field precision read and dropped; "" without one."""
+        t = self.cur
+        if t.kind != "IDENT" or t.value.upper() not in _QUALIFIER_UNITS:
+            return ""
+        self.advance()
+        if self.cur.is_op("(") and self.peek().kind == "NUMBER" \
+                and self.peek(2).is_op(")"):
+            self.advance()
+            self.advance()
+            self.advance()
+        return " " + t.value.lower()
+
     def parse_scalar_function(self) -> ast.Expr:
         name = self.advance().value
         if name.startswith("JSONB_"):  # jsonb_* are aliases of json_* here
@@ -1414,6 +1439,12 @@ class Parser:
         args: List[ast.Expr] = []
         if not self.cur.is_op(")"):
             args.append(self.parse_expr())
+            if func is ast.ScalarFunction.SUBSTRING and self.match_kw("FROM"):
+                # the standard's SUBSTRING(expr FROM start [FOR length])
+                args.append(self.parse_expr())
+                if self.cur.kind == "IDENT" and self.cur.value.upper() == "FOR":
+                    self.advance()
+                    args.append(self.parse_expr())
             while self.match_op(","):
                 args.append(self.parse_expr())
         self.expect_op(")")
